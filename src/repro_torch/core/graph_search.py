@@ -1,0 +1,561 @@
+"""Graph-based filtered vector search: the batch-synchronous frontier engine
+(paper §2.3, §3.1–3.2).
+
+Strategies, one superstep loop for the whole query batch:
+
+  unfiltered      — plain HNSW base-layer search (zoom-in + beam)
+  sweeping        — traversal-first: navigate the full graph, filter-check a
+                    candidate only when it would enter the result queue W
+  acorn           — filter-first: predicate-subgraph traversal with run-time
+                    2-hop neighbor expansion (ACORN-1), with the "hardened"
+                    adaptive skip of 2-hop for passing branches
+  navix           — ACORN-1 base + NaviX heuristics (blind / directed /
+                    onehop / adaptive-local)
+  iterative_scan  — pgvector 0.8.0 resumable post-filtering
+
+Every query advances one hop per superstep.  The per-query state machine
+(pop order, masks, counter formulas, stable tie order of every merge) is
+the reference engine's, so ids, distances and the seven Table-6 counters
+agree with it exactly wherever the arithmetic is exact.  Each superstep's
+candidates are scored by the `frontier_scan` kernel, which gathers the
+candidate rows by id itself.  Finished lanes are frozen by masking: their
+pops are suppressed, their candidates are all +inf (an identity merge) and
+their counter increments are zero.
+
+The visited set is a (Q, n + 1) bool map: column n is a sink that absorbs
+the writes of -1 padding, so marking is a plain scatter.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core.costmodel import budget_cycle_weights
+from repro_torch.core.hnsw import HNSWGraph
+from repro_torch.core.types import (SearchParams, SearchStats, VectorStore,
+                                    distance, heap_pages_per_vector,
+                                    probe_batch, topk_smallest)
+from repro_torch.kernels import ops
+
+INF = float("inf")
+
+
+def _budget_over(st: SearchStats, params: SearchParams, dim: int):
+    """Anytime budget-stop predicate over the carried counters, or None
+    when no budget is set.  The deadline term prices the counters with
+    `budget_cycle_weights` in float32, in a fixed term order."""
+    terms = []
+    if params.page_budget > 0:
+        terms.append(st.page_accesses_index + st.page_accesses_heap
+                     >= params.page_budget)
+    if params.hop_budget > 0:
+        terms.append(st.hops >= params.hop_budget)
+    if params.deadline_cycles > 0:
+        cyc = None
+        for name, weight in budget_cycle_weights(dim).items():
+            w = torch.tensor(weight, dtype=torch.float32,
+                             device=st.hops.device)
+            t = getattr(st, name).to(torch.float32) * w
+            cyc = t if cyc is None else cyc + t
+        terms.append(cyc >= torch.tensor(params.deadline_cycles,
+                                         dtype=torch.float32,
+                                         device=cyc.device))
+    if not terms:
+        return None
+    out = terms[0]
+    for t in terms[1:]:
+        out = out | t
+    return out
+
+
+def _gather_vec_dist(store: VectorStore, queries: torch.Tensor,
+                     ids: torch.Tensor) -> torch.Tensor:
+    """(Q, m) distances of each query to the rows `ids` (Q, m); a -1 id
+    reads row 0, as in the reference, and callers mask it."""
+    safe = ids.clamp(min=0).to(torch.int64)
+    return distance(store.metric, queries[:, None, :], store.vectors[safe],
+                    store.norms_sq[safe])
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32)
+
+
+def _masked(active: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.where(active, _i32(v), torch.zeros_like(_i32(v)))
+
+
+def _zoom_in(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor):
+    """Greedy upper-layer descent of every query (always unfiltered, paper
+    §2.3.1 phase (i)).  Returns (entry (Q,), entry_d (Q,), stats)."""
+    qn = queries.shape[0]
+    dev = queries.device
+    ppv = heap_pages_per_vector(store.dim)
+    cur = torch.full((qn,), graph.entry_point, dtype=torch.int64, device=dev)
+    cur_d = _gather_vec_dist(store, queries, cur[:, None])[:, 0]
+    st = SearchStats.zeros((qn,), device=dev)
+    st.distance_comps += 1
+    st.page_accesses_heap += ppv
+    for lvl in range(graph.num_levels - 1, 0, -1):
+        improved = torch.ones(qn, dtype=torch.bool, device=dev)
+        while bool(improved.any()):
+            nbrs = graph.neighbors[lvl, cur].to(torch.int64)   # (Q, 2M)
+            valid = nbrs >= 0
+            d = torch.where(valid, _gather_vec_dist(store, queries, nbrs),
+                            torch.full_like(cur_d[:, None], INF))
+            j = torch.argmin(d, 1, keepdim=True)
+            dj = torch.gather(d, 1, j)[:, 0]
+            better = improved & (dj < cur_d)
+            n_valid = valid.sum(1)
+            st.distance_comps += _masked(improved, n_valid)
+            st.hops += _i32(improved)
+            st.page_accesses_index += _i32(improved)
+            st.page_accesses_heap += _masked(improved, n_valid * ppv)
+            cur = torch.where(better, torch.gather(nbrs, 1, j)[:, 0], cur)
+            cur_d = torch.where(better, dj, cur_d)
+            improved = better
+    return cur, cur_d, st
+
+
+def _frontier_scores(queries, store: VectorStore, cids, bitmaps):
+    """Scoring + filter probe of one (Q, C) candidate id block: the
+    `frontier_scan` kernel on the card, its plain version on the CPU."""
+    return ops.frontier_scan(queries, store.vectors, store.norms_sq, cids,
+                             bitmaps, metric=store.metric)
+
+
+def _merge_smallest(buf_d, buf_id, cand_d, cand_id, drop_head=None):
+    """Keep the B smallest of buffer ∪ candidates, sorted ascending, ties
+    in concat order (buffer first, then candidates in order).  `drop_head`
+    (per-row bool) first drops the buffer's slot 0: the pool pop."""
+    qn, b = buf_d.shape
+    if drop_head is not None:
+        sd = torch.cat([buf_d[:, 1:], torch.full_like(buf_d[:, :1], INF)], 1)
+        si = torch.cat([buf_id[:, 1:], torch.full_like(buf_id[:, :1], -1)],
+                       1)
+        buf_d = torch.where(drop_head[:, None], sd, buf_d)
+        buf_id = torch.where(drop_head[:, None], si, buf_id)
+    d = torch.cat([buf_d, cand_d], 1)
+    i = torch.cat([buf_id, cand_id], 1)
+    nd, pos = topk_smallest(d, b)
+    return nd, torch.gather(i, 1, pos)
+
+
+def _probe_visited(visited: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """(Q, n + 1) visited map probed at (Q, ...) ids; -1 -> False."""
+    flat = ids.reshape(ids.shape[0], -1)
+    hit = torch.gather(visited, 1, flat.clamp(min=0))
+    return (hit & (flat >= 0)).reshape(ids.shape)
+
+
+def _mark(visited: torch.Tensor, ids: torch.Tensor,
+          mask: torch.Tensor) -> torch.Tensor:
+    """Mark ids[mask] visited, in place (the map is Q x n bytes, too large
+    to copy each superstep); everything else lands in the sink column.
+    Every probe that needs the unmarked state runs before the mark."""
+    sink = visited.shape[1] - 1
+    idx = torch.where(mask & (ids >= 0), ids, torch.full_like(ids, sink))
+    return visited.scatter_(1, idx.reshape(ids.shape[0], -1), True)
+
+
+def _dedup_first(ids: torch.Tensor) -> torch.Tensor:
+    """Per row, mask of first occurrences (-1 -> False)."""
+    srt, order = torch.sort(ids, dim=1, stable=True)
+    first = torch.cat([torch.ones_like(srt[:, :1], dtype=torch.bool),
+                       srt[:, 1:] != srt[:, :-1]], 1)
+    mask = torch.zeros_like(first).scatter(1, order, first)
+    return mask & (ids >= 0)
+
+
+def _compact_positions(mask: torch.Tensor, pad_to: int) -> torch.Tensor:
+    """Per row, positions of the True entries in order, -1 padded."""
+    cs = torch.cumsum(mask.to(torch.int64), 1)
+    want = torch.arange(1, pad_to + 1, device=mask.device)
+    pos = torch.searchsorted(cs, want.expand(mask.shape[0], pad_to)
+                             .contiguous())
+    return torch.where(want[None, :] <= cs[:, -1:], pos,
+                       torch.full_like(pos, -1))
+
+
+def _score_insert_chunks(queries, bitmaps, store, cand_ids, sel_mask,
+                         chunk: int, pool, w, visited, sweep_worst=None,
+                         dedup: bool = False, drop_head=None):
+    """Score the selected candidates chunk at a time and merge them into
+    the pool and the result queue, marking them visited as chunks finish.
+
+    cand_ids (Q, m), sel_mask (Q, m): candidates needing distances, walked
+    in flat order so insertion (and tie) order is the single-shot one.
+    `sweep_worst` (sweeping) gates W insertion on d < sweep_worst and the
+    filter probe, and counts the would-enter-W checks.  `dedup` (filter-
+    first 2-hop) drops candidates already visited and repeats within a
+    chunk.  `drop_head` folds the superstep's pool pop into the first
+    merge.  Returns (pool_d, pool_id, w_d, w_id, visited, n_would)."""
+    qn, m = cand_ids.shape
+    c = m if chunk <= 0 else min(chunk, m)
+    pool_d, pool_id = pool
+    w_d, w_id = w
+    n_would = torch.zeros(qn, dtype=torch.int32, device=queries.device)
+
+    def step(pd, pi, wd, wi, vis, nw, cids, drop):
+        if dedup:
+            seen = _probe_visited(vis, cids)
+            cids = torch.where(_dedup_first(cids) & ~seen, cids,
+                               torch.full_like(cids, -1))
+        valid = cids >= 0
+        dch, pch = _frontier_scores(queries, store, cids, bitmaps)
+        cd = torch.where(valid, dch, torch.full_like(dch, INF))
+        if sweep_worst is not None:
+            would = valid & (cd < sweep_worst[:, None])
+            nw = nw + _i32(would.sum(1))
+            enter = would & pch
+            wd_in = torch.where(enter, cd, torch.full_like(cd, INF))
+            wi_in = torch.where(enter, cids, torch.full_like(cids, -1))
+        else:
+            wd_in, wi_in = cd, cids
+        pd, pi = _merge_smallest(pd, pi, cd, cids, drop)
+        wd, wi = _merge_smallest(wd, wi, wd_in, wi_in)
+        return pd, pi, wd, wi, _mark(vis, cids, valid), nw
+
+    if c >= m:
+        # one chunk: score the masked candidates in place
+        cids = torch.where(sel_mask, cand_ids, torch.full_like(cand_ids, -1))
+        return step(pool_d, pool_id, w_d, w_id, visited, n_would, cids,
+                    drop_head)
+
+    if drop_head is not None:   # pop up front: the loop may not run at all
+        pool_d = torch.where(drop_head[:, None], torch.cat(
+            [pool_d[:, 1:], torch.full_like(pool_d[:, :1], INF)], 1), pool_d)
+        pool_id = torch.where(drop_head[:, None], torch.cat(
+            [pool_id[:, 1:], torch.full_like(pool_id[:, :1], -1)], 1),
+            pool_id)
+    padlen = -(-m // c) * c
+    pos = _compact_positions(sel_mask, padlen)
+    n_chunks = -(-int(sel_mask.sum(1).max()) // c) if qn else 0
+    for i in range(n_chunks):
+        cpos = pos[:, i * c:(i + 1) * c]
+        cids = torch.where(cpos >= 0,
+                           torch.gather(cand_ids, 1, cpos.clamp(min=0)),
+                           torch.full_like(cpos, -1))
+        pool_d, pool_id, w_d, w_id, visited, n_would = step(
+            pool_d, pool_id, w_d, w_id, visited, n_would, cids, None)
+    return pool_d, pool_id, w_d, w_id, visited, n_would
+
+
+@dataclasses.dataclass
+class _Lanes:
+    """Per-query loop state of the frontier engines."""
+    pool_d: torch.Tensor
+    pool_id: torch.Tensor
+    w_d: torch.Tensor
+    w_id: torch.Tensor
+    visited: torch.Tensor
+    st: SearchStats
+    done: torch.Tensor
+
+
+def _init_lanes(graph: HNSWGraph, entry, entry_d, st: SearchStats,
+                params: SearchParams, w_width: int,
+                seed_ok: torch.Tensor) -> _Lanes:
+    qn = entry.shape[0]
+    dev = entry.device
+    rows = torch.arange(qn, device=dev)
+    pool_d = torch.full((qn, params.beam_width), INF, device=dev)
+    pool_id = torch.full((qn, params.beam_width), -1, dtype=torch.int64,
+                         device=dev)
+    pool_d[:, 0], pool_id[:, 0] = entry_d, entry
+    visited = torch.zeros((qn, graph.n + 1), dtype=torch.bool, device=dev)
+    visited[rows, entry] = True
+    w_d = torch.full((qn, w_width), INF, device=dev)
+    w_id = torch.full((qn, w_width), -1, dtype=torch.int64, device=dev)
+    w_d[:, 0] = torch.where(seed_ok, entry_d, torch.full_like(entry_d, INF))
+    w_id[:, 0] = torch.where(seed_ok, entry, torch.full_like(entry, -1))
+    return _Lanes(pool_d, pool_id, w_d, w_id, visited, st,
+                  torch.zeros(qn, dtype=torch.bool, device=dev))
+
+
+def _count(st: SearchStats, active, dc, fc, pai, pah, tm) -> SearchStats:
+    return SearchStats(st.distance_comps + _masked(active, dc),
+                       st.filter_checks + _masked(active, fc),
+                       st.hops + _i32(active),
+                       st.page_accesses_index + _masked(active, pai),
+                       st.page_accesses_heap + _masked(active, pah),
+                       st.tmap_lookups + _masked(active, tm),
+                       st.reorder_rows)
+
+
+def _base_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
+                    params: SearchParams, ef_result: int,
+                    s: _Lanes) -> _Lanes:
+    """One superstep of the base (non-iterative) engine."""
+    qn = queries.shape[0]
+    strat = params.strategy
+    ppv = heap_pages_per_vector(store.dim)
+    deg = graph.neighbors.shape[2]
+    tm_on = params.translation_map
+    we_idx = params.ef_search - 1 if ef_result >= params.ef_search \
+        else ef_result - 1
+
+    # the pool is kept sorted, so the pop is always slot 0
+    best_d, best_id = s.pool_d[:, 0], s.pool_id[:, 0]
+    w_worst = s.w_d[:, we_idx]
+    stop = (best_d > w_worst) | torch.isinf(best_d) | \
+        (s.st.hops >= params.max_hops)
+    over = _budget_over(s.st, params, store.dim)
+    if over is not None:
+        stop = stop | over
+    active = ~s.done & ~stop
+    node = best_id.clamp(min=0)
+
+    nb1 = graph.neighbors[0, node].to(torch.int64)            # (Q, deg)
+    v1 = nb1 >= 0
+    unv1 = v1 & ~_probe_visited(s.visited, nb1)
+    zero = torch.zeros(qn, dtype=torch.int64, device=queries.device)
+    dc, fc, pai, pah, tm = zero, zero, zero + 1, zero, zero
+
+    if strat in ("unfiltered", "sweeping"):
+        # traversal-first: score every unvisited 1-hop neighbor
+        n_s = unv1.sum(1)
+        dc, pah = dc + n_s, pah + n_s * ppv
+        pool_d, pool_id, w_d, w_id, visited, n_w = _score_insert_chunks(
+            queries, bitmaps, store, nb1, unv1 & active[:, None],
+            params.frontier_chunk, (s.pool_d, s.pool_id), (s.w_d, s.w_id),
+            s.visited, sweep_worst=w_worst if strat == "sweeping" else None,
+            drop_head=active)
+        if strat == "sweeping":
+            fc = fc + n_w
+            if tm_on:
+                tm = tm + n_w
+            else:
+                pai = pai + n_w
+    else:
+        # filter-first (acorn / navix): the predicate subgraph
+        d1, pass1 = _frontier_scores(queries, store, nb1, bitmaps)
+        n1 = v1.sum(1)
+        fc = fc + n1                                   # check all 1-hop
+        if tm_on:
+            tm = tm + n1
+        else:
+            pai = pai + n1
+        pass1v = pass1 & v1
+        local_sel = pass1v.sum(1) / n1.clamp(min=1)
+        false = torch.zeros(qn, dtype=torch.bool, device=queries.device)
+        do_directed, do_twohop_all = false, ~false
+        if strat == "navix":
+            h = params.navix_heuristic
+            if h == "directed":
+                do_directed, do_twohop_all = ~false, false
+            elif h == "onehop":
+                do_twohop_all = false
+            elif h != "blind":       # adaptive-local (paper §2.3.4)
+                sel32 = local_sel.to(torch.float32)
+                do_directed = (sel32 > 0.08) & (sel32 <= 0.35)
+                do_twohop_all = sel32 <= 0.08
+
+        # 1-hop: score the passing, unvisited ones
+        s1 = pass1v & unv1
+        n_s1 = s1.sum(1)
+        dc, pah = dc + n_s1, pah + n_s1 * ppv
+
+        # which branches expand to 2 hops
+        expand = v1
+        if params.adaptive_skip_2hop:
+            expand = expand & ~pass1v
+        if strat == "navix" and params.navix_heuristic in ("directed",
+                                                           "adaptive"):
+            rank = torch.sort(torch.where(v1, d1, torch.full_like(d1, INF)),
+                              dim=1, stable=True).indices
+            topr = torch.zeros_like(v1).scatter(
+                1, rank[:, :max(1, deg // 4)], True)
+            expand = torch.where(do_twohop_all[:, None], expand,
+                                 do_directed[:, None] & expand & topr)
+            extra = torch.where(do_directed, (v1 & ~s1).sum(1), zero)
+            dc, pah = dc + extra, pah + extra * ppv
+        elif strat == "navix" and params.navix_heuristic == "onehop":
+            expand = torch.zeros_like(expand)
+
+        pai = pai + expand.sum(1)                      # branch pages
+        nb2 = graph.neighbors[0, nb1.clamp(min=0)].to(torch.int64)
+        nb2 = torch.where(v1[:, :, None], nb2, torch.full_like(nb2, -1))
+        v2 = nb2 >= 0
+        pass2 = probe_batch(bitmaps, nb2)
+        unv2 = v2 & ~_probe_visited(s.visited, nb2)
+        m2 = v2 & expand[:, :, None]
+        n2 = m2.sum((1, 2))
+        fc = fc + n2                                   # 2-hop checks
+        if tm_on:
+            tm = tm + n2
+        else:
+            pai = pai + n2
+        s2 = m2 & pass2 & unv2
+        n_s2 = s2.sum((1, 2))
+        dc, pah = dc + n_s2, pah + n_s2 * ppv
+
+        # 1-hop insertion + marking first (neighbor lists hold no repeats),
+        # with the pool pop folded in
+        ins1 = s1 & active[:, None]
+        in1_d = torch.where(ins1, d1, torch.full_like(d1, INF))
+        in1_i = torch.where(ins1, nb1, torch.full_like(nb1, -1))
+        pool_d, pool_id = _merge_smallest(s.pool_d, s.pool_id, in1_d, in1_i,
+                                          active)
+        w_d, w_id = _merge_smallest(s.w_d, s.w_id, in1_d, in1_i)
+        visited = _mark(s.visited, nb1, ins1)
+        # lazy 2-hop: chunks dedup against visited marks as they go
+        cid2 = torch.where(s2, nb2, torch.full_like(nb2, -1)).reshape(qn, -1)
+        pool_d, pool_id, w_d, w_id, visited, _ = _score_insert_chunks(
+            queries, bitmaps, store, cid2,
+            s2.reshape(qn, -1) & active[:, None], params.frontier_chunk2,
+            (pool_d, pool_id), (w_d, w_id), visited, dedup=True)
+
+    st = _count(s.st, active, dc, fc, pai, pah, tm)
+    return _Lanes(pool_d, pool_id, w_d, w_id, visited, st, s.done | stop)
+
+
+def _frontier_base(graph, store, queries, bitmaps, params, entry, entry_d,
+                   st, ef_result: int):
+    """The base engine's superstep loop.  Returns (W_d, W_id) sorted
+    ascending and the stats."""
+    seed_ok = probe_batch(bitmaps, entry[:, None])[:, 0] \
+        | (params.strategy in ("unfiltered", "iterative_scan"))
+    s = _init_lanes(graph, entry, entry_d, st, params, ef_result, seed_ok)
+    while not bool(s.done.all()):
+        s = _base_superstep(graph, store, queries, bitmaps, params,
+                            ef_result, s)
+    return s.w_d, s.w_id, s.st
+
+
+def _iter_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
+                    params: SearchParams, s: _Lanes, eff, rnd, checked):
+    """One superstep of the iterative-scan engine: emit (post-filter the
+    batch, maybe extend the scan) or expand."""
+    ppv = heap_pages_per_vector(store.dim)
+    efmax = params.batch_tuples * params.max_rounds
+    tm_on = params.translation_map
+
+    best_d, best_id = s.pool_d[:, 0], s.pool_id[:, 0]
+    w_worst = torch.gather(s.w_d, 1, (eff.clamp(max=efmax) - 1)[:, None])[:, 0]
+    over = _budget_over(s.st, params, store.dim)
+    batch_done = (best_d > w_worst) | torch.isinf(best_d) | \
+        (s.st.hops >= params.max_hops)
+    if over is not None:
+        batch_done = batch_done | over
+    live = ~s.done
+    active = live & ~batch_done
+
+    # resume / emit: filter the batch, maybe extend the scan
+    in_batch = torch.arange(efmax, device=eff.device)[None, :] < eff[:, None]
+    n_pass = (probe_batch(bitmaps, s.w_id) & in_batch
+              & (s.w_id >= 0)).sum(1)
+    newly = (eff.clamp(max=efmax) - checked).clamp(min=0)
+    fc_emit = torch.where(live & batch_done, newly, torch.zeros_like(newly))
+    enough = n_pass >= params.k
+    exhausted = torch.isinf(best_d) | (s.st.hops >= params.max_hops) | \
+        (rnd + 1 >= params.max_rounds)
+    if over is not None:
+        exhausted = exhausted | over
+    finish = batch_done & (enough | exhausted)
+    extend = live & batch_done & ~finish
+    eff2 = torch.where(extend, eff + params.batch_tuples, eff)
+    rnd2 = torch.where(extend, rnd + 1, rnd)
+    checked2 = torch.where(live & batch_done, eff.clamp(max=efmax), checked)
+
+    # expansion, on the active lanes only
+    nb1 = graph.neighbors[0, best_id.clamp(min=0)].to(torch.int64)
+    score_m = (nb1 >= 0) & ~_probe_visited(s.visited, nb1)
+    n_s = score_m.sum(1)
+    pool_d, pool_id, w_d, w_id, visited, _ = _score_insert_chunks(
+        queries, bitmaps, store, nb1, score_m & active[:, None],
+        params.frontier_chunk, (s.pool_d, s.pool_id), (s.w_d, s.w_id),
+        s.visited, drop_head=active)
+
+    zero = torch.zeros_like(fc_emit)
+    st = s.st
+    st = SearchStats(
+        st.distance_comps + _masked(active, n_s),
+        st.filter_checks + _i32(fc_emit),
+        st.hops + _i32(active),
+        st.page_accesses_index + _i32(active)
+        + _i32(zero if tm_on else fc_emit),
+        st.page_accesses_heap + _masked(active, n_s * ppv),
+        st.tmap_lookups + _i32(fc_emit if tm_on else zero),
+        st.reorder_rows)
+    lanes = _Lanes(pool_d, pool_id, w_d, w_id, visited, st,
+                   s.done | (live & finish))
+    return lanes, eff2, rnd2, checked2
+
+
+def _frontier_iterative(graph, store, queries, bitmaps, params, entry,
+                        entry_d, st):
+    """The iterative-scan engine: unfiltered traversal into a resumable
+    (EFMAX,) result buffer, post-filtered at emit time."""
+    qn = queries.shape[0]
+    dev = queries.device
+    efmax = params.batch_tuples * params.max_rounds
+    s = _init_lanes(graph, entry, entry_d, st, params, efmax,
+                    torch.ones(qn, dtype=torch.bool, device=dev))
+    eff = torch.full((qn,), params.batch_tuples, dtype=torch.int64,
+                     device=dev)
+    rnd = torch.zeros(qn, dtype=torch.int64, device=dev)
+    checked = torch.zeros(qn, dtype=torch.int64, device=dev)
+    while not bool(s.done.all()):
+        s, eff, rnd, checked = _iter_superstep(graph, store, queries,
+                                               bitmaps, params, s, eff, rnd,
+                                               checked)
+    in_batch = torch.arange(efmax, device=dev)[None, :] < eff[:, None]
+    dm = torch.where(in_batch, s.w_d, torch.full_like(s.w_d, INF))
+    im = torch.where(in_batch, s.w_id, torch.full_like(s.w_id, -1))
+    ok = probe_batch(bitmaps, im) & (im >= 0)
+    dk, pos = topk_smallest(torch.where(ok, dm, torch.full_like(dm, INF)),
+                            params.k)
+    ids = torch.where(torch.isinf(dk), torch.full_like(pos, -1),
+                      torch.gather(im, 1, pos))
+    return dk, ids, s.st
+
+
+def _finalize(w_d, w_id, bitmaps, k: int, check_filter: bool):
+    """Top-k filter-passing results out of the sorted W buffers."""
+    ok = w_id >= 0
+    if check_filter:
+        ok = ok & probe_batch(bitmaps, w_id)
+    d = torch.where(ok, w_d, torch.full_like(w_d, INF))
+    dk, pos = topk_smallest(d, k)
+    ids = torch.where(torch.isinf(dk), torch.full_like(pos, -1),
+                      torch.gather(w_id, 1, pos))
+    return dk, ids
+
+
+def _frontier_search_batch(graph: HNSWGraph, store: VectorStore, queries,
+                           bitmaps, params: SearchParams):
+    entry, entry_d, st = _zoom_in(graph, store, queries)
+    if params.strategy == "iterative_scan":
+        dk, ids, st = _frontier_iterative(graph, store, queries, bitmaps,
+                                          params, entry, entry_d, st)
+    else:
+        w_d, w_id, st = _frontier_base(graph, store, queries, bitmaps,
+                                       params, entry, entry_d, st,
+                                       ef_result=params.ef_search)
+        dk, ids = _finalize(w_d, w_id, bitmaps, params.k,
+                            check_filter=params.strategy != "unfiltered")
+    return dk, ids.to(torch.int32), st
+
+
+def search_batch(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor,
+                 bitmaps: torch.Tensor, params: SearchParams):
+    """Batched filtered graph search on the frontier engine.
+    queries (Q, d), bitmaps (Q, W) int32.  Returns (dists (Q, k),
+    ids (Q, k) int32, SearchStats with (Q,) counters)."""
+    if params.graph_quant != "none":
+        raise NotImplementedError(
+            "graph_quant='sq8' is not ported yet (ROADMAP 1.4b, the SQ8 "
+            "graph tier)")
+    if params.exclusion != "none":
+        raise NotImplementedError(
+            "exclusion pruning is not ported yet (ROADMAP 1.9)")
+    if params.graph_exec_mode != "frontier":
+        raise NotImplementedError(
+            f"graph_exec_mode={params.graph_exec_mode!r}: only the frontier "
+            "engine is ported (the vmapped engine is ROADMAP 1.8)")
+    if params.strategy not in ("unfiltered", "sweeping", "acorn", "navix",
+                               "iterative_scan"):
+        raise ValueError(f"unknown graph strategy {params.strategy!r}")
+    return _frontier_search_batch(graph, store, queries, bitmaps, params)

@@ -1,0 +1,68 @@
+"""Carry the reference package's objects across to the port.
+
+Each function reads the reference object's attributes through
+`np.asarray` (so it needs no import of the reference package) and builds
+the port's object on the chosen device.  This is what lets both sides
+search the very same index in the parity tests.  uint32 bitmaps become the
+port's bit-reinterpreted int32 words.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.hnsw import HNSWGraph
+from repro_torch.core.scann import ScannIndex
+from repro_torch.core.types import (VectorStore, resolve_device,
+                                    words_from_uint32)
+
+
+def _t(x, device, dtype=None) -> torch.Tensor:
+    arr = np.array(np.asarray(x), copy=True)
+    t = torch.as_tensor(arr, device=device)
+    return t if dtype is None else t.to(dtype)
+
+
+def vector_store(store, device="cuda") -> VectorStore:
+    """A reference VectorStore (vectors, norms_sq, metric)."""
+    dev = resolve_device(device)
+    return VectorStore(vectors=_t(store.vectors, dev, torch.float32),
+                       norms_sq=_t(store.norms_sq, dev, torch.float32),
+                       metric=store.metric)
+
+
+def hnsw_graph(graph, device="cuda") -> HNSWGraph:
+    """A reference HNSWGraph (neighbors, node_level, entry_point, m)."""
+    dev = resolve_device(device)
+    return HNSWGraph(neighbors=_t(graph.neighbors, dev, torch.int32),
+                     node_level=_t(graph.node_level, dev, torch.int32),
+                     entry_point=int(np.asarray(graph.entry_point)),
+                     m=int(graph.m))
+
+
+def scann_index(index, device="cuda") -> ScannIndex:
+    """A reference ScannIndex, row norms included."""
+    dev = resolve_device(device)
+    tiles = _t(index.leaf_tiles, dev, torch.int8)
+    scale = _t(index.scale, dev, torch.float32)
+    mean = _t(index.mean, dev, torch.float32)
+    norms = getattr(index, "row_norms_sq", None)
+    if norms is None:
+        x = tiles.to(torch.float32) * scale + mean
+        norms_t = (x * x).sum(-1)
+    else:
+        norms_t = _t(norms, dev, torch.float32)
+    return ScannIndex(
+        leaf_tiles=tiles,
+        leaf_rowids=_t(index.leaf_rowids, dev, torch.int32),
+        leaf_centroids=_t(index.leaf_centroids, dev, torch.float32),
+        scale=scale, mean=mean,
+        branch_centroids=_t(index.branch_centroids, dev, torch.float32),
+        branch_leaves=_t(index.branch_leaves, dev, torch.int32),
+        pca=_t(index.pca, dev, torch.float32),
+        row_norms_sq=norms_t, metric=index.metric, levels=int(index.levels))
+
+
+def bitmaps(words, device="cuda") -> torch.Tensor:
+    """Reference uint32 bitmap words (any shape) -> the port's int32."""
+    return words_from_uint32(np.asarray(words), device=device)

@@ -1,0 +1,139 @@
+"""Build the CUDA sources under `csrc/` with nvcc and bind them with ctypes.
+
+Each source is compiled on first use into its own shared library with a
+plain C interface (`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+-Xcompiler -fPIC`), named by a hash of the source so an edited kernel is
+rebuilt, under `build/kernels/` at the root of the checkout.  Nothing is
+compiled when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# C entry points of each source and their argument types: "p" a pointer or
+# the stream (c_void_p), "i" an int (c_int).  Every entry returns the
+# cudaError_t of its launch.
+SIGNATURES = {
+    "frontier_scan": {"frontier_scan_f32": "pppppppiiiiiiip"},
+    "distance": {"distance_matrix_f32": "pppiiiip"},
+    "leaf_scan": {"leaf_scan_batched_f32": "ppppppppiiiiiip"},
+}
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+# Launches of each kernel since the last reset: each CUDA wrapper adds one
+# right after its kernel launched, and nothing else touches the counts.
+LAUNCHES = {"frontier_scan": 0, "distance_matrix": 0, "leaf_scan_batched": 0}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(home, "bin", "nvcc")
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for one source; returns (process, tmp path, final path),
+    or None when the library is already built."""
+    out = _lib_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish_build(name: str, started) -> None:
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all(names=tuple(SIGNATURES)) -> float:
+    """Compile every named source, all nvcc processes running at once.
+    Returns the wall seconds the build took (0 when all were built)."""
+    t0 = time.perf_counter()
+    started = {n: _start_build(n) for n in names}
+    errors = []
+    for n, s in started.items():
+        if s is None:
+            continue
+        try:
+            _finish_build(n, s)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library of `csrc/<name>.cu`, built on first use."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    started = _start_build(name)
+    if started is not None:
+        _finish_build(name, started)
+    lib = ctypes.CDLL(str(_lib_path(name)))
+    for fn, sig in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
+                      for c in sig]
+        f.restype = ctypes.c_int
+    _LOADED[name] = lib
+    return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise when a C entry point reports a failed launch; count it when it
+    launched."""
+    if status != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {status}")
+    LAUNCHES[what] += 1
+
+
+def metric_code(metric: str, kernel: str) -> int:
+    """The kernels' metric argument: 0 for L2, 1 for inner product."""
+    codes = {"l2": 0, "ip": 1}
+    if metric not in codes:
+        raise NotImplementedError(f"{kernel} kernel: metric {metric!r}")
+    return codes[metric]
+
+
+def require(t, dtype, shape, name: str) -> None:
+    """Check one kernel argument: a contiguous CUDA tensor of this dtype
+    and shape."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

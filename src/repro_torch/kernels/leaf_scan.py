@@ -1,0 +1,48 @@
+"""The batched ScaNN leaf-scan CUDA kernel (csrc/leaf_scan.cu) and its plain
+version: each opened int8 leaf tile is read once per query tile,
+dequantized in the kernel, scored against the whole query block and
+filtered by each query's bitmap."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import (  # noqa: F401
+    leaf_scan_batched_ref as plain)
+
+
+def leaf_scan_batched_cuda(queries: torch.Tensor, tiles: torch.Tensor,
+                           rowids: torch.Tensor, scale: torch.Tensor,
+                           mean: torch.Tensor, bitmaps: torch.Tensor,
+                           row_norms_sq: torch.Tensor,
+                           metric: str = "l2") -> torch.Tensor:
+    """queries (Q, d) f32, tiles (U, C, d) int8, rowids (U, C) int32,
+    scale/mean (d,) f32, bitmaps (Q, W) int32, row_norms_sq (U, C) f32, all
+    contiguous on one CUDA device -> (Q, U, C) f32 scores, +inf where a row
+    is padded or filtered out."""
+    code = build.metric_code(metric, "leaf_scan_batched")
+    qn, d = queries.shape
+    u, c, _ = tiles.shape
+    w = bitmaps.shape[1]
+    build.require(queries, torch.float32, (qn, d), "queries")
+    build.require(tiles, torch.int8, (u, c, d), "tiles")
+    build.require(rowids, torch.int32, (u, c), "rowids")
+    build.require(scale, torch.float32, (d,), "scale")
+    build.require(mean, torch.float32, (d,), "mean")
+    build.require(bitmaps, torch.int32, (qn, w), "bitmaps")
+    build.require(row_norms_sq, torch.float32, (u, c), "row_norms_sq")
+    dev = queries.device
+    for t in (tiles, rowids, scale, mean, bitmaps, row_norms_sq):
+        if t.device != dev:
+            raise ValueError("leaf_scan_batched: tensors on different devices")
+    if u > 65535 or -(-qn // 64) > 65535:
+        raise ValueError(f"leaf_scan_batched kernel: U={u}, Q={qn} too large")
+    out = torch.empty((qn, u, c), dtype=torch.float32, device=dev)
+    lib = build.load("leaf_scan")
+    status = lib.leaf_scan_batched_f32(
+        queries.data_ptr(), tiles.data_ptr(), rowids.data_ptr(),
+        scale.data_ptr(), mean.data_ptr(), bitmaps.data_ptr(),
+        row_norms_sq.data_ptr(), out.data_ptr(), qn, u, c, d, w,
+        code, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(status, "leaf_scan_batched")
+    return out

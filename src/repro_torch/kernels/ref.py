@@ -1,0 +1,93 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+They are the CPU path of `ops` and the yardstick `chip_smoke.py` holds each
+CUDA kernel against on the card.  Their arithmetic follows the reference's
+jnp oracles: the distance matrix and the leaf scan contract with a matrix
+product, the frontier scan with an elementwise product and a last-axis sum
+(the search engines' `distance`).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.types import probe_batch
+
+INF = float("inf")
+
+
+def distance_matrix_ref(queries: torch.Tensor, rows: torch.Tensor,
+                        metric: str = "l2") -> torch.Tensor:
+    """(Q, N) distances; lower = closer.  queries (Q, d), rows (N, d) f32."""
+    ip = queries @ rows.T
+    if metric == "ip":
+        return -ip
+    qn = (queries * queries).sum(1, keepdim=True)
+    rn = (rows * rows).sum(1)[None, :]
+    return qn + rn - 2.0 * ip
+
+
+def probe_bitmap_ref(bitmap: torch.Tensor, row_ids: torch.Tensor
+                     ) -> torch.Tensor:
+    """One (W,) int32 bitmap probed at `row_ids`; negative ids -> False."""
+    safe = row_ids.clamp(min=0).to(torch.int64)
+    word = bitmap[safe >> 5]
+    bit = torch.bitwise_right_shift(word, (safe & 31).to(word.dtype)) & 1
+    return (bit == 1) & (row_ids >= 0)
+
+
+def leaf_scan_batched_ref(queries: torch.Tensor, tiles: torch.Tensor,
+                          rowids: torch.Tensor, scale: torch.Tensor,
+                          mean: torch.Tensor, bitmaps: torch.Tensor,
+                          row_norms_sq: torch.Tensor | None = None,
+                          metric: str = "l2") -> torch.Tensor:
+    """Query-batched filtered leaf scoring.
+
+    queries (Q, d) f32, tiles (U, C, d) int8, rowids (U, C) int32 (-1
+    padded), scale/mean (d,) f32 with x = tile * scale + mean, bitmaps
+    (Q, W) int32, row_norms_sq (U, C) f32 or None
+    -> (Q, U, C) f32, +inf where a row is padded or filtered out."""
+    x = tiles.to(torch.float32) * scale + mean                 # (U, C, d)
+    ip = torch.einsum("qd,ucd->quc", queries, x)
+    if metric == "ip":
+        d = -ip
+    else:
+        xn = row_norms_sq if row_norms_sq is not None else (x * x).sum(-1)
+        qn = (queries * queries).sum(-1)
+        d = qn[:, None, None] + xn[None] - 2.0 * ip
+    u, c = rowids.shape
+    ok = probe_batch(bitmaps, rowids.reshape(1, -1).expand(
+        queries.shape[0], u * c)).reshape(-1, u, c)
+    return torch.where(ok, d, torch.full_like(d, INF))
+
+
+def frontier_scan_chunk_ref(queries: torch.Tensor, vecs: torch.Tensor,
+                            norms: torch.Tensor, ids: torch.Tensor,
+                            bitmaps: torch.Tensor, metric: str = "l2"
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Frontier-chunk scoring on an already gathered block (the reference
+    oracle's signature): queries (Q, d), vecs (Q, C, d), norms (Q, C),
+    ids (Q, C), bitmaps (Q, W) -> (dists (Q, C) with +inf at padded ids,
+    pass (Q, C) bool)."""
+    q = queries[:, None, :]
+    if metric == "ip":
+        d = -(q * vecs).sum(-1)
+    elif metric == "cos":
+        qn = torch.linalg.norm(q, dim=-1) + 1e-12
+        vn = torch.linalg.norm(vecs, dim=-1) + 1e-12
+        d = 1.0 - (q * vecs).sum(-1) / (qn * vn)
+    else:
+        qn = (q * q).sum(-1)
+        d = qn + norms - 2.0 * (q * vecs).sum(-1)
+    ok = probe_batch(bitmaps, ids)
+    return torch.where(ids >= 0, d, torch.full_like(d, INF)), ok
+
+
+def frontier_scan_ref(queries: torch.Tensor, rows: torch.Tensor,
+                      norms: torch.Tensor, ids: torch.Tensor,
+                      bitmaps: torch.Tensor, metric: str = "l2"
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Frontier scan that gathers its candidates by id: queries (Q, d),
+    rows (n, d), norms (n,), ids (Q, C) -1 padded, bitmaps (Q, W)."""
+    safe = ids.clamp(min=0).to(torch.int64)
+    return frontier_scan_chunk_ref(queries, rows[safe], norms[safe], ids,
+                                   bitmaps, metric)
