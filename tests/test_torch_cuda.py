@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain versions, and the
 search path on the card against the CPU.  These need an NVIDIA card with
-nvcc (run them there with `python -m pytest -m gpu tests/test_torch_cuda.py`);
-without one each test skips."""
+nvcc; without one each test skips.  On the card, without JAX:
+`PYTHONPATH=src python -m pytest -q --noconftest -m gpu
+tests/test_torch_cuda.py`."""
 import dataclasses
 
 import numpy as np
