@@ -111,7 +111,6 @@ def counter_means(res) -> dict[str, float]:
 # ---------------------------------------------------------------------------
 
 def phase_parity(n: int, nq: int, report: dict, dev="cuda") -> None:
-    import torch
     from repro_torch.core import (WorkloadSpec, build_graph_blocked,
                                   build_scann, filtered_knn,
                                   generate_bitmaps, make_executor,

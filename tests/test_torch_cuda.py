@@ -5,7 +5,6 @@ nvcc; without one each test skips.  On the card, without JAX:
 tests/test_torch_cuda.py`."""
 import dataclasses
 
-import numpy as np
 import pytest
 import torch
 

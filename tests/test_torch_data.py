@@ -1,6 +1,5 @@
 """Datasets, workload bitmaps and the bruteforce ground truth of the port
 against the reference (tensors on the CPU)."""
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
