@@ -7,17 +7,25 @@ check it, end to end.
 
 Phases:
   device    the card's name and power limit; the kernels' build time
-  parity    a 20,000 x 128 clustered store, indexes built once; every
-            quickstart method runs on CPU tensors (the plain versions) and on
-            CUDA tensors (the kernels): recall@10 within 0.01 and the mean of
-            each of the seven Table-6 counters within 1 %
+  parity    a 20,000 x 128 clustered store, indexes, SQ8 shadow, families,
+            exclusion radii and partitions built once on the card; every
+            method runs on CPU tensors (the plain versions) and on CUDA
+            tensors (the kernels): recall@10 within 0.01, the mean of each of
+            the seven Table-6 counters within 1 %, the same planner choice
   main      the main path at full size: a SIFT1M-shaped store (1M x 128,
             1,000 queries), build_graph_blocked and build_scann on the card,
-            two workloads, all six methods through make_executor(...).search;
-            kernel launch counts are reset just before and read just after
+            two workloads, the quickstart's six methods; then the second
+            slice's path: quantize_store, a 4-family workload (selectivity
+            0.02) with its exclusion radii and partitioned graphs built on
+            the card, the *_sq8, *_excl and partitioned methods and the
+            adaptive planner on both menus, all through
+            make_executor(...).search.  Kernel launch counts are reset just
+            before each of the two paths and read just after
   kernels   each kernel against its plain version on the card at the main
-            path's shapes, with its time, the plain version's, one PyTorch
-            library call's and the least time the card could take
+            path's shapes, with its device time (torch.profiler), the plain
+            version's, one PyTorch library call's, the least time the card
+            could take, and the time per call with the host's work (CUDA
+            events around back-to-back calls)
   profile   (only when named in --phases) one search per method under
             torch.profiler: the device's busy share and its top kernels
 
@@ -44,6 +52,14 @@ PEAK_FP32_PER_S = 67e12
 METHODS = ("sweeping", "acorn", "navix", "iterative_scan", "scann",
            "bruteforce")
 GRAPH_METHODS = METHODS[:4]
+SQ8_METHODS = tuple(f"{m}_sq8" for m in GRAPH_METHODS)
+# the family workload of benchmarks/bench_filtercost.py: 4 clustered
+# predicate families at selectivity 0.02, exclusion margin 0.3
+FAMILY_SEL, NUM_FAMILIES, EXCL_MARGIN = 0.02, 4, 0.3
+PARITY_FAMILY_SEL = 0.05
+# the planner's 8-candidate menu (benchmarks/fig_planner.py's MENU)
+MENU8 = ("bruteforce", "scann", "sweeping", "sweeping_sq8", "navix",
+         "iterative_scan", "sweeping_excl", "partitioned")
 COUNTERS = ("distance_comps", "filter_checks", "hops", "page_accesses_index",
             "page_accesses_heap", "tmap_lookups", "reorder_rows")
 
@@ -54,6 +70,12 @@ PARITY_N, PARITY_QUERIES = 20_000, 200
 # few ulp of it is ~1e-6 and 1e-4 leaves ample room without hiding a bug
 # (a wrong row or term is off by O(0.1))
 RTOL, ATOL = 1e-5, 1e-4
+
+
+# the keys of each kernel's record in the `kernels` JSON line
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
 
 
 class CheckFailed(RuntimeError):
@@ -87,6 +109,44 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_us_by_name(prof) -> dict[str, float]:
+    """Device microseconds per kernel (or copy) name in a torch.profiler
+    trace.  Device-side events only: a CPU op's self device time repeats
+    its kernels', and "Command Buffer Full" is a launch-queue stall, not
+    device work."""
+    from torch.autograd import DeviceType
+    per_name: dict[str, float] = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA \
+                or e.key.startswith("Command Buffer Full"):
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            per_name[e.key] = per_name.get(e.key, 0.0) + dev_us
+    return per_name
+
+
+def device_ms(fn, iters: int = 40, warmup: int = 3) -> float:
+    """Mean device milliseconds per call of `fn`: the summed durations of
+    every kernel and copy it ran, as torch.profiler (CUPTI) records them.
+    The host work of a call (argument checks, allocation, the launch)
+    does not count, so a kernel shorter than its launch is timed right."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        sync()
+    total_us = sum(device_us_by_name(prof).values())
+    check(total_us > 0, "the profiler recorded no device time")
+    return total_us / iters / 1e3
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """Least time (ms) on an H100 SXM for this work, and what sets it."""
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -98,7 +158,7 @@ def main_params():
     from repro_torch.core import SearchParams
     return SearchParams(k=10, ef_search=96, beam_width=512, max_hops=2048,
                         num_leaves_to_search=40, reorder_factor=4,
-                        scann_query_block=64)
+                        scann_query_block=64, exclusion_margin=EXCL_MARGIN)
 
 
 def counter_means(res) -> dict[str, float]:
@@ -111,10 +171,13 @@ def counter_means(res) -> dict[str, float]:
 # ---------------------------------------------------------------------------
 
 def phase_parity(n: int, nq: int, report: dict, dev="cuda") -> None:
-    from repro_torch.core import (WorkloadSpec, build_graph_blocked,
-                                  build_scann, filtered_knn,
-                                  generate_bitmaps, make_executor,
-                                  recall_at_k, to_device)
+    import torch
+    from repro_torch.core import (WorkloadSpec, assign_family_bitmaps,
+                                  build_exclusion, build_graph_blocked,
+                                  build_graph_partitioned, build_scann,
+                                  filtered_knn, generate_bitmaps,
+                                  generate_families, make_executor,
+                                  quantize_store, recall_at_k, to_device)
     from repro_torch.data import DatasetSpec, make_dataset
 
     print(f"== parity: {n} x 128 store, {nq} queries, CPU vs card ==",
@@ -129,35 +192,65 @@ def phase_parity(n: int, nq: int, report: dict, dev="cuda") -> None:
                         seed=0, device=dev)
     bitmaps = generate_bitmaps(store, queries, WorkloadSpec(0.10, "med_pos"),
                                seed=2, device=dev)
+    # the second slice's artifacts, built once on the card and copied
+    qstore = quantize_store(store)
+    cpu_q = quantize_store(to_device(store, "cpu"))
+    for f in ("q_vectors", "q_scale", "q_mean"):
+        check(bool(torch.equal(getattr(qstore, f).cpu(), getattr(cpu_q, f))),
+              f"parity quantize_store: {f} differs between card and CPU")
+    fams = generate_families(store, PARITY_FAMILY_SEL,
+                             num_families=NUM_FAMILIES, seed=0, device=dev)
+    fbm, _ = assign_family_bitmaps(fams, nq, seed=1)
+    excl = build_exclusion(store, families=fams, device=dev)
+    parts = build_graph_partitioned(qstore, fams, m=16, ef_construction=32,
+                                    seed=0, device=dev)
     sides = {
-        "card": (store, graph, scann, queries, bitmaps),
-        "cpu": (to_device(store, "cpu"), to_device(graph, "cpu"),
-                to_device(scann, "cpu"), queries.cpu(), bitmaps.cpu()),
+        "card": (qstore, graph, scann, queries, excl, parts),
+        "cpu": (to_device(qstore, "cpu"), to_device(graph, "cpu"),
+                to_device(scann, "cpu"), queries.cpu(),
+                to_device(excl, "cpu"), parts.to("cpu")),
     }
-    _, truth = filtered_knn(*[sides["cpu"][i] for i in (0, 3, 4)], 10)
+    workloads = {"A": (bitmaps, filtered_knn(to_device(store, "cpu"),
+                                             queries.cpu(), bitmaps.cpu(),
+                                             10)[1]),
+                 "F": (fbm, filtered_knn(to_device(store, "cpu"),
+                                         queries.cpu(), fbm.cpu(), 10)[1])}
     print(f"   setup {time.perf_counter() - t0:.1f} s", flush=True)
     p = main_params()
+    cases = [(m, "A", None) for m in METHODS + SQ8_METHODS] + [
+        (m, "F", None) for m in ("sweeping_excl", "sweeping_excl_sq8",
+                                 "partitioned", "partitioned_sq8")] + [
+        ("adaptive", "A", None), ("adaptive", "F", MENU8)]
     rows = {}
-    for method in METHODS:
+    for method, wl, menu in cases:
+        bm_card, truth = workloads[wl]
+        kw = {} if menu is None else {"planner_candidates": menu}
         got = {}
-        for side, (st, g, sc, q, bm) in sides.items():
+        for side, (st, g, sc, q, ex, pg) in sides.items():
+            bm = bm_card if side == "card" else bm_card.cpu()
             t0 = time.perf_counter()
-            res = make_executor(method, st, graph=g, index=sc,
-                                device=st.device).search(q, bm, p)
+            res = make_executor(method, st, graph=g, index=sc, exclusion=ex,
+                                partitions=pg, device=st.device,
+                                **kw).search(q, bm, p)
             sync(st.device)
             got[side] = (float(recall_at_k(res.ids.cpu(), truth, 10).mean()),
-                        counter_means(res), time.perf_counter() - t0)
-        (rc, cc, tc), (rg, cg, tg) = got["cpu"], got["card"]
+                         counter_means(res), time.perf_counter() - t0,
+                         res.plan.strategy)
+        (rc, cc, tc, sc_), (rg, cg, tg, sg) = got["cpu"], got["card"]
         worst = max(abs(cg[k] - cc[k]) / max(abs(cc[k]), 1e-9)
                     if cc[k] or cg[k] else 0.0 for k in COUNTERS)
-        print(f"   {method:15s} recall cpu {rc:.4f} card {rg:.4f} | worst "
-              f"counter drift {worst:.5f} | cpu {tc:.1f} s card {tg:.2f} s",
-              flush=True)
-        rows[method] = {"recall_cpu": rc, "recall_card": rg,
-                        "counters_cpu": cc, "counters_card": cg,
-                        "worst_counter_drift": worst}
-        check(abs(rc - rg) <= 0.01, f"parity {method}: recall {rc} vs {rg}")
-        check(worst <= 0.01, f"parity {method}: counters drift {worst}")
+        label = method if menu is None else f"{method}[menu8]"
+        print(f"   {label:18s} {wl} recall cpu {rc:.4f} card {rg:.4f} | "
+              f"worst counter drift {worst:.5f} | plan {sg} | cpu {tc:.1f} s"
+              f" card {tg:.2f} s", flush=True)
+        rows[f"{label}/{wl}"] = {
+            "recall_cpu": rc, "recall_card": rg, "counters_cpu": cc,
+            "counters_card": cg, "worst_counter_drift": worst,
+            "plan_cpu": sc_, "plan_card": sg}
+        check(abs(rc - rg) <= 0.01, f"parity {label}: recall {rc} vs {rg}")
+        check(worst <= 0.01, f"parity {label}: counters drift {worst}")
+        check(sc_ == sg, f"parity {label}: planner chose {sg} on the card, "
+              f"{sc_} on the CPU")
     report["parity"] = rows
 
 
@@ -165,12 +258,57 @@ def phase_parity(n: int, nq: int, report: dict, dev="cuda") -> None:
 # main path at full size
 # ---------------------------------------------------------------------------
 
+def _search_row(ex, method: str, label: str, queries, bm, truth, p,
+                dev, results: list) -> dict:
+    """One search through an executor, timed and checked; prints and
+    appends its row (recall, the seven counters, Mcycles, wall, QPS and the
+    kernel launches it caused)."""
+    import torch
+    from repro_torch.core import SYSTEM, cycle_breakdown, recall_at_k
+    from repro_torch.kernels import ops
+    before = ops.launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    res = ex.search(queries, bm, p)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    after = ops.launches()
+    delta = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    rec = float(recall_at_k(res.ids, truth, p.k).mean())
+    row = counter_means(res)
+    quant = res.plan.params.graph_quant
+    cyc = cycle_breakdown(res.stats, ex.store.dim, SYSTEM,
+                          graph_quant=quant)["total"] / 1e6
+    nq = queries.shape[0]
+    ids = res.ids
+    check(tuple(ids.shape) == (nq, p.k), f"{method}: ids shape")
+    check(bool(torch.isfinite(res.dists[ids >= 0]).all()),
+          f"{method}: non-finite distance for a returned id")
+    plan = res.plan.strategy
+    print(f"   {label:14s} {method:18s} recall {rec:.4f} "
+          f"dc {row['distance_comps']:.1f} fc {row['filter_checks']:.1f} "
+          f"hops {row['hops']:.1f} pai {row['page_accesses_index']:.1f} "
+          f"pah {row['page_accesses_heap']:.1f} tm {row['tmap_lookups']:.1f}"
+          f" rr {row['reorder_rows']:.1f} Mcycles {cyc:.4f} wall {wall:.3f}"
+          f" s QPS {nq / wall:.1f} launches {delta}"
+          + (f" | chose {plan} predicted Mcycles "
+             + str({k: round(v / 1e6, 4)
+                    for k, v in res.plan.predicted_cycles.items()})
+             if res.plan.predicted_cycles else ""), flush=True)
+    out = {"workload": label, "method": method, "recall": rec,
+           "counters": row, "mcycles": cyc, "wall_s": wall,
+           "qps": nq / wall, "launches": delta, "plan": plan}
+    if res.plan.predicted_cycles:
+        out["predicted_cycles"] = dict(res.plan.predicted_cycles)
+    results.append(out)
+    return out
+
+
 def phase_main(n: int, nq: int, report: dict, dev="cuda") -> dict:
     import torch
-    from repro_torch.core import (SYSTEM, WorkloadSpec, build_graph_blocked,
-                                  build_scann, cycle_breakdown, filtered_knn,
-                                  generate_bitmaps, make_executor,
-                                  recall_at_k)
+    from repro_torch.core import (WorkloadSpec, build_graph_blocked,
+                                  build_scann, filtered_knn,
+                                  generate_bitmaps, make_executor)
     from repro_torch.data import DatasetSpec, make_dataset
     from repro_torch.kernels import ops
 
@@ -219,63 +357,227 @@ def phase_main(n: int, nq: int, report: dict, dev="cuda") -> dict:
         bm = generate_bitmaps(store, queries, ws, seed=10 + i, device=dev)
         _, truth = filtered_knn(store, queries, bm, p.k)
         sync(dev)
-        inputs.append((ws, bm, truth))
+        inputs.append((f"{ws.selectivity} {ws.correlation}", bm, truth))
         print(f"   workload sel={ws.selectivity} {ws.correlation}: bitmaps "
               f"+ ground truth {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # the first slice's path: the quickstart's six methods
     ops.reset_launches()
     results = []
-    for ws, bm, truth in inputs:
+    for label, bm, truth in inputs:
         for method in METHODS:
             ex = make_executor(method, store, graph=graph, index=scann,
                                device=dev)
-            before = ops.launches()
-            sync(dev)
-            t0 = time.perf_counter()
-            res = ex.search(queries, bm, p)
-            sync(dev)
-            wall = time.perf_counter() - t0
-            after = ops.launches()
-            delta = {k: after[k] - before[k] for k in after}
-            rec = float(recall_at_k(res.ids, truth, p.k).mean())
-            row = counter_means(res)
-            cyc = cycle_breakdown(res.stats, store.dim, SYSTEM)["total"] / 1e6
-            ids = res.ids
-            check(tuple(ids.shape) == (nq, p.k), f"{method}: ids shape")
-            check(bool(torch.isfinite(res.dists[ids >= 0]).all()),
-                  f"{method}: non-finite distance for a returned id")
+            r = _search_row(ex, method, label, queries, bm, truth, p, dev,
+                            results)
             if method in GRAPH_METHODS:
-                check(delta["frontier_scan"] > 0,
+                check(r["launches"].get("frontier_scan", 0) > 0,
                       f"{method} never launched frontier_scan")
             if method == "scann":
-                check(delta["distance_matrix"] > 0
-                      and delta["leaf_scan_batched"] > 0,
+                check(r["launches"].get("distance_matrix", 0) > 0
+                      and r["launches"].get("leaf_scan_batched", 0) > 0,
                       "scann did not launch its kernels")
             if method == "bruteforce":
-                check(rec == 1.0, f"bruteforce recall {rec} != 1.0")
-            print(f"   sel={ws.selectivity:<5} {ws.correlation:8s} "
-                  f"{method:15s} recall {rec:.4f} "
-                  f"dc {row['distance_comps']:.1f}"
-                  f" fc {row['filter_checks']:.1f} hops {row['hops']:.1f} "
-                  f"pai {row['page_accesses_index']:.1f} pah "
-                  f"{row['page_accesses_heap']:.1f} tm "
-                  f"{row['tmap_lookups']:.1f} rr {row['reorder_rows']:.1f} "
-                  f"Mcycles {cyc:.4f} wall {wall:.3f} s QPS {nq / wall:.1f} "
-                  f"launches {delta}", flush=True)
-            results.append({"selectivity": ws.selectivity,
-                            "correlation": ws.correlation, "method": method,
-                            "recall": rec, "counters": row, "mcycles": cyc,
-                            "wall_s": wall, "qps": nq / wall,
-                            "launches": delta})
-    counts = ops.launches()
+                check(r["recall"] == 1.0,
+                      f"bruteforce recall {r['recall']} != 1.0")
+    counts1 = ops.launches()
+    print(f"   launches on the first slice's path: {counts1}", flush=True)
+    for k in ("frontier_scan", "distance_matrix", "leaf_scan_batched"):
+        check(counts1[k] > 0, f"kernel {k} was not launched on its path")
+    report["main"] = {"n": n, "queries": nq, "builds": builds,
+                      "sizes": sizes, "results": results,
+                      "launches_slice1": counts1}
+    ctx = {"store": store, "graph": graph, "scann": scann,
+           "queries": queries, "bitmaps": inputs[0][1], "inputs": inputs}
+    counts2 = main_slice2(ctx, report, dev)
+    counts = {k: counts1[k] + counts2[k] for k in counts1}
     print(f"   launches on the main path: {counts}", flush=True)
     for k, v in counts.items():
         check(v > 0, f"kernel {k} was not launched on the main path")
-    report["main"] = {"n": n, "queries": nq, "builds": builds,
-                      "sizes": sizes, "results": results,
-                      "launches": counts}
-    return {"store": store, "graph": graph, "scann": scann,
-            "queries": queries, "bitmaps": inputs[0][1], "launches": counts}
+    report["main"]["launches"] = counts
+    ctx["launches"] = counts
+    family_witness(ctx, report, dev)
+    return ctx
+
+
+def main_slice2(ctx: dict, report: dict, dev="cuda") -> dict:
+    """The second slice's path on the main path's store, graph and index:
+    the SQ8 tier, the family workload with exclusion radii and partitioned
+    graphs built on the card, and the adaptive planner.  Returns the kernel
+    launches of this path alone."""
+    import torch
+    from repro_torch.core import (assign_family_bitmaps, build_exclusion,
+                                  build_graph_partitioned, filtered_knn,
+                                  generate_families, make_executor,
+                                  quantize_store)
+    from repro_torch.kernels import ops
+
+    store, graph, scann = ctx["store"], ctx["graph"], ctx["scann"]
+    queries, (wa, wb) = ctx["queries"], ctx["inputs"]
+    nq, n = queries.shape[0], store.n
+    p = main_params()
+    builds = report["main"]["builds"]
+    t0 = time.perf_counter()
+    qstore = quantize_store(store)
+    sync(dev)
+    builds["quantize_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fams = generate_families(store, FAMILY_SEL, num_families=NUM_FAMILIES,
+                             seed=0, device=dev)
+    fbm, _ = assign_family_bitmaps(fams, nq, seed=1)
+    _, ftruth = filtered_knn(store, queries, fbm, p.k)
+    sync(dev)
+    builds["families_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    excl = build_exclusion(store, families=fams, device=dev)
+    sync(dev)
+    builds["exclusion_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts = build_graph_partitioned(qstore, fams, m=16, ef_construction=64,
+                                    seed=0, device=dev)
+    sync(dev)
+    builds["partitions_s"] = time.perf_counter() - t0
+    part_rows = [int(pt.rows.numel()) for pt in parts.partitions]
+    print(f"   second slice builds: quantize_store {builds['quantize_s']:.2f}"
+          f" s, families + ground truth {builds['families_s']:.1f} s, "
+          f"build_exclusion {builds['exclusion_s']:.1f} s (radius table "
+          f"{tuple(excl.radii.shape)}), build_graph_partitioned "
+          f"{builds['partitions_s']:.1f} s ({part_rows} rows)", flush=True)
+    wf = (f"fam {FAMILY_SEL}", fbm, ftruth)
+    kw = dict(graph=graph, index=scann, exclusion=excl, partitions=parts,
+              device=dev)
+    cases = [(m, w) for w in (wa, wb) for m in SQ8_METHODS]
+    cases += [(m, wf) for m in ("sweeping", "sweeping_excl",
+                                "sweeping_excl_sq8", "partitioned",
+                                "partitioned_sq8")]
+    cases += [("sweeping_excl", wb), ("adaptive", wa), ("adaptive", wb),
+              ("adaptive[menu8]", wf)]
+    resident = torch.cuda.memory_allocated() if dev == "cuda" else 0
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    results = report["main"]["results"]
+    for method, (label, bm, truth) in cases:
+        name, menu = (method[:-7], MENU8) if method.endswith("[menu8]") \
+            else (method, None)
+        ex = make_executor(name, qstore, **kw, **(
+            {"planner_candidates": menu} if menu else {}))
+        r = _search_row(ex, method, label, queries, bm, truth, p, dev,
+                        results)
+        if name.endswith("_sq8"):
+            key = "frontier_scan_excl_sq8" if "excl" in name \
+                else "frontier_scan_sq8"
+            check(r["launches"].get(key, 0) > 0,
+                  f"{method} never launched {key}")
+        if name == "sweeping_excl":
+            check(r["launches"].get("frontier_scan_excl", 0) > 0,
+                  f"{method} never launched frontier_scan_excl")
+    counts = ops.launches()
+    print(f"   launches on the second slice's path: {counts}", flush=True)
+    for k in ("frontier_scan", "frontier_scan_sq8", "frontier_scan_excl",
+              "frontier_scan_excl_sq8"):
+        check(counts[k] > 0, f"kernel {k} was not launched on its path")
+    mem = {"resident_bytes": resident}
+    if dev == "cuda":
+        peak = torch.cuda.max_memory_allocated()
+        mem.update(peak_bytes=peak, transient_bytes=peak - resident,
+                   radius_table_bytes=excl.radii.numel() * 4,
+                   q_by_n_f32_bytes=nq * n * 4)
+        print(f"   device memory over the second slice's searches: resident "
+              f"{resident / 2**30:.3f} GiB, peak {peak / 2**30:.3f} GiB "
+              f"(transient {(peak - resident) / 2**30:.3f} GiB; the radius "
+              f"table is {excl.radii.numel() * 4 / 2**20:.1f} MiB, a (Q, n) "
+              f"f32 radius block would be {nq * n * 4 / 2**30:.2f} GiB)",
+              flush=True)
+        check(peak - resident < nq * n * 4,
+              "the searches allocated as much as a (Q, n) radius block")
+    report["main"].update(launches_slice2=counts, memory_slice2=mem,
+                          partition_rows=part_rows)
+    ctx.update(qstore=qstore, excl=excl, parts=parts, family=wf)
+    return counts
+
+
+def family_witness(ctx: dict, report: dict, dev="cuda") -> None:
+    """Why recall is low on the family workload, measured: where the
+    queries lie against each family's ball (the rows nearest its centre
+    row), `partitioned` at larger ef_search on the same queries (a sound
+    subgraph approaches recall 1), and `partitioned` at the main ef on
+    queries drawn inside the balls (midpoints of two rows of the query's
+    family)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core import (filtered_knn, full_distances,
+                                  make_executor, recall_at_k, unpack_bitmap)
+
+    store, queries, parts = ctx["qstore"], ctx["queries"], ctx["parts"]
+    _, fbm, ftruth = ctx["family"]
+    n, nq = store.n, queries.shape[0]
+    p = main_params()
+    # each partition's centre row: generate_families(seed=0) draws the
+    # centres in family order, and the tag "fam{f}_s..." names f
+    drawn = np.random.RandomState(0).choice(n, size=NUM_FAMILIES,
+                                            replace=False)
+    centres = torch.as_tensor([int(drawn[int(pt.tag[3:pt.tag.index("_")])])
+                               for pt in parts.partitions], device=dev)
+    member = unpack_bitmap(torch.stack([pt.bitmap
+                                        for pt in parts.partitions]), n)
+    fi = torch.arange(len(parts.partitions), device=dev)
+    check(bool(member[fi, centres].all()),
+          "witness: a centre row is not in its own family")
+    dc = full_distances(store, store.vectors[centres])           # (F, n)
+    radius = torch.where(member, dc, torch.zeros_like(dc)).amax(1).sqrt()
+    fam_of_q = parts.match(fbm).long()
+    check(bool((fam_of_q >= 0).all()), "witness: a query matched no family")
+    q_to_c = (queries - store.vectors[centres[fam_of_q]]).pow(2).sum(1)
+    ratio = q_to_c.sqrt() / radius[fam_of_q]
+    outside = float((ratio > 1).float().mean())
+    print(f"   witness F: family ball radii {radius.cpu().numpy().round(3)}; "
+          f"query-to-centre / radius median {float(ratio.median()):.3f} "
+          f"(min {float(ratio.min()):.3f}); {outside:.3f} of queries lie "
+          f"outside their family's ball", flush=True)
+    out = {"radius": radius.tolist(), "ratio_median": float(ratio.median()),
+           "ratio_min": float(ratio.min()), "outside_share": outside,
+           "ef_sweep": []}
+    ex = make_executor("partitioned", store, partitions=parts, device=dev)
+    for ef in (p.ef_search, 384, 1536):
+        pe = dataclasses.replace(p, ef_search=ef,
+                                 beam_width=max(ef, p.beam_width),
+                                 max_hops=4096)
+        t0 = time.perf_counter()
+        res = ex.search(queries, fbm, pe)
+        sync(dev)
+        rec = float(recall_at_k(res.ids, ftruth, p.k).mean())
+        hops = float(res.stats.hops.float().mean())
+        print(f"   witness F: partitioned ef_search {ef} recall {rec:.4f} "
+              f"hops {hops:.1f} wall {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        out["ef_sweep"].append({"ef_search": ef, "recall": rec,
+                                "hops": hops})
+    check(out["ef_sweep"][-1]["recall"] >= out["ef_sweep"][0]["recall"],
+          "witness: partitioned recall fell as ef_search rose")
+    # queries inside the balls: midpoints of two random rows of the
+    # query's family, with that family's bitmap
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    sizes = torch.as_tensor([pt.rows.numel() for pt in parts.partitions],
+                            device=dev)
+    offsets = torch.cumsum(sizes, 0) - sizes
+    all_rows = torch.cat([pt.rows.long() for pt in parts.partitions])
+    pick = (torch.rand((nq, 2), generator=gen, device=dev)
+            * sizes[fam_of_q][:, None]).long() + offsets[fam_of_q][:, None]
+    ends = store.vectors[all_rows[pick]]                        # (Q, 2, d)
+    inside = 0.5 * (ends[:, 0] + ends[:, 1])
+    _, itruth = filtered_knn(store, inside, fbm, p.k)
+    res = ex.search(inside, fbm, p)
+    sync(dev)
+    rec_in = float(recall_at_k(res.ids, itruth, p.k).mean())
+    print(f"   witness F: partitioned ef_search {p.ef_search} on {nq} "
+          f"queries inside their family's ball: recall {rec_in:.4f}",
+          flush=True)
+    out["inside_recall"] = rec_in
+    report["main"]["family_witness"] = out
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +604,6 @@ def phase_kernels(ctx: dict, report: dict) -> list[dict]:
                                         project_query)
     from repro_torch.kernels import ref
     from repro_torch.kernels.distance import distance_matrix_cuda
-    from repro_torch.kernels.frontier_scan import frontier_scan_cuda
     from repro_torch.kernels.leaf_scan import leaf_scan_batched_cuda
 
     print("== kernels: each against its plain version on the card ==",
@@ -311,58 +612,17 @@ def phase_kernels(ctx: dict, report: dict) -> list[dict]:
     queries, bitmaps = ctx["queries"], ctx["bitmaps"]
     p = main_params()
     d = store.dim
-    out = []
 
-    # frontier_scan: (Q, deg) 1-hop candidate blocks of the graph; eight
-    # different blocks in turn, so the gathered rows (~130 MB) do not stay
-    # in the 50 MB L2 from one launch to the next
+    # the frontier kernels: (Q, deg) 1-hop candidate blocks of the graph;
+    # eight different blocks in turn, so the gathered rows (~130 MB in f32)
+    # do not stay in the 50 MB L2 from one launch to the next
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     qn = queries.shape[0]
     blocks = [graph.neighbors[0, torch.randint(store.n, (qn,), generator=gen,
                                                device="cuda")].contiguous()
               for _ in range(8)]
-    errs = []
-    for ids in blocks:
-        dk, pk = frontier_scan_cuda(queries, store.vectors, store.norms_sq,
-                                    ids, bitmaps, store.metric)
-        dp, pp = ref.frontier_scan_ref(queries, store.vectors,
-                                       store.norms_sq, ids, bitmaps,
-                                       store.metric)
-        errs.append(_compare("frontier_scan", dk, dp, [(pk, pp)]))
-    it = iter(range(10 ** 9))
-
-    def pick():
-        return blocks[next(it) % len(blocks)]
-
-    ms = cuda_ms(lambda: frontier_scan_cuda(queries, store.vectors,
-                                            store.norms_sq, pick(), bitmaps,
-                                            store.metric), iters=40)
-    plain_ms = cuda_ms(lambda: ref.frontier_scan_ref(
-        queries, store.vectors, store.norms_sq, pick(), bitmaps,
-        store.metric), iters=40)
-    lib_ms = cuda_ms(lambda: torch.bmm(
-        store.vectors[pick().clamp(min=0).long()], queries[:, :, None]),
-        iters=40)
-    nbytes, flops = [], []
-    for ids in blocks:
-        valid = ids >= 0
-        nv = int(valid.sum())
-        uniq = int(torch.unique(ids[valid]).numel())
-        # queries + ids in; each distinct row and its norm once; one bitmap
-        # word per probe; distances (f32) and pass flags (1 byte) out
-        nbytes.append(qn * d * 4 + ids.numel() * 4 + uniq * (d + 1) * 4
-                      + nv * 4 + ids.numel() * 5)
-        flops.append(2 * d * nv + 2 * d * qn)
-    b_ms, b_by = bound(sum(nbytes) / len(nbytes), sum(flops) / len(flops))
-    out.append({"name": "frontier_scan", "route": "cuda",
-                "source": "src/repro_torch/kernels/csrc/frontier_scan.cu",
-                "replaces": "src/repro/kernels/frontier_scan.py:52",
-                "launches": ctx["launches"]["frontier_scan"],
-                "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                "shape": f"Q={qn} C={blocks[0].shape[1]} d={d} "
-                         f"n={store.n}"})
+    out = frontier_kernel_rows(ctx, blocks)
 
     # distance_matrix: one query block against the 2000 leaf centroids
     qb = queries[:p.scann_query_block]
@@ -371,22 +631,23 @@ def phase_kernels(ctx: dict, report: dict) -> list[dict]:
     got = distance_matrix_cuda(qp, cents, scann.metric)
     err = _compare("distance_matrix", got,
                    ref.distance_matrix_ref(qp, cents, scann.metric))
-    ms = cuda_ms(lambda: distance_matrix_cuda(qp, cents, scann.metric))
-    plain_ms = cuda_ms(lambda: ref.distance_matrix_ref(qp, cents,
-                                                       scann.metric))
+    kern = lambda: distance_matrix_cuda(qp, cents, scann.metric)  # noqa: E731
+    ms, call_ms = device_ms(kern), cuda_ms(kern)
+    plain_ms = device_ms(lambda: ref.distance_matrix_ref(qp, cents,
+                                                         scann.metric))
     base = (qp * qp).sum(1, keepdim=True) + (cents * cents).sum(1)[None, :]
-    lib_ms = cuda_ms(lambda: torch.addmm(base, qp, cents.T, beta=1,
-                                         alpha=-2))
+    lib_ms = device_ms(lambda: torch.addmm(base, qp, cents.T, beta=1,
+                                           alpha=-2))
     nq_b, nc = qp.shape[0], cents.shape[0]
     b_ms, b_by = bound((nq_b * d + nc * d + nq_b * nc) * 4,
                        2 * nq_b * nc * d + 2 * (nq_b + nc) * d)
     out.append({"name": "distance_matrix", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/distance.cu",
-                "replaces": "src/repro/kernels/distance.py:22",
+                "replaces": "src/repro/kernels/distance.py:44",
                 "launches": ctx["launches"]["distance_matrix"],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                "shape": f"Q={nq_b} N={nc} d={d}"})
+                "call_ms": call_ms, "shape": f"Q={nq_b} N={nc} d={d}"})
 
     # leaf_scan_batched: the first query block's union of opened leaves
     L = scann.leaf_tiles.shape[0]
@@ -401,10 +662,11 @@ def phase_kernels(ctx: dict, report: dict) -> list[dict]:
             scann.metric)
     got = leaf_scan_batched_cuda(*args)
     err = _compare("leaf_scan_batched", got, ref.leaf_scan_batched_ref(*args))
-    ms = cuda_ms(lambda: leaf_scan_batched_cuda(*args))
-    plain_ms = cuda_ms(lambda: ref.leaf_scan_batched_ref(*args), iters=5)
+    ms = device_ms(lambda: leaf_scan_batched_cuda(*args), iters=20)
+    call_ms = cuda_ms(lambda: leaf_scan_batched_cuda(*args))
+    plain_ms = device_ms(lambda: ref.leaf_scan_batched_ref(*args), iters=5)
     u, c, _ = tiles.shape
-    lib_ms = cuda_ms(lambda: torch.matmul(
+    lib_ms = device_ms(lambda: torch.matmul(
         qp, (tiles.to(torch.float32) * scann.scale + scann.mean)
         .reshape(u * c, d).T), iters=5)
     valid = rowids >= 0
@@ -417,61 +679,178 @@ def phase_kernels(ctx: dict, report: dict) -> list[dict]:
     b_ms, b_by = bound(nbytes, flops)
     out.append({"name": "leaf_scan_batched", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/leaf_scan.cu",
-                "replaces": "src/repro/kernels/leaf_scan.py:102",
+                "replaces": "src/repro/kernels/leaf_scan.py:152",
                 "launches": ctx["launches"]["leaf_scan_batched"],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                "shape": f"Q={nq_b} U={u} C={c} d={d}"})
+                "call_ms": call_ms, "shape": f"Q={nq_b} U={u} C={c} d={d}"})
     for k in out:
-        print(f"   {k['name']:18s} {k['shape']:28s} kernel {k['ms']:.4f} ms"
+        print(f"   {k['name']:22s} {k['shape']:28s} kernel {k['ms']:.4f} ms"
               f" plain {k['plain_ms']:.4f} ms library {k['library_ms']:.4f}"
-              f" ms bound {k['bound_ms']:.4f} ms ({k['bound_by']}) "
+              f" ms bound {k['bound_ms']:.4f} ms ({k['bound_by']}) | "
+              f"per call with the host's work {k['call_ms']:.4f} ms | "
               f"max|err| {k['max_abs_err']:.3g} launches {k['launches']}",
               flush=True)
     report["kernels"] = out
     return out
 
 
+def frontier_kernel_rows(ctx: dict, blocks) -> list[dict]:
+    """The four frontier kernels on the main path's (Q, 32) 1-hop blocks,
+    over the full-precision and the SQ8 rows of the quantized store: the
+    f32 scan with workload A's bitmaps, the others with the family
+    workload's, whose radius rows the exclusion variants read, and tau =
+    each query's exact 10th filtered distance (a full W tail)."""
+    import torch
+    from repro_torch.core import filtered_knn, select_radii
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.frontier_scan import (
+        frontier_scan_cuda, frontier_scan_excl_cuda,
+        frontier_scan_excl_sq8_cuda, frontier_scan_sq8_cuda)
+
+    st, excl = ctx["qstore"], ctx["excl"]
+    queries, bma = ctx["queries"], ctx["bitmaps"]
+    _, fbm, _ = ctx["family"]
+    qn, d = queries.shape
+    radii = select_radii(excl, fbm)
+    tau = filtered_knn(st, queries, fbm, 10)[0][:, -1].contiguous()
+    q8 = (st.q_vectors, st.q_scale, st.q_mean, st.q_norms_sq)
+    f32 = (st.vectors, st.norms_sq)
+    ex = (radii.table, radii.rows, tau)
+    variants = {
+        "frontier_scan": (
+            lambda ids: frontier_scan_cuda(queries, *f32, ids, bma,
+                                           st.metric),
+            lambda ids: ref.frontier_scan_ref(queries, *f32, ids, bma,
+                                              st.metric),
+            False, False),
+        "frontier_scan_sq8": (
+            lambda ids: frontier_scan_sq8_cuda(queries, *q8, ids, fbm),
+            lambda ids: ref.frontier_scan_sq8_ref(queries, *q8, ids, fbm),
+            True, False),
+        "frontier_scan_excl": (
+            lambda ids: frontier_scan_excl_cuda(queries, *f32, ids, fbm, *ex,
+                                                margin=EXCL_MARGIN),
+            lambda ids: ref.frontier_scan_excl_ref(queries, *f32, ids, fbm,
+                                                   *ex, margin=EXCL_MARGIN),
+            False, True),
+        "frontier_scan_excl_sq8": (
+            lambda ids: frontier_scan_excl_sq8_cuda(
+                queries, *q8, ids, fbm, *ex, margin=EXCL_MARGIN),
+            lambda ids: ref.frontier_scan_excl_sq8_ref(
+                queries, *q8, ids, fbm, *ex, margin=EXCL_MARGIN),
+            True, True),
+    }
+    replaces = {"frontier_scan": 92, "frontier_scan_sq8": 164,
+                "frontier_scan_excl": 240, "frontier_scan_excl_sq8": 322}
+    it = iter(range(10 ** 9))
+
+    def pick():
+        return blocks[next(it) % len(blocks)]
+
+    out = []
+    for name, (kern, plain, sq8, has_keep) in variants.items():
+        errs, flips, pruned = [], 0, 0
+        for ids in blocks:
+            got, want = kern(ids), plain(ids)
+            errs.append(_compare(name, got[0], want[0], [(got[1], want[1])]))
+            if has_keep:
+                # keep is exact against the rule on the kernel's own
+                # distances; against the plain distances a boundary
+                # decision may flip (FMA contraction), counted here
+                e = ref.gather_radii(radii.table, radii.rows, ids)
+                own = ref.excl_keep_mask(got[0], e, tau[:, None], got[1],
+                                         EXCL_MARGIN)
+                check(bool(torch.equal(got[2], own)),
+                      f"{name}: keep differs from the rule on its own "
+                      "distances")
+                flips += int((got[2] != want[2]).sum())
+                pruned += int((~got[2]).sum())
+        ms = device_ms(lambda: kern(pick()))
+        call_ms = cuda_ms(lambda: kern(pick()), iters=40)
+        plain_ms = device_ms(lambda: plain(pick()))
+        if sq8:
+            lib = lambda: torch.bmm(ref.dequantize(  # noqa: E731
+                st.q_vectors[pick().clamp(min=0).long()], st.q_scale,
+                st.q_mean), queries[:, :, None])
+        else:
+            lib = lambda: torch.bmm(  # noqa: E731
+                st.vectors[pick().clamp(min=0).long()], queries[:, :, None])
+        lib_ms = device_ms(lib)
+        nbytes, flops = [], []
+        row_bytes = d if sq8 else 4 * d
+        for ids in blocks:
+            valid = ids >= 0
+            nv = int(valid.sum())
+            uniq = int(torch.unique(ids[valid]).numel())
+            # queries + ids in; each distinct row and its norm once; one
+            # bitmap word per probe; distances and pass flags out; SQ8 adds
+            # scale/mean, the exclusion variants one radius per probe, the
+            # query's table row and tau, and the keep flags out
+            b = (qn * d * 4 + ids.numel() * 4 + uniq * (row_bytes + 4)
+                 + nv * 4 + ids.numel() * 5)
+            fl = 2 * d * nv + 2 * d * qn
+            if sq8:
+                b += 2 * d * 4
+                fl += 2 * d * nv                 # dequantization
+            if has_keep:
+                b += nv * 4 + qn * 8 + ids.numel()
+                fl += 6 * nv
+            nbytes.append(b)
+            flops.append(fl)
+        b_ms, b_by = bound(sum(nbytes) / len(nbytes), sum(flops) / len(flops))
+        row = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/frontier_scan.cu",
+               "replaces": "src/repro/kernels/frontier_scan.py:"
+                           f"{replaces[name]}",
+               "launches": ctx["launches"][name], "max_abs_err": max(errs),
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": lib_ms, "call_ms": call_ms,
+               "shape": f"Q={qn} C={blocks[0].shape[1]} d={d} n={st.n}"}
+        if has_keep:
+            row["keep_vs_plain_flips"] = flips
+            row["keep_pruned"] = pruned
+            print(f"   {name}: keep exact against its own distances; "
+                  f"{flips} of {len(blocks) * blocks[0].numel()} decisions "
+                  f"differ from the plain version's ({pruned} pruned)",
+                  flush=True)
+        out.append(row)
+    return out
+
+
 def phase_profile(ctx: dict, report: dict) -> None:
-    """One search per method (first workload) under torch.profiler: the
-    device's busy share of the wall time and the kernels that fill it."""
-    from torch.autograd import DeviceType
+    """One search per method under torch.profiler (the quickstart methods
+    and the SQ8 methods on the first workload, the exclusion and
+    partitioned methods on the family workload): the device's busy share
+    of the wall time and the kernels that fill it."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import make_executor
 
-    print("== profile: device busy share per method (first workload) ==",
-          flush=True)
+    print("== profile: device busy share per method ==", flush=True)
     p = main_params()
     rows = {}
-    for method in METHODS:
-        ex = make_executor(method, ctx["store"], graph=ctx["graph"],
-                           index=ctx["scann"], device="cuda")
+    fbm = ctx["family"][1]
+    runs = [(m, ctx["bitmaps"]) for m in METHODS + SQ8_METHODS] + [
+        (m, fbm) for m in ("sweeping_excl", "sweeping_excl_sq8",
+                           "partitioned", "partitioned_sq8")]
+    for method, bm in runs:
+        ex = make_executor(method, ctx["qstore"], graph=ctx["graph"],
+                           index=ctx["scann"], exclusion=ctx["excl"],
+                           partitions=ctx["parts"], device="cuda")
         sync()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            ex.search(ctx["queries"], ctx["bitmaps"], p)
+            ex.search(ctx["queries"], bm, p)
             sync()
             wall_us = (time.perf_counter() - t0) * 1e6
-        per_name = {}
-        for e in prof.key_averages():
-            # device-side events only (kernels, copies, sets): a CPU op's
-            # self device time repeats its kernels'; "Command Buffer Full"
-            # is a launch-queue stall, not device work
-            if e.device_type != DeviceType.CUDA \
-                    or e.key.startswith("Command Buffer Full"):
-                continue
-            dev_us = getattr(e, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(e, "self_cuda_time_total", 0)
-            if dev_us > 0:
-                per_name[e.key] = per_name.get(e.key, 0.0) + dev_us
+        per_name = device_us_by_name(prof)
         busy_us = sum(per_name.values())
         top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
         rows[method] = {"wall_ms": wall_us / 1e3, "device_ms": busy_us / 1e3,
                         "busy_share": busy_us / wall_us,
                         "top": [(k[:60], v / 1e3) for k, v in top]}
-        print(f"   {method:15s} wall {wall_us / 1e3:.1f} ms (profiled) "
+        print(f"   {method:18s} wall {wall_us / 1e3:.1f} ms (profiled) "
               f"device {busy_us / 1e3:.1f} ms busy {busy_us / wall_us:.3f}"
               f" | top: " + "; ".join(f"{k[:40]} {v / 1e3:.1f} ms"
                                      for k, v in top[:4]), flush=True)
@@ -512,23 +891,33 @@ def main(argv=None) -> int:
     report = {"device": name, "nvidia_smi": smi, "build_s": build_s}
 
     phases = set(args.phases.split(","))
+    phase_s = report["phase_s"] = {}
+
+    def timed(phase, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[phase] = time.perf_counter() - t0
+        return out
+
     if "parity" in phases:
-        phase_parity(PARITY_N, PARITY_QUERIES, report)
+        timed("parity", phase_parity, PARITY_N, PARITY_QUERIES, report)
     kernels = []
     if "main" in phases:
-        ctx = phase_main(args.n, args.queries, report)
+        ctx = timed("main", phase_main, args.n, args.queries, report)
         if "kernels" in phases:
-            kernels = phase_kernels(ctx, report)
+            kernels = timed("kernels", phase_kernels, ctx, report)
         if "profile" in phases:
-            phase_profile(ctx, report)
+            timed("profile", phase_profile, ctx, report)
     report["total_s"] = time.perf_counter() - t_start
-    print(f"total {report['total_s']:.1f} s", flush=True)
+    print(f"total {report['total_s']:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()) + ")",
+          flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
-    print(json.dumps({"kernels": [{k: v for k, v in r.items()
-                                   if k != "shape"} for r in kernels]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS}
+                                  for r in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,48 +1,60 @@
-"""Executor layer: every search strategy of the slice behind one API.
+"""Executor layer: every search strategy of the port behind one API.
 
     Executor.plan(queries, bitmaps, params)  -> SearchPlan
     Executor.execute(plan)                   -> SearchResult
     Executor.search(queries, bitmaps, params) = execute(plan(...))
 
-`GraphExecutor` (the frontier engine), `ScannExecutor` (the query-batched
-pipeline) and `BruteForceExecutor` (exact filtered KNN with seqscan
-counters) are ports of the reference executors of the same names, without
-storage accounting, exclusion radii or the stepped driver.  `make_executor`
-builds them by method name; the reference's other methods raise
-NotImplementedError naming the ROADMAP item that ports them.
+`GraphExecutor` (the frontier engine, with the SQ8 tier and FAVOR
+exclusion pruning), `PartitionedGraphExecutor` (JAG family subgraphs),
+`ScannExecutor` (the query-batched pipeline), `BruteForceExecutor` (exact
+filtered KNN with seqscan counters) and `AdaptivePlanner` (per-batch
+system-aware dispatch on the predictive cost model) are ports of the
+reference executors of the same names, without storage accounting or the
+stepped driver.  `make_executor` builds them by method name; the
+reference's other methods, and `storage=`, raise NotImplementedError
+naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Protocol, runtime_checkable
+import weakref
+from typing import Any, Mapping, Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
 
 from repro_torch.core import costmodel
 from repro_torch.core.bruteforce import filtered_knn, filtered_knn_partial
+from repro_torch.core.exclusion import (ExclusionIndex, match_families,
+                                        select_radii)
 from repro_torch.core.graph_search import search_batch
-from repro_torch.core.hnsw import HNSWGraph
-from repro_torch.core.scann import (ScannIndex, leaves_within_budget,
+from repro_torch.core.hnsw import HNSWGraph, PartitionedGraph
+from repro_torch.core.scann import (ScannIndex, _quant_pages_per_leaf,
+                                    leaves_within_budget, project_query,
                                     scann_search_batch)
 from repro_torch.core.types import (SearchParams, SearchResult, SearchStats,
                                     VectorStore, bitmap_popcount,
-                                    check_store_device, heap_pages_per_vector)
+                                    check_store_device, heap_pages_per_vector,
+                                    pack_bool_bitmap, probe_batch,
+                                    quantize_store, topk_smallest)
 
 GRAPH_STRATEGIES = costmodel.GRAPH_STRATEGIES
-PORTED_METHODS = GRAPH_STRATEGIES + ("scann", "bruteforce")
+GRAPH_SQ8_METHODS = tuple(f"{s}_sq8" for s in GRAPH_STRATEGIES)
+EXCL_METHODS = ("sweeping_excl", "sweeping_excl_sq8")
+PARTITIONED_METHODS = ("partitioned", "partitioned_sq8")
+PORTED_METHODS = GRAPH_STRATEGIES + GRAPH_SQ8_METHODS + EXCL_METHODS \
+    + PARTITIONED_METHODS + ("scann", "bruteforce", "adaptive")
+DEFAULT_PLANNER_CANDIDATES = ("bruteforce", "scann", "sweeping",
+                              "sweeping_sq8", "navix", "iterative_scan")
 
-# Methods of the reference's registry that this slice does not run yet,
-# with the ROADMAP item that ports them.
+# Methods of the reference's registry that the port does not run yet, with
+# the ROADMAP item that ports them.
 _NOT_PORTED = {
-    "adaptive": "ROADMAP 1.6b (AdaptivePlanner, slice 2)",
     "scann_vmapped": "ROADMAP 1.8 (legacy vmapped engines)",
-    "sweeping_excl": "ROADMAP 1.9 (selectivity-aware tiers)",
-    "sweeping_excl_sq8": "ROADMAP 1.9 (selectivity-aware tiers)",
-    "partitioned": "ROADMAP 1.9 (selectivity-aware tiers)",
-    "partitioned_sq8": "ROADMAP 1.9 (selectivity-aware tiers)",
     "delta": "ROADMAP 1.11 (mutability)",
 }
+_NO_STORAGE = ("storage accounting is not ported yet: ROADMAP 1.7 "
+               "(storage/, the buffer pool)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +65,12 @@ class SearchPlan:
     params: SearchParams
     queries: Any                   # (Q, d)
     bitmaps: Any                   # (Q, words) int32
-    notes: Any = None              # plan-level adjustments (budget clamps)
+    # planner annotations (None for fixed executors)
+    est_selectivity: Optional[np.ndarray] = None    # (Q,) popcount / n
+    correlation_proxy: Optional[float] = None       # local / global density
+    predicted_cycles: Optional[Mapping[str, float]] = None
+    notes: Any = None              # plan-level adjustments (budget clamps,
+    #                                radii, partition matches)
 
 
 @runtime_checkable
@@ -87,27 +104,195 @@ class BaseExecutor:
 
 
 class GraphExecutor(BaseExecutor):
-    """The graph strategies (paper §2.3) on the frontier engine."""
+    """The graph strategies (paper §2.3) on the frontier engine, on the
+    full-precision or the SQ8 tier (`graph_quant`), with FAVOR exclusion
+    pruning when an `exclusion` index is given (sweeping, l2 only)."""
 
     def __init__(self, graph: HNSWGraph, store: VectorStore,
-                 strategy: str = "sweeping"):
+                 strategy: str = "sweeping", graph_quant: str = "none",
+                 exclusion: Optional[ExclusionIndex] = None):
         if strategy not in GRAPH_STRATEGIES:
             raise ValueError(f"unknown graph strategy {strategy!r}")
+        if graph_quant not in ("none", "sq8"):
+            raise ValueError(f"unknown graph_quant {graph_quant!r}")
+        if graph_quant == "sq8" and not store.has_sq8:
+            raise ValueError("graph_quant='sq8' needs a quantize_store'd "
+                             "VectorStore (SQ8 shadow missing)")
+        if exclusion is not None:
+            # the keep rule is a triangle-inequality argument in l2 root
+            # space, composed with sweeping's W-tail threshold
+            if strategy != "sweeping":
+                raise ValueError("exclusion pruning only composes with the "
+                                 "sweeping strategy")
+            if store.metric != "l2":
+                raise ValueError("exclusion pruning needs metric='l2'")
+            if exclusion.n != store.n:
+                raise ValueError(
+                    f"exclusion index built over n={exclusion.n} rows but "
+                    f"store has n={store.n} (stale radii)")
         self.graph = graph
         self.store = store
         self.strategy = strategy
-        self.name = strategy
+        self.graph_quant = graph_quant
+        self.exclusion = exclusion
+        base = strategy if exclusion is None else f"{strategy}_excl"
+        self.name = base if graph_quant == "none" \
+            else f"{base}_{graph_quant}"
+
+    def resolve_params(self, params: SearchParams) -> SearchParams:
+        """The executor's strategy and tier on the caller's params; an
+        exclusion mode is dropped on an executor without radii."""
+        if params.strategy != self.strategy or \
+                params.graph_quant != self.graph_quant:
+            params = dataclasses.replace(params, strategy=self.strategy,
+                                         graph_quant=self.graph_quant)
+        if self.exclusion is None and params.exclusion != "none":
+            params = dataclasses.replace(params, exclusion="none")
+        return params
 
     def plan(self, queries, bitmaps, params: SearchParams) -> SearchPlan:
-        if params.strategy != self.strategy:
-            params = dataclasses.replace(params, strategy=self.strategy)
-        return SearchPlan(self.strategy, params, queries, bitmaps)
+        params = self.resolve_params(params)
+        notes = None
+        if self.exclusion is not None:
+            # family-exact radii when the whole batch hits registered
+            # families ("prune_exact": a family radius is 0 iff the row
+            # passes, so a pruned candidate's probe is provably moot);
+            # any other query demotes the batch to the ladder ("prune")
+            fam = match_families(self.exclusion, bitmaps)
+            mode = "prune_exact" if fam.numel() and bool((fam >= 0).all()) \
+                else "prune"
+            params = dataclasses.replace(params, exclusion=mode)
+            notes = {"excl": select_radii(self.exclusion, bitmaps)}
+        return SearchPlan(self.strategy, params, queries, bitmaps,
+                          notes=notes)
 
     def execute(self, plan: SearchPlan) -> SearchResult:
+        excl = None if plan.notes is None else plan.notes.get("excl")
         d, ids, stats = search_batch(self.graph, self.store, plan.queries,
-                                     plan.bitmaps, plan.params)
+                                     plan.bitmaps, plan.params, excl=excl)
         return SearchResult(dists=d, ids=ids, stats=stats,
                             strategy=self.strategy, plan=plan,
+                            anytime=costmodel.evaluate_anytime(
+                                stats, plan.params, self.store.dim, ids,
+                                hop_cap=plan.params.max_hops))
+
+
+def _allpass_bitmap(n: int, device) -> torch.Tensor:
+    """(W,) int32 bitmap passing exactly rows [0, n)."""
+    return pack_bool_bitmap(torch.ones(n, dtype=torch.bool, device=device))
+
+
+def _first_of_each_distinct(bitmaps: torch.Tensor,
+                            match: torch.Tensor) -> torch.Tensor:
+    """Index of the first query of each distinct bitmap row.  A matched
+    query carries its family's bitmap word for word, so the matched rows'
+    distinct bitmaps are their distinct matches, and no unmatched row
+    equals one of them; only the unmatched rows need a row-wise unique (a
+    lexicographic sort of their words, which over a whole 1M-row batch is
+    the largest device item of a partitioned search)."""
+    q = bitmaps.shape[0]
+    qidx = torch.arange(q, device=bitmaps.device)
+
+    def firsts(inv: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        n_keys = int(inv.max()) + 1 if inv.numel() else 0
+        first = torch.full((n_keys,), q, dtype=torch.int64,
+                           device=bitmaps.device)
+        first = first.scatter_reduce(0, inv, rows, reduce="amin")
+        return first[first < q]
+
+    matched = match >= 0
+    out = firsts(match[matched].to(torch.int64), qidx[matched])
+    unmatched = qidx[~matched]
+    if unmatched.numel():
+        _, inv = torch.unique(bitmaps[unmatched], dim=0, return_inverse=True)
+        out = torch.cat([out, firsts(inv, unmatched)])
+    return out
+
+
+class PartitionedGraphExecutor(BaseExecutor):
+    """JAG-style attribute-partitioned graphs behind the executor API.
+
+    A query whose bitmap equals a registered family bitmap word for word
+    runs UNFILTERED on that family's subgraph: the partition is the filter,
+    so its only filter work is the plan-time family match (F·W word
+    comparisons per distinct bitmap, charged to its first query).  Other
+    queries fall back to the wrapped base executor on the full graph; a
+    store grown past `built_n` demotes the whole batch to the fallback.
+    Local ids map back to global ids on the device."""
+
+    def __init__(self, partitions: PartitionedGraph, store: VectorStore,
+                 base: Optional[Executor] = None,
+                 graph_quant: str = "none"):
+        if graph_quant not in ("none", "sq8"):
+            raise ValueError(f"unknown graph_quant {graph_quant!r}")
+        if not partitions.partitions:
+            raise ValueError("PartitionedGraph holds no partitions")
+        if graph_quant == "sq8" and any(
+                not p.store.has_sq8 for p in partitions.partitions):
+            raise ValueError("graph_quant='sq8' needs partitions built from "
+                             "a quantize_store'd VectorStore (SQ8 shadow "
+                             "missing in a partition)")
+        self.partitions = partitions
+        self.store = store
+        self.base = base
+        self.graph_quant = graph_quant
+        self.strategy = "partitioned"
+        self.name = "partitioned" if graph_quant == "none" \
+            else f"partitioned_{graph_quant}"
+
+    def plan(self, queries, bitmaps, params: SearchParams) -> SearchPlan:
+        stale = self.partitions.built_n != self.store.n
+        match = torch.full((queries.shape[0],), -1, dtype=torch.int32,
+                           device=queries.device) if stale \
+            else self.partitions.match(bitmaps)
+        sub = dataclasses.replace(params, strategy="unfiltered",
+                                  graph_quant=self.graph_quant,
+                                  exclusion="none")
+        return SearchPlan("partitioned", sub, queries, bitmaps,
+                          notes={"match": match, "caller_params": params})
+
+    def execute(self, plan: SearchPlan) -> SearchResult:
+        match = plan.notes["match"]
+        q, k = int(plan.queries.shape[0]), plan.params.k
+        dev = plan.queries.device
+        unmatched = torch.nonzero(match < 0).flatten()
+        if unmatched.numel() and self.base is None:
+            raise ValueError(
+                f"{unmatched.numel()} queries match no partition family and "
+                "no base executor is attached for fallback")
+        dists = torch.full((q, k), float("inf"), device=dev)
+        ids = torch.full((q, k), -1, dtype=torch.int32, device=dev)
+        counters = {f.name: torch.zeros(q, dtype=torch.int32, device=dev)
+                    for f in dataclasses.fields(SearchStats)}
+        for f_idx in torch.unique(match[match >= 0]).tolist():
+            part = self.partitions.partitions[f_idx]
+            qsel = torch.nonzero(match == f_idx).flatten()
+            bm = _allpass_bitmap(part.store.n, dev).expand(
+                qsel.numel(), -1).contiguous()
+            d, lids, stats = search_batch(part.graph, part.store,
+                                          plan.queries[qsel], bm,
+                                          plan.params)
+            dists[qsel] = d
+            ids[qsel] = torch.where(
+                lids >= 0, part.rows[lids.clamp(min=0).long()].to(
+                    torch.int32), torch.full_like(lids, -1))
+            for name in counters:
+                counters[name][qsel] = getattr(stats, name)
+        if unmatched.numel():
+            fres = self.base.search(plan.queries[unmatched],
+                                    plan.bitmaps[unmatched],
+                                    plan.notes["caller_params"])
+            dists[unmatched] = fres.dists[:, :k]
+            ids[unmatched] = fres.ids[:, :k].to(torch.int32)
+            for name in counters:
+                counters[name][unmatched] = getattr(fres.stats, name)
+        # the plan-time family match, charged once per distinct bitmap
+        first = _first_of_each_distinct(plan.bitmaps, match)
+        counters["filter_checks"][first] += (
+            len(self.partitions.partitions) * int(plan.bitmaps.shape[1]))
+        stats = SearchStats(**counters)
+        return SearchResult(dists=dists, ids=ids, stats=stats,
+                            strategy="partitioned", plan=plan,
                             anytime=costmodel.evaluate_anytime(
                                 stats, plan.params, self.store.dim, ids,
                                 hop_cap=plan.params.max_hops))
@@ -212,27 +397,309 @@ class BruteForceExecutor(BaseExecutor):
                                 extra_budget=truncated))
 
 
+def index_shape(store: VectorStore, index: Optional[ScannIndex] = None,
+                graph_m: int = 16) -> costmodel.IndexShape:
+    """Static shape facts for the predictive cost model."""
+    kw = dict(n=store.n, dim=store.dim, graph_m=graph_m)
+    if index is not None:
+        L, C, _ = index.leaf_tiles.shape
+        if index.levels >= 2:
+            B, Lb = index.branch_leaves.shape
+            nb = max(1, -(-32 * 2 * B // L))
+            cent = B + nb * Lb
+        else:
+            cent = L
+        # average valid rows per leaf (the padded capacity over-counts)
+        fill = max(1, round(store.n / L))
+        kw.update(scann_leaves=L, scann_rows_per_leaf=min(fill, C),
+                  scann_cent_scored=cent,
+                  scann_pages_per_leaf=_quant_pages_per_leaf(index))
+    return costmodel.IndexShape(**kw)
+
+
+def _leaf_local_selectivity(index: ScannIndex, queries: torch.Tensor,
+                            bitmaps: torch.Tensor,
+                            probe_leaves: int) -> torch.Tensor:
+    """Bitmap density inside each query's nearest `probe_leaves` ScaNN
+    leaves, on the device: the correlation proxy's numerator.  (Q,) f32."""
+    qp = project_query(index, queries)                        # (Q, dp)
+    cents = index.leaf_centroids
+    cn = (cents * cents).sum(-1)
+    d = (qp * qp).sum(-1)[:, None] + cn[None, :] - 2.0 * (qp @ cents.T)
+    _, leaves = topk_smallest(d, probe_leaves)                # (Q, P)
+    rows = index.leaf_rowids[leaves].reshape(queries.shape[0], -1)
+    ok = probe_batch(bitmaps, rows)
+    valid = rows >= 0
+    return (ok & valid).sum(-1).to(torch.float32) \
+        / valid.sum(-1).clamp(min=1).to(torch.float32)
+
+
+class AdaptivePlanner(BaseExecutor):
+    """Per-batch system-aware strategy selection.
+
+    plan():  s_q = popcount(bitmap_q) / n, γ = mean local leaf density /
+             mean s (1.0 without a ScaNN candidate), pick = argmin over
+             recall- and batch-feasible candidates of predict_cycles.
+    execute(): the chosen executor's search, plus the planning overhead
+    charged to the counters (n/32 filter-word reads per query, the proxy's
+    centroid scan and leaf probes)."""
+
+    name = "adaptive"
+
+    def __init__(self, candidates: Mapping[str, Executor],
+                 store: VectorStore,
+                 constants: costmodel.CostConstants = costmodel.SYSTEM,
+                 graph_m: int = 16, probe_leaves: int = 4,
+                 recall_margin: float = 2.0,
+                 scann_recall_margin: float = 10.0):
+        if not candidates:
+            raise ValueError("AdaptivePlanner needs at least one candidate")
+        for name, ex in candidates.items():
+            kind = _strategy_kind(ex)
+            if kind not in costmodel.PREDICTABLE_STRATEGIES:
+                raise ValueError(
+                    f"candidate {name!r} ({kind!r}) has no predictive "
+                    f"model; supported: {costmodel.PREDICTABLE_STRATEGIES}")
+        self.candidates = dict(candidates)
+        self.store = store
+        self.constants = constants
+        self.graph_m = graph_m
+        self.probe_leaves = probe_leaves
+        self.recall_margin = recall_margin
+        self.scann_recall_margin = scann_recall_margin
+        self._scann = next((ex for ex in self.candidates.values()
+                            if isinstance(ex, ScannExecutor)), None)
+        # memoized (selectivity, γ) of the last batch: see
+        # _selectivity_proxy
+        self._proxy_key: Optional[tuple] = None
+        self._proxy_val: Optional[tuple] = None
+
+    def _shape(self) -> costmodel.IndexShape:
+        return index_shape(
+            self.store,
+            self._scann.index if self._scann is not None else None,
+            self.graph_m)
+
+    def _recall_feasible(self, strategy: str, shape: costmodel.IndexShape,
+                         params: SearchParams, s_eff: float) -> bool:
+        """Guards against a strategy whose expected candidate pool cannot
+        hold k passing rows; bruteforce is always feasible."""
+        k = params.k * self.recall_margin
+        if strategy == "scann":
+            nl = min(params.num_leaves_to_search, shape.scann_leaves or 1)
+            return s_eff * nl * (shape.scann_rows_per_leaf or 0) >= \
+                params.k * self.scann_recall_margin
+        if strategy in ("acorn", "navix"):
+            return shape.n * s_eff * costmodel.FILTER_FIRST_POOL >= \
+                max(params.ef_search, k)
+        if strategy in ("sweeping", "iterative_scan", "sweeping_excl"):
+            hops = min(max(params.ef_search, 2 * params.k) / max(s_eff, 1e-9),
+                       float(params.max_hops))
+            return costmodel.GRAPH_NEW_PER_HOP * hops * s_eff >= k
+        return True
+
+    def _batch_feasible(self, ex: Executor, bitmaps) -> bool:
+        """The partitioned tier answers a batch only when every query's
+        bitmap equals a registered family bitmap and the partitions are
+        fresh; anything else would route through its fallback."""
+        if isinstance(ex, PartitionedGraphExecutor):
+            if ex.partitions.built_n != ex.store.n:
+                return False
+            return bool((ex.partitions.match(bitmaps) >= 0).all())
+        return True
+
+    def _selectivity_proxy(self, queries, bitmaps):
+        """Memoized (per-query selectivity (Q,) float64, γ) of one batch.
+        The reference keys the memo by a CRC of the batch's bytes; here the
+        key is the two tensors' identity and version counters, so no
+        device-to-host copy of the bitmaps is needed (the popcount and the
+        leaf probe are the same either way, and the charged overhead lives
+        in execute())."""
+        key = (id(queries), queries._version, id(bitmaps), bitmaps._version)
+        if self._proxy_key is not None and self._proxy_key[0] == key \
+                and self._proxy_key[1]() is queries \
+                and self._proxy_key[2]() is bitmaps:
+            return self._proxy_val
+        n = self.store.n
+        sel = (bitmap_popcount(bitmaps).to(torch.float64) / n).cpu().numpy()
+        gamma = 1.0
+        if self._scann is not None:
+            local = _leaf_local_selectivity(self._scann.index, queries,
+                                            bitmaps, self.probe_leaves)
+            gamma = float(np.clip(local.cpu().numpy().mean()
+                                  / max(float(sel.mean()), 1.0 / n),
+                                  0.05, 20.0))
+        self._proxy_key = (key, weakref.ref(queries), weakref.ref(bitmaps))
+        self._proxy_val = (sel, gamma)
+        return sel, gamma
+
+    def plan(self, queries, bitmaps, params: SearchParams) -> SearchPlan:
+        n = self.store.n
+        sel, gamma = self._selectivity_proxy(queries, bitmaps)
+        s_mean = float(sel.mean())
+        shape = self._shape()
+        s_eff = min(max(s_mean * gamma, 1.0 / n), 1.0)
+        batch_q = int(queries.shape[0])
+        # each candidate priced on the params it would resolve (strategy +
+        # graph_quant), e.g. sweeping_sq8 on the quantized tier
+        preds = {name: costmodel.predict_cycles(
+            _strategy_kind(ex), shape, _candidate_params(ex, params),
+            s_mean, gamma, self.constants, batch_q=batch_q)
+            for name, ex in self.candidates.items()}
+        batch_ok = {name: self._batch_feasible(ex, bitmaps)
+                    for name, ex in self.candidates.items()}
+        feasible = {name: p for name, p in preds.items()
+                    if self._recall_feasible(_strategy_kind(
+                        self.candidates[name]), shape, params, s_eff)
+                    and batch_ok[name]}
+        # never empty: fall back to the argmin, keeping a batch-infeasible
+        # candidate out even then
+        pool = feasible or {nm: p for nm, p in preds.items()
+                            if batch_ok[nm]} or preds
+        chosen = min(pool, key=pool.get)
+        inner = self.candidates[chosen].plan(queries, bitmaps, params)
+        return SearchPlan(strategy=chosen, params=inner.params,
+                          queries=queries, bitmaps=bitmaps,
+                          est_selectivity=sel, correlation_proxy=gamma,
+                          predicted_cycles=preds, notes=inner.notes)
+
+    def execute(self, plan: SearchPlan) -> SearchResult:
+        res = self.candidates[plan.strategy].execute(plan)
+        if res.stats is not None:
+            words = int(plan.bitmaps.shape[1])
+            probe_fc = probe_dc = 0
+            if self._scann is not None:
+                idx = self._scann.index
+                probe_fc = self.probe_leaves * idx.leaf_rowids.shape[1]
+                probe_dc = idx.leaf_centroids.shape[0]
+            st = res.stats
+            stats = dataclasses.replace(
+                st, filter_checks=st.filter_checks + words + probe_fc,
+                distance_comps=st.distance_comps + probe_dc)
+            res = dataclasses.replace(res, stats=stats, plan=plan)
+        return res
+
+
+def _strategy_kind(ex: Executor) -> str:
+    """Predictive-model key of an executor (quant variants share their
+    strategy's law; the exclusion and partitioned tiers have their own)."""
+    if isinstance(ex, ScannExecutor):
+        return "scann"
+    if isinstance(ex, PartitionedGraphExecutor):
+        return "partitioned"
+    if isinstance(ex, GraphExecutor) and ex.exclusion is not None:
+        return "sweeping_excl"
+    return getattr(ex, "strategy", ex.name)
+
+
+def _candidate_params(ex: Executor, params: SearchParams) -> SearchParams:
+    """The params a candidate would resolve in plan(): what its prediction
+    is priced on."""
+    if isinstance(ex, PartitionedGraphExecutor):
+        return dataclasses.replace(params, strategy="unfiltered",
+                                   graph_quant=ex.graph_quant,
+                                   exclusion="none")
+    if isinstance(ex, GraphExecutor):
+        return dataclasses.replace(
+            params, strategy=ex.strategy, graph_quant=ex.graph_quant,
+            exclusion="none" if ex.exclusion is None else "prune")
+    return params
+
+
+def _parse_graph_method(method: str) -> tuple[str, str]:
+    """"sweeping_sq8" -> ("sweeping", "sq8"); plain names pass through."""
+    if method.endswith("_sq8") and method[:-4] in GRAPH_STRATEGIES:
+        return method[:-4], "sq8"
+    return method, "none"
+
+
 def make_executor(method: str, store: VectorStore, *,
                   graph: Optional[HNSWGraph] = None,
                   index: Optional[ScannIndex] = None,
-                  device="cuda") -> Executor:
+                  constants: costmodel.CostConstants = costmodel.SYSTEM,
+                  graph_m: int = 16,
+                  exclusion: Optional[ExclusionIndex] = None,
+                  partitions: Optional[PartitionedGraph] = None,
+                  planner_candidates: tuple[str, ...] =
+                  DEFAULT_PLANNER_CANDIDATES,
+                  storage=None, device="cuda") -> Executor:
     """Build the executor for `method` on `device` (the store must live
-    there): a graph strategy needs `graph`, "scann" needs `index`."""
+    there).  Graph strategies need `graph`; "<strategy>_sq8" runs the SQ8
+    tier on the store's shadow (`quantize_store`: pass a quantized store
+    to build several executors on one shadow); "scann" needs `index`; "sweeping_excl[_sq8]" needs
+    `graph` and `exclusion` (core.exclusion.build_exclusion);
+    "partitioned[_sq8]" needs `partitions` (hnsw.build_graph_partitioned),
+    with `graph` as the unmatched-query fallback; "adaptive" builds every
+    candidate of `planner_candidates` the given components support."""
     check_store_device(store, device)
-    if method in GRAPH_STRATEGIES:
+    if storage is not None:
+        raise NotImplementedError(_NO_STORAGE)
+    if method in _NOT_PORTED:
+        raise NotImplementedError(f"{method!r} is not ported yet: "
+                                  f"{_NOT_PORTED[method]}")
+
+    def excl_executor(quant: str, st: VectorStore) -> GraphExecutor:
+        if graph is None or exclusion is None:
+            raise ValueError("'sweeping_excl' variants need graph= and "
+                             "exclusion=")
+        return GraphExecutor(graph, st, strategy="sweeping",
+                             graph_quant=quant, exclusion=exclusion)
+
+    def part_executor(quant: str, st: VectorStore) -> Executor:
+        if partitions is None:
+            raise ValueError("'partitioned' variants need partitions=")
+        fallback = None if graph is None else GraphExecutor(
+            graph, st, strategy="sweeping", graph_quant=quant)
+        return PartitionedGraphExecutor(partitions, st, base=fallback,
+                                        graph_quant=quant)
+
+    def quant_of(name: str) -> str:
+        return "sq8" if name.endswith("_sq8") else "none"
+
+    if method in EXCL_METHODS:
+        quant = quant_of(method)
+        return excl_executor(quant, quantize_store(store)
+                             if quant == "sq8" else store)
+    if method in PARTITIONED_METHODS:
+        quant = quant_of(method)
+        return part_executor(quant, quantize_store(store)
+                             if quant == "sq8" else store)
+    base, quant = _parse_graph_method(method)
+    if base in GRAPH_STRATEGIES:
         if graph is None:
             raise ValueError(f"{method!r} needs graph=")
-        return GraphExecutor(graph, store, strategy=method)
+        return GraphExecutor(graph, quantize_store(store)
+                             if quant == "sq8" else store, strategy=base,
+                             graph_quant=quant)
     if method == "scann":
         if index is None:
             raise ValueError(f"{method!r} needs index=")
         return ScannExecutor(index, store)
     if method == "bruteforce":
         return BruteForceExecutor(store)
-    if method in _NOT_PORTED:
-        raise NotImplementedError(f"{method!r} is not ported yet: "
-                                  f"{_NOT_PORTED[method]}")
-    if method.endswith("_sq8") and method[:-4] in GRAPH_STRATEGIES:
-        raise NotImplementedError(f"{method!r} is not ported yet: ROADMAP "
-                                  "1.4b (the SQ8 graph tier, slice 2)")
+    if method == "adaptive":
+        if graph is not None and any(n.endswith("_sq8")
+                                     for n in planner_candidates):
+            store = quantize_store(store)
+        cands: dict[str, Executor] = {}
+        for name in planner_candidates:
+            cbase, cquant = _parse_graph_method(name)
+            if name == "bruteforce":
+                cands[name] = BruteForceExecutor(store)
+            elif name in EXCL_METHODS:
+                if graph is not None and exclusion is not None:
+                    cands[name] = excl_executor(quant_of(name), store)
+            elif name in PARTITIONED_METHODS:
+                if partitions is not None:
+                    cands[name] = part_executor(quant_of(name), store)
+            elif cbase in GRAPH_STRATEGIES and graph is not None:
+                cands[name] = GraphExecutor(graph, store, strategy=cbase,
+                                            graph_quant=cquant)
+            elif name == "scann" and index is not None:
+                cands[name] = ScannExecutor(index, store)
+            elif name in _NOT_PORTED:
+                raise NotImplementedError(f"{name!r} is not ported yet: "
+                                          f"{_NOT_PORTED[name]}")
+        return AdaptivePlanner(cands, store, constants=constants,
+                               graph_m=graph_m)
     raise ValueError(f"unknown method {method!r}; ported: {PORTED_METHODS}")

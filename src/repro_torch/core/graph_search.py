@@ -13,6 +13,13 @@ Strategies, one superstep loop for the whole query batch:
                     onehop / adaptive-local)
   iterative_scan  — pgvector 0.8.0 resumable post-filtering
 
+Two tiers sit on every strategy: `graph_quant="sq8"` navigates over the
+store's SQ8 shadow rows (the `frontier_scan_sq8` kernel) and re-scores the
+final result beam exactly from the full-precision rows; FAVOR exclusion
+pruning (sweeping only) drops a scored candidate from the pool, never from
+W, when its exclusion radius proves no passing row behind it can beat the
+result tail (the `frontier_scan_excl[_sq8]` kernels).
+
 Every query advances one hop per superstep.  The per-query state machine
 (pop order, masks, counter formulas, stable tie order of every merge) is
 the reference engine's, so ids, distances and the seven Table-6 counters
@@ -35,10 +42,39 @@ from repro_torch.core.costmodel import budget_cycle_weights
 from repro_torch.core.hnsw import HNSWGraph
 from repro_torch.core.types import (SearchParams, SearchStats, VectorStore,
                                     distance, heap_pages_per_vector,
-                                    probe_batch, topk_smallest)
+                                    probe_batch, quant_heap_pages_per_vector,
+                                    topk_smallest)
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import dequantize
 
 INF = float("inf")
+
+GRAPH_QUANT_MODES = ("none", "sq8")
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryRadii:
+    """Per-query exclusion radii without a (Q, n) block: query q reads row
+    `rows[q]` of the (R + F, n) squared-radius table (a ladder rung or an
+    exact family row)."""
+
+    table: torch.Tensor     # (R + F, n) f32
+    rows: torch.Tensor      # (Q,) int32
+
+    def dense(self) -> torch.Tensor:
+        """The (Q, n) block the reference's `select_radii` returns (tests
+        at small n only)."""
+        return self.table[self.rows.to(torch.int64)]
+
+    def take(self, qsel: torch.Tensor) -> "QueryRadii":
+        return QueryRadii(self.table, self.rows[qsel])
+
+
+def _ppv(store: VectorStore, quant: str) -> int:
+    """Heap pages per traversal-fetched vector: full-width rows for the
+    classic tier, SQ8 shadow rows for the quantized tier."""
+    return (quant_heap_pages_per_vector(store.dim) if quant == "sq8"
+            else heap_pages_per_vector(store.dim))
 
 
 def _budget_over(st: SearchStats, params: SearchParams, dim: int):
@@ -70,12 +106,17 @@ def _budget_over(st: SearchStats, params: SearchParams, dim: int):
 
 
 def _gather_vec_dist(store: VectorStore, queries: torch.Tensor,
-                     ids: torch.Tensor) -> torch.Tensor:
+                     ids: torch.Tensor, quant: str = "none") -> torch.Tensor:
     """(Q, m) distances of each query to the rows `ids` (Q, m); a -1 id
-    reads row 0, as in the reference, and callers mask it."""
+    reads row 0, as in the reference, and callers mask it.  quant="sq8"
+    reads the shadow rows, dequantized, with their precomputed norms."""
     safe = ids.clamp(min=0).to(torch.int64)
-    return distance(store.metric, queries[:, None, :], store.vectors[safe],
-                    store.norms_sq[safe])
+    if quant == "sq8":
+        vecs = dequantize(store.q_vectors[safe], store.q_scale, store.q_mean)
+        nsq = store.q_norms_sq[safe]
+    else:
+        vecs, nsq = store.vectors[safe], store.norms_sq[safe]
+    return distance(store.metric, queries[:, None, :], vecs, nsq)
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -86,14 +127,16 @@ def _masked(active: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.where(active, _i32(v), torch.zeros_like(_i32(v)))
 
 
-def _zoom_in(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor):
+def _zoom_in(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor,
+             quant: str = "none"):
     """Greedy upper-layer descent of every query (always unfiltered, paper
-    §2.3.1 phase (i)).  Returns (entry (Q,), entry_d (Q,), stats)."""
+    §2.3.1 phase (i)), on the tier `quant` names.  Returns (entry (Q,),
+    entry_d (Q,), stats)."""
     qn = queries.shape[0]
     dev = queries.device
-    ppv = heap_pages_per_vector(store.dim)
+    ppv = _ppv(store, quant)
     cur = torch.full((qn,), graph.entry_point, dtype=torch.int64, device=dev)
-    cur_d = _gather_vec_dist(store, queries, cur[:, None])[:, 0]
+    cur_d = _gather_vec_dist(store, queries, cur[:, None], quant)[:, 0]
     st = SearchStats.zeros((qn,), device=dev)
     st.distance_comps += 1
     st.page_accesses_heap += ppv
@@ -102,7 +145,8 @@ def _zoom_in(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor):
         while bool(improved.any()):
             nbrs = graph.neighbors[lvl, cur].to(torch.int64)   # (Q, 2M)
             valid = nbrs >= 0
-            d = torch.where(valid, _gather_vec_dist(store, queries, nbrs),
+            d = torch.where(valid, _gather_vec_dist(store, queries, nbrs,
+                                                    quant),
                             torch.full_like(cur_d[:, None], INF))
             j = torch.argmin(d, 1, keepdim=True)
             dj = torch.gather(d, 1, j)[:, 0]
@@ -118,11 +162,32 @@ def _zoom_in(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor):
     return cur, cur_d, st
 
 
-def _frontier_scores(queries, store: VectorStore, cids, bitmaps):
+def _frontier_scores(queries, store: VectorStore, cids, bitmaps,
+                     quant: str = "none"):
     """Scoring + filter probe of one (Q, C) candidate id block: the
-    `frontier_scan` kernel on the card, its plain version on the CPU."""
+    `frontier_scan[_sq8]` kernel on the card, its plain version on the
+    CPU."""
+    if quant == "sq8":
+        return ops.frontier_scan_sq8(queries, store.q_vectors, store.q_scale,
+                                     store.q_mean, store.q_norms_sq, cids,
+                                     bitmaps, metric=store.metric)
     return ops.frontier_scan(queries, store.vectors, store.norms_sq, cids,
                              bitmaps, metric=store.metric)
+
+
+def _frontier_scores_excl(queries, store: VectorStore, cids, bitmaps,
+                          quant: str, excl: QueryRadii, tau, margin: float):
+    """`_frontier_scores` plus the FAVOR keep mask; each candidate's radius
+    is read by the kernel from the radius table.  Returns (dists, pass,
+    keep)."""
+    if quant == "sq8":
+        return ops.frontier_scan_excl_sq8(
+            queries, store.q_vectors, store.q_scale, store.q_mean,
+            store.q_norms_sq, cids, bitmaps, excl.table, excl.rows, tau,
+            metric=store.metric, margin=margin)
+    return ops.frontier_scan_excl(queries, store.vectors, store.norms_sq,
+                                  cids, bitmaps, excl.table, excl.rows, tau,
+                                  metric=store.metric, margin=margin)
 
 
 def _merge_smallest(buf_d, buf_id, cand_d, cand_id, drop_head=None):
@@ -180,7 +245,9 @@ def _compact_positions(mask: torch.Tensor, pad_to: int) -> torch.Tensor:
 
 def _score_insert_chunks(queries, bitmaps, store, cand_ids, sel_mask,
                          chunk: int, pool, w, visited, sweep_worst=None,
-                         dedup: bool = False, drop_head=None):
+                         dedup: bool = False, drop_head=None,
+                         quant: str = "none", excl=None,
+                         excl_margin: float = 0.5, excl_exact: bool = False):
     """Score the selected candidates chunk at a time and merge them into
     the pool and the result queue, marking them visited as chunks finish.
 
@@ -190,7 +257,12 @@ def _score_insert_chunks(queries, bitmaps, store, cand_ids, sel_mask,
     filter probe, and counts the would-enter-W checks.  `dedup` (filter-
     first 2-hop) drops candidates already visited and repeats within a
     chunk.  `drop_head` folds the superstep's pool pop into the first
-    merge.  Returns (pool_d, pool_id, w_d, w_id, visited, n_would)."""
+    merge.  `quant` picks the scored tier.  `excl` (sweeping only) gates
+    POOL insertion on the keep mask with tau = `sweep_worst`: a dropped
+    candidate keeps its distance, W eligibility, visited mark and filter
+    check, but its branch is never popped; `excl_exact` (family-exact
+    radii) stops charging the filter check of a pruned candidate.
+    Returns (pool_d, pool_id, w_d, w_id, visited, n_would)."""
     qn, m = cand_ids.shape
     c = m if chunk <= 0 else min(chunk, m)
     pool_d, pool_id = pool
@@ -203,17 +275,30 @@ def _score_insert_chunks(queries, bitmaps, store, cand_ids, sel_mask,
             cids = torch.where(_dedup_first(cids) & ~seen, cids,
                                torch.full_like(cids, -1))
         valid = cids >= 0
-        dch, pch = _frontier_scores(queries, store, cids, bitmaps)
+        keep = None
+        if excl is not None:
+            dch, pch, keep = _frontier_scores_excl(
+                queries, store, cids, bitmaps, quant, excl, sweep_worst,
+                excl_margin)
+        else:
+            dch, pch = _frontier_scores(queries, store, cids, bitmaps, quant)
         cd = torch.where(valid, dch, torch.full_like(dch, INF))
         if sweep_worst is not None:
             would = valid & (cd < sweep_worst[:, None])
-            nw = nw + _i32(would.sum(1))
+            charged = would & keep if (excl_exact and keep is not None) \
+                else would
+            nw = nw + _i32(charged.sum(1))
             enter = would & pch
             wd_in = torch.where(enter, cd, torch.full_like(cd, INF))
             wi_in = torch.where(enter, cids, torch.full_like(cids, -1))
         else:
             wd_in, wi_in = cd, cids
-        pd, pi = _merge_smallest(pd, pi, cd, cids, drop)
+        if keep is None:
+            pd, pi = _merge_smallest(pd, pi, cd, cids, drop)
+        else:
+            pd, pi = _merge_smallest(
+                pd, pi, torch.where(keep, cd, torch.full_like(cd, INF)),
+                torch.where(keep, cids, torch.full_like(cids, -1)), drop)
         wd, wi = _merge_smallest(wd, wi, wd_in, wi_in)
         return pd, pi, wd, wi, _mark(vis, cids, valid), nw
 
@@ -285,12 +370,14 @@ def _count(st: SearchStats, active, dc, fc, pai, pah, tm) -> SearchStats:
 
 
 def _base_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
-                    params: SearchParams, ef_result: int,
-                    s: _Lanes) -> _Lanes:
-    """One superstep of the base (non-iterative) engine."""
+                    params: SearchParams, ef_result: int, s: _Lanes,
+                    excl=None) -> _Lanes:
+    """One superstep of the base (non-iterative) engine.  `excl`
+    (QueryRadii, sweeping only) prunes pool insertion."""
     qn = queries.shape[0]
     strat = params.strategy
-    ppv = heap_pages_per_vector(store.dim)
+    quant = params.graph_quant
+    ppv = _ppv(store, quant)
     deg = graph.neighbors.shape[2]
     tm_on = params.translation_map
     we_idx = params.ef_search - 1 if ef_result >= params.ef_search \
@@ -321,7 +408,10 @@ def _base_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
             queries, bitmaps, store, nb1, unv1 & active[:, None],
             params.frontier_chunk, (s.pool_d, s.pool_id), (s.w_d, s.w_id),
             s.visited, sweep_worst=w_worst if strat == "sweeping" else None,
-            drop_head=active)
+            drop_head=active, quant=quant,
+            excl=excl if strat == "sweeping" else None,
+            excl_margin=params.exclusion_margin,
+            excl_exact=params.exclusion == "prune_exact")
         if strat == "sweeping":
             fc = fc + n_w
             if tm_on:
@@ -330,7 +420,7 @@ def _base_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
                 pai = pai + n_w
     else:
         # filter-first (acorn / navix): the predicate subgraph
-        d1, pass1 = _frontier_scores(queries, store, nb1, bitmaps)
+        d1, pass1 = _frontier_scores(queries, store, nb1, bitmaps, quant)
         n1 = v1.sum(1)
         fc = fc + n1                                   # check all 1-hop
         if tm_on:
@@ -405,14 +495,14 @@ def _base_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
         pool_d, pool_id, w_d, w_id, visited, _ = _score_insert_chunks(
             queries, bitmaps, store, cid2,
             s2.reshape(qn, -1) & active[:, None], params.frontier_chunk2,
-            (pool_d, pool_id), (w_d, w_id), visited, dedup=True)
+            (pool_d, pool_id), (w_d, w_id), visited, dedup=True, quant=quant)
 
     st = _count(s.st, active, dc, fc, pai, pah, tm)
     return _Lanes(pool_d, pool_id, w_d, w_id, visited, st, s.done | stop)
 
 
 def _frontier_base(graph, store, queries, bitmaps, params, entry, entry_d,
-                   st, ef_result: int):
+                   st, ef_result: int, excl=None):
     """The base engine's superstep loop.  Returns (W_d, W_id) sorted
     ascending and the stats."""
     seed_ok = probe_batch(bitmaps, entry[:, None])[:, 0] \
@@ -420,7 +510,7 @@ def _frontier_base(graph, store, queries, bitmaps, params, entry, entry_d,
     s = _init_lanes(graph, entry, entry_d, st, params, ef_result, seed_ok)
     while not bool(s.done.all()):
         s = _base_superstep(graph, store, queries, bitmaps, params,
-                            ef_result, s)
+                            ef_result, s, excl)
     return s.w_d, s.w_id, s.st
 
 
@@ -428,7 +518,8 @@ def _iter_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
                     params: SearchParams, s: _Lanes, eff, rnd, checked):
     """One superstep of the iterative-scan engine: emit (post-filter the
     batch, maybe extend the scan) or expand."""
-    ppv = heap_pages_per_vector(store.dim)
+    quant = params.graph_quant
+    ppv = _ppv(store, quant)
     efmax = params.batch_tuples * params.max_rounds
     tm_on = params.translation_map
 
@@ -466,7 +557,7 @@ def _iter_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
     pool_d, pool_id, w_d, w_id, visited, _ = _score_insert_chunks(
         queries, bitmaps, store, nb1, score_m & active[:, None],
         params.frontier_chunk, (s.pool_d, s.pool_id), (s.w_d, s.w_id),
-        s.visited, drop_head=active)
+        s.visited, drop_head=active, quant=quant)
 
     zero = torch.zeros_like(fc_emit)
     st = s.st
@@ -501,6 +592,11 @@ def _frontier_iterative(graph, store, queries, bitmaps, params, entry,
         s, eff, rnd, checked = _iter_superstep(graph, store, queries,
                                                bitmaps, params, s, eff, rnd,
                                                checked)
+    if params.graph_quant == "sq8" and params.sq8_rerank:
+        r = min(params.k * params.reorder_factor, efmax)
+        dk, ids, n_r = _iter_emit_sq8(store, queries, s.w_d, s.w_id,
+                                      bitmaps, eff, params.k, r)
+        return dk, ids, _add_rerank(s.st, n_r, store.dim)
     in_batch = torch.arange(efmax, device=dev)[None, :] < eff[:, None]
     dm = torch.where(in_batch, s.w_d, torch.full_like(s.w_d, INF))
     im = torch.where(in_batch, s.w_id, torch.full_like(s.w_id, -1))
@@ -510,6 +606,49 @@ def _frontier_iterative(graph, store, queries, bitmaps, params, entry,
     ids = torch.where(torch.isinf(dk), torch.full_like(pos, -1),
                       torch.gather(im, 1, pos))
     return dk, ids, s.st
+
+
+def _add_rerank(st: SearchStats, n_r, dim: int) -> SearchStats:
+    """Charge an exact rerank of n_r (Q,) rows: one distance, full-width
+    heap pages and one reorder row each."""
+    n_r = _i32(n_r)
+    return SearchStats(st.distance_comps + n_r, st.filter_checks, st.hops,
+                       st.page_accesses_index,
+                       st.page_accesses_heap + n_r * heap_pages_per_vector(
+                           dim),
+                       st.tmap_lookups, st.reorder_rows + n_r)
+
+
+def _rerank_beam(store: VectorStore, queries, w_id, st: SearchStats):
+    """Exact full-precision rescore of the final result beam (the SQ8
+    tier's recall bound): the beam's exact distances in the same slots,
+    and the stats charged for it."""
+    valid = w_id >= 0
+    exact = torch.where(valid, _gather_vec_dist(store, queries, w_id),
+                        torch.full(w_id.shape, INF, device=w_id.device))
+    return exact, _add_rerank(st, valid.sum(1), store.dim)
+
+
+def _iter_emit_sq8(store: VectorStore, queries, w_d, w_id, bitmaps, eff,
+                   k: int, r: int):
+    """Quantized iterative-scan emit: post-filter the in-batch candidates,
+    take the top r by quantized distance and re-score them exactly.
+    Returns (dists (Q, k), ids (Q, k), n_reranked (Q,))."""
+    efmax = w_d.shape[1]
+    in_batch = torch.arange(efmax, device=w_d.device)[None, :] < eff[:, None]
+    d = torch.where(in_batch, w_d, torch.full_like(w_d, INF))
+    ids = torch.where(in_batch, w_id, torch.full_like(w_id, -1))
+    passing = probe_batch(bitmaps, ids) & (ids >= 0)
+    rd, rpos = topk_smallest(torch.where(passing, d, torch.full_like(d, INF)),
+                             r)
+    cand = torch.where(torch.isfinite(rd), torch.gather(ids, 1, rpos),
+                       torch.full_like(rpos, -1))
+    exact = torch.where(cand >= 0, _gather_vec_dist(store, queries, cand),
+                        torch.full(cand.shape, INF, device=cand.device))
+    dk, pos = topk_smallest(exact, k)
+    out = torch.where(torch.isinf(dk), torch.full_like(pos, -1),
+                      torch.gather(cand, 1, pos))
+    return dk, out, (cand >= 0).sum(1)
 
 
 def _finalize(w_d, w_id, bitmaps, k: int, check_filter: bool):
@@ -525,32 +664,62 @@ def _finalize(w_d, w_id, bitmaps, k: int, check_filter: bool):
 
 
 def _frontier_search_batch(graph: HNSWGraph, store: VectorStore, queries,
-                           bitmaps, params: SearchParams):
-    entry, entry_d, st = _zoom_in(graph, store, queries)
+                           bitmaps, params: SearchParams, excl=None):
+    quant = params.graph_quant
+    entry, entry_d, st = _zoom_in(graph, store, queries, quant)
     if params.strategy == "iterative_scan":
         dk, ids, st = _frontier_iterative(graph, store, queries, bitmaps,
                                           params, entry, entry_d, st)
     else:
         w_d, w_id, st = _frontier_base(graph, store, queries, bitmaps,
                                        params, entry, entry_d, st,
-                                       ef_result=params.ef_search)
+                                       ef_result=params.ef_search, excl=excl)
+        if quant == "sq8" and params.sq8_rerank:
+            w_d, st = _rerank_beam(store, queries, w_id, st)
         dk, ids = _finalize(w_d, w_id, bitmaps, params.k,
                             check_filter=params.strategy != "unfiltered")
     return dk, ids.to(torch.int32), st
 
 
 def search_batch(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor,
-                 bitmaps: torch.Tensor, params: SearchParams):
+                 bitmaps: torch.Tensor, params: SearchParams,
+                 excl: QueryRadii | None = None):
     """Batched filtered graph search on the frontier engine.
     queries (Q, d), bitmaps (Q, W) int32.  Returns (dists (Q, k),
-    ids (Q, k) int32, SearchStats with (Q,) counters)."""
-    if params.graph_quant != "none":
-        raise NotImplementedError(
-            "graph_quant='sq8' is not ported yet (ROADMAP 1.4b, the SQ8 "
-            "graph tier)")
+    ids (Q, k) int32, SearchStats with (Q,) counters).
+
+    `params.graph_quant="sq8"` navigates over the store's SQ8 shadow
+    (`types.quantize_store`) and re-scores the final beam exactly.
+    `params.exclusion` "prune" / "prune_exact" (sweeping, l2) needs
+    `excl`, the batch's QueryRadii (`exclusion.select_radii`)."""
+    if params.graph_quant not in GRAPH_QUANT_MODES:
+        raise ValueError(f"unknown graph_quant {params.graph_quant!r}; "
+                         f"expected one of {GRAPH_QUANT_MODES}")
+    if params.graph_quant == "sq8" and not store.has_sq8:
+        raise ValueError("graph_quant='sq8' needs an SQ8 shadow store; "
+                         "build it with core.types.quantize_store")
+    if params.exclusion not in ("none", "prune", "prune_exact"):
+        raise ValueError(f"unknown exclusion {params.exclusion!r}; "
+                         "expected 'none', 'prune' or 'prune_exact'")
     if params.exclusion != "none":
-        raise NotImplementedError(
-            "exclusion pruning is not ported yet (ROADMAP 1.9)")
+        if excl is None:
+            raise ValueError(f"exclusion={params.exclusion!r} needs "
+                             "per-query radii (excl=QueryRadii; "
+                             "core.exclusion.select_radii)")
+        if params.strategy != "sweeping":
+            raise ValueError("exclusion pruning is a sweeping-strategy "
+                             f"tier (got strategy={params.strategy!r})")
+        if store.metric != "l2":
+            raise ValueError("exclusion pruning requires metric='l2' "
+                             f"(got {store.metric!r})")
+        if params.graph_exec_mode != "frontier":
+            raise ValueError("exclusion pruning needs the frontier engine "
+                             "(graph_exec_mode='frontier')")
+        if not params.exclusion_margin > 0.0:
+            raise ValueError("exclusion_margin must be > 0 (0 would prune "
+                             "everything once W fills)")
+    elif excl is not None:
+        raise ValueError("excl radii passed but params.exclusion='none'")
     if params.graph_exec_mode != "frontier":
         raise NotImplementedError(
             f"graph_exec_mode={params.graph_exec_mode!r}: only the frontier "
@@ -558,4 +727,5 @@ def search_batch(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor,
     if params.strategy not in ("unfiltered", "sweeping", "acorn", "navix",
                                "iterative_scan"):
         raise ValueError(f"unknown graph strategy {params.strategy!r}")
-    return _frontier_search_batch(graph, store, queries, bitmaps, params)
+    return _frontier_search_batch(graph, store, queries, bitmaps, params,
+                                  excl)

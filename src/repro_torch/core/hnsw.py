@@ -23,7 +23,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.types import VectorStore, check_store_device
+from repro_torch.core.types import (VectorStore, check_store_device,
+                                    match_bitmaps, to_device, unpack_bitmap)
 
 INF = float("inf")
 
@@ -410,3 +411,98 @@ def build_graph_blocked(store: VectorStore, m: int = 16,
         neighbors=torch.as_tensor(nbrs.astype(np.int32), device=dev),
         node_level=torch.as_tensor(levels.astype(np.int32), device=dev),
         entry_point=entry, m=m)
+
+
+# ---------------------------------------------------------------------------
+# JAG-style attribute-partitioned graphs.  For a hot predicate family (a
+# filter bitmap shared by many queries) a dedicated subgraph over exactly
+# the family's passing rows is traversed UNFILTERED: every row passes by
+# construction, so the per-node filter checks vanish.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphPartition:
+    """One predicate family's subgraph.  rows: (n_f,) int64 ascending
+    global row ids (local id i is global rows[i]); store and graph index
+    the gathered rows."""
+
+    tag: str
+    bitmap: torch.Tensor        # (W,) int32 packed family bitmap
+    rows: torch.Tensor          # (n_f,) int64 global row ids, ascending
+    store: VectorStore          # gathered family rows (+ SQ8 shadow)
+    graph: HNSWGraph            # subgraph over the local rows
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedGraph:
+    """The registered family subgraphs.  built_n is the base store's row
+    count at build time: a store grown past it makes every partition
+    stale."""
+
+    partitions: tuple[GraphPartition, ...]
+    built_n: int
+
+    @property
+    def tags(self) -> tuple[str, ...]:
+        return tuple(p.tag for p in self.partitions)
+
+    def to(self, device) -> "PartitionedGraph":
+        """A copy with every partition's tensors on `device`."""
+        return dataclasses.replace(self, partitions=tuple(
+            dataclasses.replace(p, bitmap=p.bitmap.to(device),
+                                rows=p.rows.to(device),
+                                store=to_device(p.store, device),
+                                graph=to_device(p.graph, device))
+            for p in self.partitions))
+
+    def match(self, bitmaps: torch.Tensor) -> torch.Tensor:
+        """(Q,) int32 partition index whose bitmap equals each query's
+        bitmap word for word, or -1; compared on the device."""
+        if not self.partitions:
+            return torch.full((bitmaps.shape[0],), -1, dtype=torch.int32,
+                              device=bitmaps.device)
+        return match_bitmaps(bitmaps, torch.stack(
+            [p.bitmap for p in self.partitions]))
+
+
+def gather_substore(store: VectorStore, rows: torch.Tensor) -> VectorStore:
+    """Dense sub-store over `rows` (ascending global ids), carrying the SQ8
+    shadow rows verbatim when present."""
+    v = store.vectors[rows].contiguous()
+    sub = VectorStore(vectors=v, norms_sq=(v * v).sum(-1),
+                      metric=store.metric)
+    if store.has_sq8:
+        sub = dataclasses.replace(
+            sub, q_vectors=store.q_vectors[rows].contiguous(),
+            q_scale=store.q_scale, q_mean=store.q_mean,
+            q_norms_sq=store.q_norms_sq[rows].contiguous())
+    return sub
+
+
+def build_graph_partitioned(store: VectorStore,
+                            families: dict[str, torch.Tensor], m: int = 16,
+                            ef_construction: int = 32, seed: int = 0,
+                            blocked_threshold: int = 20_000,
+                            device="cuda") -> PartitionedGraph:
+    """One subgraph per predicate family (tag -> packed (W,) int32
+    bitmap), each built on the store's device with the base graph's
+    recipe: `build_graph` up to `blocked_threshold` rows, the
+    cluster-routed `build_graph_blocked` above."""
+    dev = check_store_device(store, device)
+    n = store.n
+    parts = []
+    for i, tag in enumerate(sorted(families)):
+        bm = families[tag].to(dev)
+        rows = torch.nonzero(unpack_bitmap(bm, n)).flatten()
+        if rows.numel() < 2:
+            raise ValueError(f"family {tag!r} has {rows.numel()} passing "
+                             "rows; a subgraph needs at least 2")
+        sub = gather_substore(store, rows)
+        build = (build_graph if rows.numel() <= blocked_threshold
+                 else build_graph_blocked)
+        g = build(sub, m=m, ef_construction=ef_construction, seed=seed + i,
+                  device=dev)
+        parts.append(GraphPartition(tag=tag, bitmap=bm, rows=rows,
+                                    store=sub, graph=g))
+    return PartitionedGraph(partitions=tuple(parts), built_n=n)

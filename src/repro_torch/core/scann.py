@@ -140,15 +140,12 @@ def build_scann(store: VectorStore, num_leaves: int, levels: int = 2,
     rowids = torch.nn.functional.pad(rowids, (0, cap - rowids.shape[1]),
                                      value=-1)
 
-    # SQ8 over the dataset: the shared numpy quantizer, byte-identical to
-    # the reference's
-    q, scale, mean = sq8_quantize(xp.cpu().numpy())
-    q = torch.as_tensor(q, device=dev)
+    # SQ8 over the dataset on the device, byte-identical to the
+    # reference's quantizer
+    q, scale, mean = sq8_quantize(xp)
     valid = rowids >= 0
     tiles = torch.zeros((num_leaves, cap, dp), dtype=torch.int8, device=dev)
     tiles[valid] = q[rowids[valid]]
-    scale_t = torch.as_tensor(scale, device=dev)
-    mean_t = torch.as_tensor(mean, device=dev)
 
     if levels >= 2 and num_leaves >= 16:
         nb = max(4, int(np.sqrt(num_leaves)))
@@ -163,11 +160,11 @@ def build_scann(store: VectorStore, num_leaves: int, levels: int = 2,
         leaf_tiles=tiles,
         leaf_rowids=rowids.to(torch.int32),
         leaf_centroids=cent,
-        scale=scale_t, mean=mean_t,
+        scale=scale, mean=mean,
         branch_centroids=bcent,
         branch_leaves=bleaves.to(torch.int32),
         pca=torch.cat([pca, pca_mu[None, :] @ pca], 0),
-        row_norms_sq=_row_norms_sq(tiles, scale_t, mean_t),
+        row_norms_sq=_row_norms_sq(tiles, scale, mean),
         metric=store.metric, levels=levels)
 
 

@@ -48,11 +48,21 @@ class VectorStore:
 
     vectors: (N, d) float32 full-precision rows ("heap" in the paper).
     norms_sq: (N,) float32 squared norms (the L2 fast path).
+
+    The SQ8 shadow is the graph engine's quantized-traversal tier:
+    per-dimension affine int8 rows (dequantized as q_vectors * q_scale +
+    q_mean) and the dequantized rows' squared norms.  None until
+    `quantize_store` attaches it; the full-precision rows stay
+    authoritative (exact rerank, ground truth).
     """
 
     vectors: torch.Tensor
     norms_sq: torch.Tensor
     metric: str = METRIC_L2
+    q_vectors: Optional[torch.Tensor] = None     # (N, d) int8
+    q_scale: Optional[torch.Tensor] = None       # (d,) f32
+    q_mean: Optional[torch.Tensor] = None        # (d,) f32
+    q_norms_sq: Optional[torch.Tensor] = None    # (N,) f32, dequantized rows
 
     @property
     def n(self) -> int:
@@ -65,6 +75,10 @@ class VectorStore:
     @property
     def device(self) -> torch.device:
         return self.vectors.device
+
+    @property
+    def has_sq8(self) -> bool:
+        return self.q_vectors is not None
 
     @staticmethod
     def build(vectors, metric: str = METRIC_L2,
@@ -85,16 +99,33 @@ def check_store_device(store: VectorStore, device) -> torch.device:
     return store.device
 
 
-def sq8_quantize(x: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Per-dimension affine SQ8 over a dataset (numpy, byte-identical to the
-    reference quantizer).  Returns (q (n, d) int8, scale (d,) f32,
-    mean (d,) f32) with dequantization x̂ = q * scale + mean."""
-    x = np.asarray(x, np.float32)
-    lo, hi = x.min(0), x.max(0)
-    scale = np.maximum((hi - lo) / 254.0, 1e-8).astype(np.float32)
-    mean = ((hi + lo) / 2.0).astype(np.float32)
-    q = np.clip(np.round((x - mean) / scale), -127, 127).astype(np.int8)
+def sq8_quantize(x: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-dimension affine SQ8 over a dataset, on x's device.  Returns
+    (q (n, d) int8, scale (d,) f32, mean (d,) f32) with dequantization
+    x̂ = q * scale + mean.  Byte-identical to the reference's numpy
+    quantizer: the same float32 operations in the same order (min/max are
+    exact, division is correctly rounded, both roundings are
+    half-to-even).  The divisor 254 is a tensor: CUDA divides by a Python
+    scalar as a product with its rounded reciprocal, which is not
+    correctly rounded."""
+    lo, hi = x.min(0).values, x.max(0).values
+    scale = ((hi - lo) / torch.full_like(hi, 254.0)).clamp(min=1e-8)
+    mean = (hi + lo) / 2.0
+    q = torch.round((x - mean) / scale).clamp(-127, 127).to(torch.int8)
     return q, scale, mean
+
+
+def quantize_store(store: VectorStore) -> VectorStore:
+    """The store with its SQ8 shadow attached, computed on the store's
+    device (idempotent: a store that has one is returned as it is).
+    q_norms_sq dequantizes as the plain SQ8 frontier scan does."""
+    if store.has_sq8:
+        return store
+    q, scale, mean = sq8_quantize(store.vectors)
+    deq = q.to(torch.float32) * scale + mean
+    return dataclasses.replace(store, q_vectors=q, q_scale=scale,
+                               q_mean=mean, q_norms_sq=(deq * deq).sum(-1))
 
 
 def distance(metric: str, q: torch.Tensor, x: torch.Tensor,
@@ -201,6 +232,20 @@ def bitmap_popcount(bitmaps: torch.Tensor) -> torch.Tensor:
     x = (x + (x >> 4)) & 0x0F0F0F0F
     x = (x * 0x01010101) & 0xFFFFFFFF
     return (x >> 24).sum(-1).to(torch.int32)
+
+
+def match_bitmaps(bitmaps: torch.Tensor, catalog: torch.Tensor
+                  ) -> torch.Tensor:
+    """(Q,) int32 index of the catalog row (F, W) each query's bitmap
+    (Q, W) equals word for word, or -1; the first match wins.  Compared
+    on the device as one (Q, F, W) block."""
+    q = bitmaps.shape[0]
+    if catalog.shape[0] == 0:
+        return torch.full((q,), -1, dtype=torch.int32, device=bitmaps.device)
+    eq = (bitmaps[:, None, :] == catalog.to(bitmaps.device)[None]).all(-1)
+    return torch.where(eq.any(1), eq.to(torch.int8).argmax(1).to(torch.int32),
+                       torch.full((q,), -1, dtype=torch.int32,
+                                  device=bitmaps.device))
 
 
 def bitset_words(n: int) -> int:

@@ -139,6 +139,47 @@ def generate_bitmaps(store: VectorStore, queries: torch.Tensor,
     return out
 
 
+def generate_families(store: VectorStore, selectivity: float,
+                      num_families: int = 2, seed: int = 0,
+                      device="cuda") -> dict[str, torch.Tensor]:
+    """Hot predicate families for the selectivity-aware tiers: family f
+    passes the ceil(selectivity·n) rows nearest a random centre row (numpy
+    RandomState(seed), as in the reference).  Returns tag -> packed (W,)
+    int32 bitmap on the store's device.  Equal distances may order
+    differently from the reference's unstable argsort, so a boundary row
+    can differ; the popcount and the nearest-rows property hold."""
+    dev = check_store_device(store, device)
+    if not (0.0 < selectivity <= 1.0):
+        raise ValueError("selectivity must be in (0, 1]")
+    n = store.n
+    n_sel = max(2, int(np.ceil(selectivity * n)))
+    rng = np.random.RandomState(seed)
+    centers = rng.choice(n, size=num_families, replace=False)
+    cvecs = store.vectors[torch.as_tensor(centers, device=dev)]
+    d = full_distances(store, cvecs)                          # (F, N)
+    out = {}
+    for f in range(len(centers)):
+        rows = torch.sort(d[f], stable=True).indices[:n_sel]
+        bits = torch.zeros(n, dtype=torch.bool, device=dev)
+        bits[rows] = True
+        out[f"fam{f}_s{selectivity:g}"] = pack_bool_bitmap(bits)
+    return out
+
+
+def assign_family_bitmaps(families: dict[str, torch.Tensor],
+                          num_queries: int, seed: int = 0
+                          ) -> tuple[torch.Tensor, np.ndarray]:
+    """Random assignment of queries to families (numpy RandomState(seed),
+    as in the reference): each query carries its family's bitmap verbatim.
+    Returns ((Q, W) int32 bitmaps, (Q,) int32 family index into
+    sorted(families))."""
+    tags = sorted(families)
+    rng = np.random.RandomState(seed)
+    assign = rng.randint(0, len(tags), size=num_queries).astype(np.int32)
+    fam = torch.stack([families[t] for t in tags])
+    return fam[torch.as_tensor(assign, device=fam.device).long()], assign
+
+
 def empirical_correlation(store: VectorStore, query: torch.Tensor,
                           passing_rows: torch.Tensor, k: int = 100) -> float:
     """Fraction of the query's k unfiltered nearest neighbours that pass:

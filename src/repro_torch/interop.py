@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.hnsw import HNSWGraph
+from repro_torch.core.exclusion import ExclusionIndex
+from repro_torch.core.hnsw import GraphPartition, HNSWGraph, PartitionedGraph
 from repro_torch.core.scann import ScannIndex
 from repro_torch.core.types import (VectorStore, resolve_device,
                                     words_from_uint32)
@@ -24,11 +25,18 @@ def _t(x, device, dtype=None) -> torch.Tensor:
 
 
 def vector_store(store, device="cuda") -> VectorStore:
-    """A reference VectorStore (vectors, norms_sq, metric)."""
+    """A reference VectorStore (vectors, norms_sq, metric), with its SQ8
+    shadow when it has one."""
     dev = resolve_device(device)
+    shadow = {}
+    if getattr(store, "q_vectors", None) is not None:
+        shadow = dict(q_vectors=_t(store.q_vectors, dev, torch.int8),
+                      q_scale=_t(store.q_scale, dev, torch.float32),
+                      q_mean=_t(store.q_mean, dev, torch.float32),
+                      q_norms_sq=_t(store.q_norms_sq, dev, torch.float32))
     return VectorStore(vectors=_t(store.vectors, dev, torch.float32),
                        norms_sq=_t(store.norms_sq, dev, torch.float32),
-                       metric=store.metric)
+                       metric=store.metric, **shadow)
 
 
 def hnsw_graph(graph, device="cuda") -> HNSWGraph:
@@ -66,3 +74,32 @@ def scann_index(index, device="cuda") -> ScannIndex:
 def bitmaps(words, device="cuda") -> torch.Tensor:
     """Reference uint32 bitmap words (any shape) -> the port's int32."""
     return words_from_uint32(np.asarray(words), device=device)
+
+
+def exclusion_index(excl, device="cuda") -> ExclusionIndex:
+    """A reference ExclusionIndex: its ladder and family rows become the
+    port's one (R + F, n) radius table."""
+    dev = resolve_device(device)
+    radii = np.concatenate([np.asarray(excl.ladder, np.float32),
+                            np.asarray(excl.family_radii, np.float32)])
+    return ExclusionIndex(radii=_t(radii, dev),
+                          family_bitmaps=bitmaps(excl.family_bitmaps, dev),
+                          ladder_ks=tuple(excl.ladder_ks),
+                          family_tags=tuple(excl.family_tags))
+
+
+def families(fams, device="cuda") -> dict[str, torch.Tensor]:
+    """Reference family bitmaps (tag -> uint32 words) as the port's."""
+    return {tag: bitmaps(words, device) for tag, words in fams.items()}
+
+
+def partitioned_graph(pg, device="cuda") -> PartitionedGraph:
+    """A reference PartitionedGraph: each partition's bitmap, row map,
+    gathered store (with its SQ8 shadow) and subgraph."""
+    dev = resolve_device(device)
+    parts = tuple(GraphPartition(
+        tag=p.tag, bitmap=bitmaps(p.bitmap, dev),
+        rows=_t(p.rows, dev, torch.int64),
+        store=vector_store(p.store, dev), graph=hnsw_graph(p.graph, dev))
+        for p in pg.partitions)
+    return PartitionedGraph(partitions=parts, built_n=int(pg.built_n))

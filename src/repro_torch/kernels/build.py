@@ -23,10 +23,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 # C entry points of each source and their argument types: "p" a pointer or
-# the stream (c_void_p), "i" an int (c_int).  Every entry returns the
-# cudaError_t of its launch.
+# the stream (c_void_p), "i" an int (c_int), "f" a float (c_float).  Every
+# entry returns the cudaError_t of its launch.
 SIGNATURES = {
-    "frontier_scan": {"frontier_scan_f32": "pppppppiiiiiiip"},
+    "frontier_scan": {"frontier_scan_f32": "pppppppiiiiiiip",
+                      "frontier_scan_sq8": "pppppppppiiiiiiip",
+                      "frontier_scan_excl_f32": "pppppppppppfiiiiiiip",
+                      "frontier_scan_excl_sq8": "pppppppppppppfiiiiiiip"},
     "distance": {"distance_matrix_f32": "pppiiiip"},
     "leaf_scan": {"leaf_scan_batched_f32": "ppppppppiiiiiip"},
 }
@@ -34,7 +37,10 @@ SIGNATURES = {
 _LOADED: dict[str, ctypes.CDLL] = {}
 # Launches of each kernel since the last reset: each CUDA wrapper adds one
 # right after its kernel launched, and nothing else touches the counts.
-LAUNCHES = {"frontier_scan": 0, "distance_matrix": 0, "leaf_scan_batched": 0}
+LAUNCHES = {"frontier_scan": 0, "distance_matrix": 0, "leaf_scan_batched": 0,
+            "frontier_scan_sq8": 0, "frontier_scan_excl": 0,
+            "frontier_scan_excl_sq8": 0}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
 def _nvcc() -> str:
@@ -104,8 +110,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_lib_path(name)))
     for fn, sig in SIGNATURES[name].items():
         f = getattr(lib, fn)
-        f.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
-                      for c in sig]
+        f.argtypes = [_CTYPES[c] for c in sig]
         f.restype = ctypes.c_int
     _LOADED[name] = lib
     return lib

@@ -1,4 +1,4 @@
-"""Dispatch of the three kernels the search path runs.
+"""Dispatch of the kernels the search path runs.
 
 A tensor on the CPU goes to the kernel's plain PyTorch version; a CUDA
 tensor launches the hand-written kernel, which raises when it cannot build
@@ -11,7 +11,10 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.distance import distance_matrix_cuda
-from repro_torch.kernels.frontier_scan import frontier_scan_cuda
+from repro_torch.kernels.frontier_scan import (frontier_scan_cuda,
+                                               frontier_scan_excl_cuda,
+                                               frontier_scan_excl_sq8_cuda,
+                                               frontier_scan_sq8_cuda)
 from repro_torch.kernels.leaf_scan import leaf_scan_batched_cuda
 
 KERNELS = tuple(build.LAUNCHES)
@@ -66,3 +69,50 @@ def frontier_scan(queries, rows, norms, ids, bitmaps, metric: str = "l2"
                                   ids.to(torch.int32).contiguous(),
                                   bitmaps.contiguous(), metric)
     return ref.frontier_scan_ref(queries, rows, norms, ids, bitmaps, metric)
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()
+
+
+def frontier_scan_sq8(queries, qrows, scale, mean, norms, ids, bitmaps,
+                      metric: str = "l2"):
+    """`frontier_scan` on the (n, d) int8 SQ8 shadow rows, dequantized
+    with scale/mean (d,); norms (n,) are the dequantized rows' ||x̂||^2."""
+    if _on_cuda(queries, "frontier_scan_sq8"):
+        return frontier_scan_sq8_cuda(
+            queries.contiguous(), qrows.contiguous(), scale.contiguous(),
+            mean.contiguous(), norms.contiguous(), _i32(ids),
+            bitmaps.contiguous(), metric)
+    return ref.frontier_scan_sq8_ref(queries, qrows, scale, mean, norms, ids,
+                                     bitmaps, metric)
+
+
+def frontier_scan_excl(queries, rows, norms, ids, bitmaps, table,
+                       radius_row, tau, metric: str = "l2",
+                       margin: float = 0.5):
+    """`frontier_scan` plus the FAVOR keep mask: table (R + F, n) squared
+    exclusion radii, radius_row (Q,) each query's table row, tau (Q,) its
+    result-queue tail -> (dists, pass, keep)."""
+    if _on_cuda(queries, "frontier_scan_excl"):
+        return frontier_scan_excl_cuda(
+            queries.contiguous(), rows.contiguous(), norms.contiguous(),
+            _i32(ids), bitmaps.contiguous(), table.contiguous(),
+            _i32(radius_row), tau.contiguous(), metric, margin)
+    return ref.frontier_scan_excl_ref(queries, rows, norms, ids, bitmaps,
+                                      table, radius_row, tau, metric, margin)
+
+
+def frontier_scan_excl_sq8(queries, qrows, scale, mean, norms, ids, bitmaps,
+                           table, radius_row, tau, metric: str = "l2",
+                           margin: float = 0.5):
+    """`frontier_scan_sq8` plus the keep mask on the quantized distances."""
+    if _on_cuda(queries, "frontier_scan_excl_sq8"):
+        return frontier_scan_excl_sq8_cuda(
+            queries.contiguous(), qrows.contiguous(), scale.contiguous(),
+            mean.contiguous(), norms.contiguous(), _i32(ids),
+            bitmaps.contiguous(), table.contiguous(), _i32(radius_row),
+            tau.contiguous(), metric, margin)
+    return ref.frontier_scan_excl_sq8_ref(queries, qrows, scale, mean, norms,
+                                          ids, bitmaps, table, radius_row,
+                                          tau, metric, margin)

@@ -10,9 +10,16 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.types import probe_batch
-
 INF = float("inf")
+
+
+def probe_batch(bitmaps: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """`core.types.probe_batch`, imported at call time: importing
+    `repro_torch.core` loads the search engines, which import this module
+    through `kernels.ops`, so a module-level import would make a kernels
+    module imported first fail on the cycle."""
+    from repro_torch.core.types import probe_batch as probe
+    return probe(bitmaps, ids)
 
 
 def distance_matrix_ref(queries: torch.Tensor, rows: torch.Tensor,
@@ -91,3 +98,67 @@ def frontier_scan_ref(queries: torch.Tensor, rows: torch.Tensor,
     safe = ids.clamp(min=0).to(torch.int64)
     return frontier_scan_chunk_ref(queries, rows[safe], norms[safe], ids,
                                    bitmaps, metric)
+
+
+def dequantize(qrows: torch.Tensor, scale: torch.Tensor,
+               mean: torch.Tensor) -> torch.Tensor:
+    """SQ8 dequantization x̂ = t * scale + mean, the arithmetic every SQ8
+    path of the port shares (shadow norms, scoring, zoom-in)."""
+    return qrows.to(torch.float32) * scale + mean
+
+
+def frontier_scan_sq8_ref(queries: torch.Tensor, qrows: torch.Tensor,
+                          scale: torch.Tensor, mean: torch.Tensor,
+                          norms: torch.Tensor, ids: torch.Tensor,
+                          bitmaps: torch.Tensor, metric: str = "l2"
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """SQ8 frontier scan: qrows (n, d) int8 shadow rows, scale/mean (d,),
+    norms (n,) the precomputed ||x̂||^2 of the dequantized rows; the
+    gathered rows are dequantized, then scored as `frontier_scan_ref`."""
+    safe = ids.clamp(min=0).to(torch.int64)
+    return frontier_scan_chunk_ref(queries, dequantize(qrows[safe], scale,
+                                                       mean),
+                                   norms[safe], ids, bitmaps, metric)
+
+
+def excl_keep_mask(dists: torch.Tensor, excl: torch.Tensor,
+                   tau: torch.Tensor, ok: torch.Tensor,
+                   margin: float) -> torch.Tensor:
+    """The FAVOR keep rule: keep a candidate when it passes the filter or
+    sqrt(e) <= margin * (sqrt(d) + sqrt(tau)), all squared l2 clamped at
+    0, tau = +inf keeping everything (the reference's `excl_keep_mask`)."""
+    dr = torch.sqrt(dists.clamp(min=0.0))
+    er = torch.sqrt(excl.clamp(min=0.0))
+    tr = torch.sqrt(tau.clamp(min=0.0))
+    m = torch.tensor(margin, dtype=torch.float32, device=dists.device)
+    return ok | (er <= m * (dr + tr))
+
+
+def gather_radii(table: torch.Tensor, radius_row: torch.Tensor,
+                 ids: torch.Tensor) -> torch.Tensor:
+    """(Q, C) squared radii table[radius_row[q], ids[q, c]]; a -1 id reads
+    column 0, as the reference's clamped gather does."""
+    return table[radius_row.to(torch.int64)[:, None],
+                 ids.clamp(min=0).to(torch.int64)]
+
+
+def frontier_scan_excl_ref(queries, rows, norms, ids, bitmaps, table,
+                           radius_row, tau, metric: str = "l2",
+                           margin: float = 0.5):
+    """`frontier_scan_ref` plus the keep mask: table (R + F, n) squared
+    exclusion radii, radius_row (Q,) the table row of each query, tau (Q,)
+    the query's result-queue tail -> (dists, pass, keep)."""
+    d, ok = frontier_scan_ref(queries, rows, norms, ids, bitmaps, metric)
+    e = gather_radii(table, radius_row, ids)
+    return d, ok, excl_keep_mask(d, e, tau[:, None], ok, margin)
+
+
+def frontier_scan_excl_sq8_ref(queries, qrows, scale, mean, norms, ids,
+                               bitmaps, table, radius_row, tau,
+                               metric: str = "l2", margin: float = 0.5):
+    """`frontier_scan_sq8_ref` plus the keep mask on the quantized
+    distances (the ones pool insertion uses)."""
+    d, ok = frontier_scan_sq8_ref(queries, qrows, scale, mean, norms, ids,
+                                  bitmaps, metric)
+    e = gather_radii(table, radius_row, ids)
+    return d, ok, excl_keep_mask(d, e, tau[:, None], ok, margin)

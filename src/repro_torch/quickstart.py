@@ -1,8 +1,9 @@
 """Quickstart of the port: filtered vector search, six methods, one table.
 
-The counterpart of examples/quickstart.py, steps 1-4: a clustered dataset,
-an HNSW graph and a ScaNN index, a 10 % medium-positively-correlated
-workload, and every method behind the one executor API.
+The counterpart of examples/quickstart.py: a clustered dataset, an HNSW
+graph and a ScaNN index, a 10 % medium-positively-correlated workload,
+every method behind the one executor API (steps 1-4), and the adaptive
+planner's choice at three selectivities (step 5).
 
     PYTHONPATH=src python -m repro_torch.quickstart            # on the card
     PYTHONPATH=src python -m repro_torch.quickstart --device cpu
@@ -26,8 +27,10 @@ METHODS = ("sweeping", "acorn", "navix", "iterative_scan", "scann",
 def main(device="cuda", n: int = 10_000, dim: int = 96, clusters: int = 32,
          num_queries: int = 8, num_leaves: int = 96, seed: int = 0
          ) -> dict[str, dict]:
-    """Run steps 1-4 and print the table.  Returns, per method, its
-    recall@10, the seven Table-6 counters (batch means) and Mcycles."""
+    """Run steps 1-5 and print the tables.  Returns, per method, its
+    recall@10, the seven Table-6 counters (batch means) and Mcycles, and
+    under "adaptive" the planner's choice and predicted Mcycles per
+    selectivity."""
     dev = resolve_device(device)
     print("== 1. dataset (clustered, Table-2-shaped) ==")
     spec = DatasetSpec("quickstart", n, dim, "l2", clusters=clusters)
@@ -67,6 +70,21 @@ def main(device="cuda", n: int = 10_000, dim: int = 96, clusters: int = 32,
               f"{row['filter_checks']:8.0f} {row['hops']:6.0f} "
               f"{pages:7.0f} {cyc:8.2f}")
         out[method] = {"recall": rec, "counters": row, "mcycles": cyc}
+
+    print("== 5. the system-aware adaptive planner ==")
+    planner = make_executor("adaptive", store, graph=graph, index=scann,
+                            device=dev)
+    out["adaptive"] = {}
+    for sel in (0.01, 0.10, 0.8):
+        bm = generate_bitmaps(store, queries, WorkloadSpec(sel, "none"),
+                              seed=2, device=dev)
+        res = planner.search(queries, bm, p)
+        preds = {m: round(c / 1e6, 2)
+                 for m, c in res.plan.predicted_cycles.items()}
+        print(f"   sel={sel:<5} -> chose {res.plan.strategy:15s} "
+              f"(predicted Mcycles: {preds})")
+        out["adaptive"][sel] = {"chosen": res.plan.strategy,
+                                "predicted_mcycles": preds}
     return out
 
 
@@ -78,4 +96,4 @@ if __name__ == "__main__":
     ap.add_argument("--queries", type=int, default=8)
     a = ap.parse_args()
     res = main(device=a.device, n=a.n, dim=a.dim, num_queries=a.queries)
-    print("mean recall", float(np.mean([r["recall"] for r in res.values()])))
+    print("mean recall", float(np.mean([res[m]["recall"] for m in METHODS])))

@@ -86,3 +86,92 @@ def test_search_on_card_matches_cpu(cuda):
             x = getattr(a.stats, f.name).cpu().double().mean()
             y = getattr(b.stats, f.name).double().mean()
             assert abs(x - y) <= 0.01 * max(abs(float(y)), 1.0), f.name
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_slice_two_kernels_match_plain_versions(cuda, metric):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(70, 100, device=cuda, generator=g) * 0.3
+    qrows = torch.randint(-127, 128, (5000, 100), device=cuda, generator=g,
+                          dtype=torch.int8)
+    scale = torch.rand(100, device=cuda, generator=g) * 0.02 + 1e-3
+    mean = torch.randn(100, device=cuda, generator=g) * 0.1
+    x = ref.dequantize(qrows, scale, mean)
+    qn = (x * x).sum(-1)
+    ids = torch.randint(-1, 5000, (70, 33), device=cuda, generator=g,
+                        dtype=torch.int32)
+    bm = torch.randint(-2 ** 31, 2 ** 31 - 1, (70, 157), device=cuda,
+                       generator=g, dtype=torch.int32)
+    dk, pk = ops.frontier_scan_sq8(q, qrows, scale, mean, qn, ids, bm, metric)
+    dp, pp = ref.frontier_scan_sq8_ref(q, qrows, scale, mean, qn, ids, bm,
+                                       metric)
+    assert torch.equal(pk, pp)
+    _close(dk, dp)
+    if metric != "l2":
+        return
+    # radii up to ~20 against distances of ~7-10 in root space: the keep
+    # rule prunes some candidates and keeps others
+    table = torch.rand(3, 5000, device=cuda, generator=g) * 400.0
+    row = torch.randint(0, 3, (70,), device=cuda, generator=g,
+                        dtype=torch.int32)
+    tau = torch.rand(70, device=cuda, generator=g) * 20.0
+    tau[0] = float("inf")
+    rows = torch.randn(5000, 100, device=cuda, generator=g)
+    norms = (rows * rows).sum(-1)
+    for got, want in (
+            (ops.frontier_scan_excl(q, rows, norms, ids, bm, table, row, tau,
+                                    margin=0.3),
+             ref.frontier_scan_excl_ref(q, rows, norms, ids, bm, table, row,
+                                        tau, margin=0.3)),
+            (ops.frontier_scan_excl_sq8(q, qrows, scale, mean, qn, ids, bm,
+                                        table, row, tau, margin=0.3),
+             ref.frontier_scan_excl_sq8_ref(q, qrows, scale, mean, qn, ids,
+                                            bm, table, row, tau,
+                                            margin=0.3))):
+        assert torch.equal(got[1], want[1])
+        _close(got[0], want[0])
+        # keep is exact against the rule on the kernel's own distances
+        e = ref.gather_radii(table, row, ids)
+        own = ref.excl_keep_mask(got[0], e, tau[:, None], got[1], 0.3)
+        assert torch.equal(got[2], own)
+        assert not bool(got[2].all())
+
+
+def test_slice_two_search_on_card_matches_cpu(cuda):
+    from repro_torch.data import DatasetSpec, make_dataset
+    store, q = make_dataset(DatasetSpec("g2", 3000, 64, "l2", clusters=16),
+                            num_queries=16, device=cuda)
+    store = T.quantize_store(store)
+    # the shadow quantized on the card is byte-identical to the CPU's
+    cpu_shadow = T.quantize_store(T.to_device(
+        dataclasses.replace(store, q_vectors=None), "cpu"))
+    for f in ("q_vectors", "q_scale", "q_mean"):
+        assert torch.equal(getattr(store, f).cpu(), getattr(cpu_shadow, f)), f
+    graph = T.build_graph(store, m=8, ef_construction=32, device=cuda)
+    scann = T.build_scann(store, num_leaves=40, device=cuda)
+    fams = T.generate_families(store, 0.05, num_families=4, device=cuda)
+    bm, _ = T.assign_family_bitmaps(fams, 16, seed=1)
+    excl = T.build_exclusion(store, families=fams, device=cuda)
+    parts = T.build_graph_partitioned(store, fams, m=8, ef_construction=32,
+                                      device=cuda)
+    cpu_parts = parts.to("cpu")
+    cpu_excl = T.to_device(excl, "cpu")
+    cpu = [T.to_device(o, "cpu") for o in (store, graph, scann)]
+    p = T.SearchParams(k=10, ef_search=32, beam_width=64,
+                       num_leaves_to_search=8, exclusion_margin=0.3)
+    for m in ("sweeping_sq8", "acorn_sq8", "navix_sq8", "iterative_scan_sq8",
+              "sweeping_excl", "sweeping_excl_sq8", "partitioned",
+              "partitioned_sq8", "adaptive"):
+        a = T.make_executor(m, store, graph=graph, index=scann,
+                            exclusion=excl, partitions=parts,
+                            device=cuda).search(q, bm, p)
+        b = T.make_executor(m, cpu[0], graph=cpu[1], index=cpu[2],
+                            exclusion=cpu_excl, partitions=cpu_parts,
+                            device="cpu").search(q.cpu(), bm.cpu(), p)
+        assert a.plan.strategy == b.plan.strategy
+        overlap = (a.ids.cpu()[:, :, None] == b.ids[:, None, :]).any(-1)
+        assert overlap.float().mean() >= 0.99, m
+        for f in dataclasses.fields(T.SearchStats):
+            x = getattr(a.stats, f.name).cpu().double().mean()
+            y = getattr(b.stats, f.name).double().mean()
+            assert abs(x - y) <= 0.01 * max(abs(float(y)), 1.0), (m, f.name)

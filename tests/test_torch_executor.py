@@ -77,16 +77,33 @@ def test_bruteforce_budgeted_scan_matches_reference():
                                   jres.anytime.budget_exhausted)
 
 
+_UNPORTED_ITEM = {"scann_vmapped": "ROADMAP 1.8", "delta": "ROADMAP 1.11"}
+
+
 @pytest.mark.parametrize("method", ["adaptive", "sweeping_sq8", "acorn_sq8",
                                     "sweeping_excl", "partitioned",
                                     "scann_vmapped", "delta"])
 def test_methods_of_later_slices_name_their_roadmap_item(method):
+    # unported methods name their item; the ported ones still refuse
+    # storage= (the buffer pool, ROADMAP 1.7)
     fx = FIXTURES["exact"]()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    item = _UNPORTED_ITEM.get(method)
+    kw = {} if item else {"storage": object()}
+    with pytest.raises(NotImplementedError, match=item or "ROADMAP 1.7"):
         T.make_executor(method, fx["store"], graph=fx["graph"],
-                        index=fx["scann"], device="cpu")
+                        index=fx["scann"], device="cpu", **kw)
     with pytest.raises(ValueError, match="unknown method"):
         T.make_executor("nonsense", fx["store"], device="cpu")
+
+
+@pytest.mark.parametrize("method", ["adaptive", "sweeping_sq8", "acorn_sq8",
+                                    "navix_sq8", "iterative_scan_sq8"])
+def test_methods_of_slice_two_are_built(method):
+    fx = FIXTURES["exact"]()
+    ex = T.make_executor(method, fx["store"], graph=fx["graph"],
+                         index=fx["scann"], device="cpu")
+    assert ex.name == method
+    assert method == "adaptive" or ex.store.has_sq8
 
 
 def test_unported_knobs_raise():
@@ -94,20 +111,29 @@ def test_unported_knobs_raise():
     fx = FIXTURES["exact"]()
     ex = T.make_executor("sweeping", fx["store"], graph=fx["graph"],
                          device="cpu")
-    for knobs, item in ((dict(graph_quant="sq8"), "1.4b"),
-                        (dict(graph_exec_mode="vmapped"), "1.8"),
-                        (dict(exclusion="prune"), "1.9")):
+    p = torch_params(dataclasses.replace(P, graph_exec_mode="vmapped"))
+    with pytest.raises(NotImplementedError, match="1.8"):
+        ex.search(fx["q"], fx["bitmaps"]["med_pos_0.1"], p)
+    # the tier knobs of slice 2 are the executor's to set: a plain
+    # sweeping executor resolves them away, as the reference's does
+    for knobs in (dict(graph_quant="sq8"), dict(exclusion="prune")):
         p = torch_params(dataclasses.replace(P, **knobs))
-        with pytest.raises(NotImplementedError, match=item):
-            ex.search(fx["q"], fx["bitmaps"]["med_pos_0.1"], p)
+        res = ex.search(fx["q"], fx["bitmaps"]["med_pos_0.1"], p)
+        assert res.plan.params.graph_quant == "none"
+        assert res.plan.params.exclusion == "none"
 
 
 def test_port_quickstart_runs_on_cpu(capsys):
     out = quickstart.main(device="cpu", n=2000, dim=32, clusters=8,
                           num_queries=4, num_leaves=24)
-    assert set(out) == set(quickstart.METHODS)
+    assert set(out) == set(quickstart.METHODS) | {"adaptive"}
     assert out["bruteforce"]["recall"] == 1.0
-    for r in out.values():
+    for m in quickstart.METHODS:
+        r = out[m]
         assert 0.0 <= r["recall"] <= 1.0 and r["mcycles"] > 0
         assert len(r["counters"]) == 7
+    # step 5: the planner's choice at three selectivities
+    assert set(out["adaptive"]) == {0.01, 0.1, 0.8}
+    for r in out["adaptive"].values():
+        assert r["chosen"] in r["predicted_mcycles"]
     assert "bruteforce" in capsys.readouterr().out

@@ -44,6 +44,29 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
     assert int(out.stdout.strip().splitlines()[-1]) >= 20
 
 
+_FIRST = r"""
+import importlib, pkgutil, sys
+sys.path.insert(0, %(src)r)
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for n in names:
+    for k in [k for k in sys.modules if k.split(".")[0] == "repro_torch"]:
+        del sys.modules[k]
+    importlib.import_module(n)
+print(len(names))
+"""
+
+
+def test_every_module_imports_first():
+    # no import cycle: each module of the port loads as the first one
+    out = subprocess.run([sys.executable, "-c", _FIRST % {"src": str(SRC)}],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
@@ -64,6 +87,10 @@ def test_entry_points_default_to_the_card():
         lambda: T.build_scann(store, num_leaves=4),
         lambda: T.generate_bitmaps(store, q, T.WorkloadSpec(0.1, "none")),
         lambda: T.make_executor("bruteforce", store),
+        lambda: T.make_executor("sweeping_sq8", store, graph=object()),
+        lambda: T.generate_families(store, 0.1),
+        lambda: T.build_exclusion(store),
+        lambda: T.build_graph_partitioned(store, {}),
         lambda: quickstart.main(n=200, dim=8),
     ]
     for call in calls:

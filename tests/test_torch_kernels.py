@@ -149,9 +149,26 @@ def test_dispatch_counts_only_kernel_launches():
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels.distance import distance_matrix_cuda
-    from repro_torch.kernels.frontier_scan import frontier_scan_cuda
+    from repro_torch.kernels.frontier_scan import (
+        frontier_scan_cuda, frontier_scan_excl_cuda,
+        frontier_scan_excl_sq8_cuda, frontier_scan_sq8_cuda)
     from repro_torch.kernels.leaf_scan import leaf_scan_batched_cuda
     t = torch.zeros(2, 4)
+    ids = torch.zeros(2, 3, dtype=torch.int32)
+    bm = torch.zeros(2, 1, dtype=torch.int32)
+    t8 = torch.zeros(2, 4, dtype=torch.int8)
+    v4, tab = torch.zeros(4), torch.zeros(1, 2)
+    row, tau = torch.zeros(2, dtype=torch.int32), torch.zeros(2)
+    for call in (
+            lambda: frontier_scan_sq8_cuda(t, t8, v4, v4, torch.zeros(2),
+                                           ids, bm),
+            lambda: frontier_scan_excl_cuda(t, t, torch.zeros(2), ids, bm,
+                                            tab, row, tau),
+            lambda: frontier_scan_excl_sq8_cuda(t, t8, v4, v4,
+                                                torch.zeros(2), ids, bm,
+                                                tab, row, tau)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
     with pytest.raises(ValueError, match="CUDA"):
         distance_matrix_cuda(t, t)
     with pytest.raises(ValueError, match="CUDA"):
@@ -175,5 +192,7 @@ def test_sources_and_signatures_agree():
             m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", src)
             assert m, fn
             params = [p.strip() for p in m.group(1).split(",")]
-            kinds = "".join("p" if "*" in p else "i" for p in params)
+            kinds = "".join("p" if "*" in p else
+                            "f" if p.startswith("float") else "i"
+                            for p in params)
             assert kinds == sig, (fn, kinds, sig)

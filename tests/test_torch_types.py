@@ -127,12 +127,16 @@ def test_distance_matches_reference(metric):
         np.testing.assert_array_equal(got, want)
 
 
-def test_sq8_quantize_byte_equal():
+@pytest.mark.parametrize("constant_column", [False, True])
+def test_sq8_quantize_byte_equal(constant_column):
     rng = np.random.RandomState(5)
     x = rng.randn(300, 24).astype(np.float32)
-    for a, b in zip(TT.sq8_quantize(x), RT.sq8_quantize(x)):
-        assert a.dtype == b.dtype
-        np.testing.assert_array_equal(a, b)
+    if constant_column:          # hi == lo: the scale clamps to 1e-8
+        x[:, 3] = 0.75
+    got = TT.sq8_quantize(torch.as_tensor(x))
+    for a, b in zip(got, RT.sq8_quantize(x)):
+        assert a.numpy().dtype == b.dtype
+        np.testing.assert_array_equal(a.numpy(), b)
 
 
 def test_recall_at_k_and_stats():

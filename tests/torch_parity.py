@@ -1,6 +1,6 @@
 """Shared fixtures and comparisons of the port's parity tests.
 
-Two fixture kinds, each built once per test process:
+Three fixture kinds, each built once per test process:
 
 * exact: integer vectors and queries in [-127, 127] (2,000 x 32), every
   dimension reaching both ends, so SQ8 has scale 1 and mean 0 and every
@@ -10,9 +10,17 @@ Two fixture kinds, each built once per test process:
   must be equal bit for bit.
 * float: the clustered 4,000 x 48 store of `conftest.small_dataset` with
   its m=12 graph, where sums in another order may move the last bits.
+* sq8_exact: the exact fixture's store with its SQ8 shadow attached on
+  both sides.  Every column spans [-127, 127], so `sq8_quantize` gives
+  scale 1 and mean 0 exactly and the dequantized rows are the integers:
+  the SQ8 tier, the exclusion radii and the family subgraphs are bit-equal
+  to the reference here too.
 
-Both hold the reference objects (numpy/JAX) and their port counterparts on
-the CPU, carried across through `repro_torch.interop`.
+Each holds the reference objects (numpy/JAX) and their port counterparts on
+the CPU, carried across through `repro_torch.interop`.  `tiers` adds the
+selectivity-aware artifacts of a fixture: four predicate families, a
+family query batch, the reference's exclusion index and partitioned graph,
+each carried across.
 """
 from __future__ import annotations
 
@@ -104,13 +112,56 @@ def fixture_kind(request):
     return request.param
 
 
+@functools.lru_cache(maxsize=None)
+def sq8_exact_fixture() -> dict:
+    fx = dict(exact_fixture())
+    jstore = R.quantize_store(fx["jstore"])
+    assert np.all(np.asarray(jstore.q_scale) == 1.0)
+    assert np.all(np.asarray(jstore.q_mean) == 0.0)
+    fx.update(jstore=jstore, store=interop.vector_store(jstore, "cpu"))
+    return fx
+
+
+FIXTURES["sq8_exact"] = sq8_exact_fixture
+FAMILY_SEL = 0.05
+
+
+@functools.lru_cache(maxsize=None)
+def tiers(kind: str) -> dict:
+    """The fixture plus its selectivity-aware artifacts (reference-built,
+    carried across): "family" workload bitmaps, exclusion, partitions."""
+    fx = dict(FIXTURES[kind]())
+    fams = R.generate_families(fx["jstore"], FAMILY_SEL, num_families=4,
+                               seed=0)
+    bm, assign = R.assign_family_bitmaps(fams, int(fx["jq"].shape[0]),
+                                         seed=1)
+    jexcl = R.build_exclusion(fx["jstore"], families=fams)
+    # partitions carry the SQ8 shadow, so partitioned_sq8 runs on them
+    jparts = R.build_graph_partitioned(R.quantize_store(fx["jstore"]), fams,
+                                       m=8, ef_construction=32, seed=0)
+    fx["jbitmaps"] = dict(fx["jbitmaps"], family=jnp.asarray(bm))
+    fx["bitmaps"] = dict(fx["bitmaps"], family=interop.bitmaps(bm, "cpu"))
+    fx.update(jfams=fams, fams=interop.families(fams, "cpu"), assign=assign,
+              jexcl=jexcl, excl=interop.exclusion_index(jexcl, "cpu"),
+              jparts=jparts,
+              parts=interop.partitioned_graph(jparts, "cpu"))
+    return fx
+
+
 def run_both(fx: dict, method: str, params: "R.SearchParams",
-             workload: str = "med_pos_0.1"):
+             workload: str = "med_pos_0.1", **kw):
+    """The method on both sides on the same data; `kw` may name
+    planner_candidates.  Exclusion and partitions ride along when the
+    fixture has them."""
+    jkw, tkw = dict(kw), dict(kw)
+    if "jexcl" in fx:
+        jkw.update(exclusion=fx["jexcl"], partitions=fx["jparts"])
+        tkw.update(exclusion=fx["excl"], partitions=fx["parts"])
     jres = R.make_executor(method, fx["jstore"], graph=fx["jgraph"],
-                           index=fx["jscann"]).search(
+                           index=fx["jscann"], **jkw).search(
         fx["jq"], fx["jbitmaps"][workload], params)
     tres = T.make_executor(method, fx["store"], graph=fx["graph"],
-                           index=fx["scann"], device="cpu").search(
+                           index=fx["scann"], device="cpu", **tkw).search(
         fx["q"], fx["bitmaps"][workload], torch_params(params))
     return jres, tres
 
@@ -150,7 +201,7 @@ def assert_close(jres, tres, counter_rtol: float = 0.02) -> None:
 
 
 def check(kind: str, jres, tres) -> None:
-    if kind == "exact":
+    if kind in ("exact", "sq8_exact"):
         assert_same(jres, tres)
     else:
         assert_close(jres, tres)
