@@ -11,7 +11,9 @@ Phases:
             exclusion radii and partitions built once on the card; every
             method runs on CPU tensors (the plain versions) and on CUDA
             tensors (the kernels): recall@10 within 0.01, the mean of each of
-            the seven Table-6 counters within 1 %, the same planner choice
+            the seven Table-6 counters within 1 %, the same planner choice;
+            the legacy engines too, and with a storage engine attached on
+            each side, equal StorageStats
   main      the main path at full size: a SIFT1M-shaped store (1M x 128,
             1,000 queries), build_graph_blocked and build_scann on the card,
             two workloads, the quickstart's six methods; then the second
@@ -19,8 +21,12 @@ Phases:
             0.02) with its exclusion radii and partitioned graphs built on
             the card, the *_sq8, *_excl and partitioned methods and the
             adaptive planner on both menus, all through
-            make_executor(...).search.  Kernel launch counts are reset just
-            before each of the two paths and read just after
+            make_executor(...).search; then the third slice's path: the paged
+            storage engine (LRU pool of half the pages) behind the
+            executors, each method cold and then warm, and the legacy
+            engines (scann_vmapped through the leaf_scan kernel, the vmapped
+            graph engine) beside the batched ones.  Kernel launch counts are
+            reset just before each of the three paths and read just after
   kernels   each kernel against its plain version on the card at the main
             path's shapes, with its device time (torch.profiler), the plain
             version's, one PyTorch library call's, the least time the card
@@ -36,6 +42,8 @@ non-zero exit and no result.  Without a CUDA device it exits 2 at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -53,6 +61,14 @@ METHODS = ("sweeping", "acorn", "navix", "iterative_scan", "scann",
            "bruteforce")
 GRAPH_METHODS = METHODS[:4]
 SQ8_METHODS = tuple(f"{m}_sq8" for m in GRAPH_METHODS)
+# the legacy graph engine's methods (graph_exec_mode="vmapped")
+VMAPPED_METHODS = ("sweeping", "acorn", "navix", "iterative_scan",
+                   "sweeping_sq8")
+# the kernels of a search path; `topk` is the reference's
+# kernels.ops.topk_smallest, which no search path calls
+PATH_KERNELS = ("frontier_scan", "distance_matrix", "leaf_scan_batched",
+                "frontier_scan_sq8", "frontier_scan_excl",
+                "frontier_scan_excl_sq8", "leaf_scan")
 # the family workload of benchmarks/bench_filtercost.py: 4 clustered
 # predicate families at selectivity 0.02, exclusion margin 0.3
 FAMILY_SEL, NUM_FAMILIES, EXCL_MARGIN = 0.02, 4, 0.3
@@ -179,6 +195,7 @@ def phase_parity(n: int, nq: int, report: dict, dev="cuda") -> None:
                                   generate_families, make_executor,
                                   quantize_store, recall_at_k, to_device)
     from repro_torch.data import DatasetSpec, make_dataset
+    from repro_torch.storage import make_storage_engine
 
     print(f"== parity: {n} x 128 store, {nq} queries, CPU vs card ==",
           flush=True)
@@ -217,36 +234,68 @@ def phase_parity(n: int, nq: int, report: dict, dev="cuda") -> None:
                                          queries.cpu(), fbm.cpu(), 10)[1])}
     print(f"   setup {time.perf_counter() - t0:.1f} s", flush=True)
     p = main_params()
-    cases = [(m, "A", None) for m in METHODS + SQ8_METHODS] + [
-        (m, "F", None) for m in ("sweeping_excl", "sweeping_excl_sq8",
-                                 "partitioned", "partitioned_sq8")] + [
-        ("adaptive", "A", None), ("adaptive", "F", MENU8)]
+    vm = dataclasses.replace(p, graph_exec_mode="vmapped")
+    pq = dataclasses.replace(p, scann_page_accounting="per_query")
+    # (label, method, workload, planner menu, params, with storage)
+    cases = [(m, m, "A", None, p, False) for m in METHODS + SQ8_METHODS] + [
+        (m, m, "F", None, p, False) for m in (
+            "sweeping_excl", "sweeping_excl_sq8", "partitioned",
+            "partitioned_sq8")] + [
+        ("adaptive", "adaptive", "A", None, p, False),
+        ("adaptive[menu8]", "adaptive", "F", MENU8, p, False),
+        ("scann_vmapped", "scann_vmapped", "A", None, p, False)] + [
+        (f"{m}[vmapped]", m, "A", None, vm, False) for m in VMAPPED_METHODS
+    ] + [(f"{m}[storage]", m, "A", None, p, True) for m in (
+        "sweeping", "sweeping_sq8", "iterative_scan", "bruteforce",
+        "scann", "adaptive")] + [
+        ("scann[storage,per_query]", "scann", "A", None, pq, True),
+        ("partitioned[storage]", "partitioned", "F", None, p, True)]
     rows = {}
-    for method, wl, menu in cases:
+    for label, method, wl, menu, pp, with_storage in cases:
         bm_card, truth = workloads[wl]
         kw = {} if menu is None else {"planner_candidates": menu}
         got = {}
         for side, (st, g, sc, q, ex, pg) in sides.items():
             bm = bm_card if side == "card" else bm_card.cpu()
+            if with_storage:
+                kw["storage"] = make_storage_engine(st, sc, g,
+                                                    capacity_frac=0.5)
             t0 = time.perf_counter()
             res = make_executor(method, st, graph=g, index=sc, exclusion=ex,
                                 partitions=pg, device=st.device,
-                                **kw).search(q, bm, p)
+                                **kw).search(q, bm, pp)
             sync(st.device)
-            got[side] = (float(recall_at_k(res.ids.cpu(), truth, 10).mean()),
-                         counter_means(res), time.perf_counter() - t0,
-                         res.plan.strategy)
-        (rc, cc, tc, sc_), (rg, cg, tg, sg) = got["cpu"], got["card"]
+            got[side] = (res, float(recall_at_k(res.ids.cpu(), truth,
+                                                10).mean()),
+                         counter_means(res), time.perf_counter() - t0)
+        (rcpu, rc, cc, tc), (rcard, rg, cg, tg) = got["cpu"], got["card"]
+        sc_, sg = rcpu.plan.strategy, rcard.plan.strategy
         worst = max(abs(cg[k] - cc[k]) / max(abs(cc[k]), 1e-9)
                     if cc[k] or cg[k] else 0.0 for k in COUNTERS)
-        label = method if menu is None else f"{method}[menu8]"
-        print(f"   {label:18s} {wl} recall cpu {rc:.4f} card {rg:.4f} | "
-              f"worst counter drift {worst:.5f} | plan {sg} | cpu {tc:.1f} s"
-              f" card {tg:.2f} s", flush=True)
-        rows[f"{label}/{wl}"] = {
-            "recall_cpu": rc, "recall_card": rg, "counters_cpu": cc,
-            "counters_card": cg, "worst_counter_drift": worst,
-            "plan_cpu": sc_, "plan_card": sg}
+        # exact agreement is reported beside the tolerances checked
+        ids_diff = int((rcard.ids.cpu() != rcpu.ids).sum())
+        dists_diff = int((rcard.dists.cpu() != rcpu.dists).sum())
+        stats_diff = sum(int((getattr(rcard.stats, k).cpu()
+                              != getattr(rcpu.stats, k)).sum())
+                         for k in COUNTERS)
+        print(f"   {label:26s} {wl} recall cpu {rc:.4f} card {rg:.4f} | "
+              f"worst counter drift {worst:.5f} | differing ids {ids_diff} "
+              f"dists {dists_diff} counters {stats_diff} | plan {sg} | cpu "
+              f"{tc:.1f} s card {tg:.2f} s", flush=True)
+        row = {"recall_cpu": rc, "recall_card": rg, "counters_cpu": cc,
+               "counters_card": cg, "worst_counter_drift": worst,
+               "ids_differing": ids_diff, "dists_differing": dists_diff,
+               "counters_differing": stats_diff,
+               "plan_cpu": sc_, "plan_card": sg}
+        if with_storage:
+            a, b = rcpu.storage.as_dict(), rcard.storage.as_dict()
+            row["storage_equal"] = a == b
+            row["storage_card"] = {k: b[k] for k in (
+                "logical", "hits", "misses", "evictions", "unique")}
+            print(f"   {'':26s} StorageStats equal: {a == b}; card "
+                  f"{row['storage_card']}", flush=True)
+            check(a == b, f"parity {label}: StorageStats differ")
+        rows[f"{label}/{wl}"] = row
         check(abs(rc - rg) <= 0.01, f"parity {label}: recall {rc} vs {rg}")
         check(worst <= 0.01, f"parity {label}: counters drift {worst}")
         check(sc_ == sg, f"parity {label}: planner chose {sg} on the card, "
@@ -390,10 +439,11 @@ def phase_main(n: int, nq: int, report: dict, dev="cuda") -> dict:
     ctx = {"store": store, "graph": graph, "scann": scann,
            "queries": queries, "bitmaps": inputs[0][1], "inputs": inputs}
     counts2 = main_slice2(ctx, report, dev)
-    counts = {k: counts1[k] + counts2[k] for k in counts1}
+    counts3 = main_slice3(ctx, report, dev)
+    counts = {k: counts1[k] + counts2[k] + counts3[k] for k in counts1}
     print(f"   launches on the main path: {counts}", flush=True)
-    for k, v in counts.items():
-        check(v > 0, f"kernel {k} was not launched on the main path")
+    for k in PATH_KERNELS:
+        check(counts[k] > 0, f"kernel {k} was not launched on the main path")
     report["main"]["launches"] = counts
     ctx["launches"] = counts
     family_witness(ctx, report, dev)
@@ -495,6 +545,242 @@ def main_slice2(ctx: dict, report: dict, dev="cuda") -> dict:
                           partition_rows=part_rows)
     ctx.update(qstore=qstore, excl=excl, parts=parts, family=wf)
     return counts
+
+
+@contextlib.contextmanager
+def _timed_accounting(engine, dev="cuda"):
+    """Time the host side of a search with storage, summing seconds into
+    the dict it yields: "account", the engine's accounting entry points
+    whole; "order", the part of them that orders the traces on the card
+    and copies the ordered id lists to the host (`ordered_touches`,
+    `passing_rows`); "replay", the Python pool replay (`_replay`).  What
+    is left of "account" builds the page streams from the ids."""
+    from repro_torch.storage import engine as engine_mod
+
+    spent = dict.fromkeys(("account", "order", "replay"), 0.0)
+
+    def timer(fn, key):
+        def timed(*a, **k):
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            spent[key] += time.perf_counter() - t0
+            return out
+        return timed
+
+    patched = [(engine_mod, name, getattr(engine_mod, name))
+               for name in ("ordered_touches", "passing_rows")]
+    for mod, name, fn in patched:
+        setattr(mod, name, timer(fn, "order"))
+    for name in ("account_graph", "account_scann", "account_seqscan"):
+        setattr(engine, name, timer(getattr(engine, name), "account"))
+    engine._replay = timer(engine._replay, "replay")
+    try:
+        yield spent
+    finally:
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+        for name in ("account_graph", "account_scann", "account_seqscan",
+                     "_replay"):
+            delattr(engine, name)
+
+
+def _same_result(a, b) -> bool:
+    import torch
+    return bool(torch.equal(a.ids, b.ids) and torch.equal(a.dists, b.dists)
+                and all(torch.equal(getattr(a.stats, k), getattr(b.stats, k))
+                        for k in COUNTERS))
+
+
+def main_slice3(ctx: dict, report: dict, dev="cuda") -> dict:
+    """The third slice's path on the main path's store and indexes: the
+    paged storage engine behind the executors, then the legacy engines.
+    Returns the kernel launches of this path alone."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    storage_path(ctx, report, dev)
+    t_storage = time.perf_counter() - t0
+    legacy_path(ctx, report, dev)
+    counts = ops.launches()
+    print(f"   launches on the third slice's path: {counts} (storage "
+          f"{t_storage:.1f} s)", flush=True)
+    check(counts["leaf_scan"] > 0, "kernel leaf_scan was not launched on "
+          "its path")
+    report["main"].update(launches_slice3=counts, storage_s=t_storage)
+    return counts
+
+
+def storage_path(ctx: dict, report: dict, dev="cuda") -> None:
+    """Every method with the paged storage engine attached (LRU, half the
+    pages), cold and then warm on the same batch: StorageStats per
+    segment, the seconds of the search, of ordering the traces and of the
+    pool replay, results equal to the same search without storage,
+    measured pages against the counters."""
+    from repro_torch.storage import make_storage_engine
+
+    qstore, graph, scann = ctx["qstore"], ctx["graph"], ctx["scann"]
+    queries, (wa, wb), wf = ctx["queries"], ctx["inputs"], ctx["family"]
+    p = main_params()
+    engine = make_storage_engine(qstore, scann, graph, capacity_frac=0.5,
+                                 policy="lru")
+    segs = {k: hi - lo for k, (lo, hi) in engine.segment_ranges().items()}
+    print(f"   storage engine: {engine.total_pages} pages {segs}, LRU pool "
+          f"of {engine.pool.capacity}", flush=True)
+    pq = dataclasses.replace(p, scann_page_accounting="per_query")
+    cases = [("sweeping", wa, p), ("sweeping_sq8", wa, p), ("navix", wa, p),
+             ("iterative_scan", wa, p), ("scann[per_query]", wa, pq),
+             ("scann[batch]", wa, p), ("bruteforce", wb, p),
+             ("partitioned", wf, p), ("adaptive", wa, p)]
+    kw = dict(graph=graph, index=scann, partitions=ctx["parts"], device=dev)
+    rows = []
+    with _timed_accounting(engine, dev) as spent:
+        for case in cases:
+            rows += _storage_case(engine, case, spent, qstore, queries, kw,
+                                  p, dev)
+    report["main"]["storage"] = {"segments": segs,
+                                 "capacity": engine.pool.capacity,
+                                 "rows": rows}
+
+
+def _storage_case(engine, case, spent, qstore, queries, kw, p, dev):
+    """One method with storage, cold and then warm: its two report rows.
+    A row splits the wall into the search ("search_s"), the ordering of
+    the traces on the card with the copy to the host ("order_s"), the
+    page streams built from the ids ("streams_s") and the pool replay
+    ("replay_s")."""
+    import numpy as np
+    from repro_torch.core import make_executor, recall_at_k
+
+    label, (wl, bm, truth), pp = case
+    method = label.split("[")[0]
+    plain = make_executor(method, qstore, **kw).search(queries, bm, pp)
+    ex = make_executor(method, qstore, storage=engine, **kw)
+    engine.reset_cold()
+    rows = []
+    for mode in ("cold", "warm"):
+        for key in spent:
+            spent[key] = 0.0
+        sync(dev)
+        t0 = time.perf_counter()
+        res = ex.search(queries, bm, pp)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        st = res.storage
+        chosen = res.plan.strategy
+        if method == "adaptive":
+            # the planner prices the pool's residency: compare with the
+            # chosen method's own search
+            plain = make_executor(chosen, qstore, **kw).search(queries, bm,
+                                                               pp)
+            same = bool((plain.ids == res.ids).all()
+                        and (plain.dists == res.dists).all())
+        else:
+            same = _same_result(plain, res)
+        check(same, f"storage {label} {mode}: results differ from the "
+              "search without storage")
+        heap_a = res.stats.page_accesses_heap.cpu().numpy()
+        idx_a = res.stats.page_accesses_index.cpu().numpy()
+        if method in ("scann", "bruteforce"):
+            check(np.array_equal(st.heap_pages, heap_a)
+                  and (method == "bruteforce"
+                       or np.array_equal(st.index_pages, idx_a)),
+                  f"storage {label}: measured pages != analytic")
+        elif method in ("sweeping", "sweeping_sq8", "navix",
+                        "iterative_scan") or chosen in GRAPH_METHODS:
+            check(bool((st.heap_pages <= heap_a).all()
+                       and (st.index_pages <= idx_a).all()),
+                  f"storage {label}: measured pages > analytic")
+        per_seg = {seg: (st.logical[seg], st.hits[seg], st.misses[seg])
+                   for seg in st.logical}
+        row = {"method": label, "workload": wl, "mode": mode,
+               "plan": chosen, "wall_s": wall,
+               "search_s": wall - spent["account"],
+               "order_s": spent["order"],
+               "streams_s": spent["account"] - spent["order"]
+               - spent["replay"],
+               "replay_s": spent["replay"], "hit_rate": st.hit_rate,
+               "unique_fraction": st.unique_fraction(),
+               "evictions": st.evictions, "segments": per_seg,
+               "logical_total": st.logical_total,
+               "miss_total": st.miss_total,
+               "measured_heap_pages": float(st.heap_pages.mean()),
+               "analytic_heap_pages": float(heap_a.mean()),
+               "measured_index_pages": float(st.index_pages.mean()),
+               "analytic_index_pages": float(idx_a.mean()),
+               "recall": float(recall_at_k(res.ids, truth, p.k).mean())}
+        rows.append(row)
+        print(f"   storage {label:17s} {mode} {wl:12s} "
+              + (f"chose {chosen} " if method == "adaptive" else "")
+              + f"hit rate {st.hit_rate:.4f} unique "
+              f"{row['unique_fraction']:.4f} evictions {st.evictions} | "
+              f"per segment (logical, hits, misses) {per_seg} | wall "
+              f"{wall:.3f} s = search {row['search_s']:.3f} + order on the "
+              f"card and copy {row['order_s']:.3f} + page streams "
+              f"{row['streams_s']:.3f} + pool replay {row['replay_s']:.3f} s"
+              f" ({st.logical_total} accesses)", flush=True)
+    return rows
+
+
+def legacy_path(ctx: dict, report: dict, dev="cuda") -> None:
+    """The legacy engines beside the batched ones on workload A: ScaNN's
+    per-query path (the leaf_scan kernel) against the batched pipeline
+    with per-query page accounting, and the vmapped graph engine against
+    the frontier engine: recall, differing ids and counters, QPS."""
+    from repro_torch.core import make_executor, recall_at_k
+
+    qstore, graph, scann = ctx["qstore"], ctx["graph"], ctx["scann"]
+    queries = ctx["queries"]
+    _, bm, truth = ctx["inputs"][0]
+    nq = queries.shape[0]
+    p = main_params()
+    pairs = [("scann", dataclasses.replace(p, scann_page_accounting=
+                                           "per_query"),
+              "scann_vmapped", None)]
+    pairs += [(m, p, m, dataclasses.replace(p, graph_exec_mode="vmapped"))
+              for m in VMAPPED_METHODS]
+    rows = []
+    for base, pb, legacy, pl in pairs:
+        out = {}
+        for name, pp in ((base, pb), (legacy, pl or pb)):
+            ex = make_executor(name, qstore, graph=graph, index=scann,
+                               device=dev)
+            sync(dev)
+            t0 = time.perf_counter()
+            res = ex.search(queries, bm, pp)
+            sync(dev)
+            out[name if pl is None else
+                ("vmapped" if pp is pl else "frontier")] = (
+                res, time.perf_counter() - t0)
+        (a, ta), (b, tb) = out.values()
+        ids_diff = int((a.ids != b.ids).sum())
+        q_diff = {k: int((getattr(a.stats, k) != getattr(b.stats, k)).sum())
+                  for k in COUNTERS}
+        ra = float(recall_at_k(a.ids, truth, p.k).mean())
+        rb = float(recall_at_k(b.ids, truth, p.k).mean())
+        ma, mb = counter_means(a), counter_means(b)
+        row = {"method": legacy if pl is None else f"{base}[vmapped]",
+               "baseline": base if pl is None else f"{base}[frontier]",
+               "recall": rb, "recall_baseline": ra,
+               "ids_differing": ids_diff, "queries_differing": q_diff,
+               "counters": mb, "counters_baseline": ma,
+               "qps": nq / tb, "qps_baseline": nq / ta}
+        rows.append(row)
+        print(f"   legacy {row['method']:22s} recall {rb:.4f} (baseline "
+              f"{ra:.4f}) | ids differing {ids_diff} of {a.ids.numel()} | "
+              f"queries with a differing counter {q_diff} | QPS {nq / tb:.1f}"
+              f" vs {row['baseline']} {nq / ta:.1f}", flush=True)
+        check(abs(ra - rb) <= 0.02, f"legacy {row['method']}: recall {rb} "
+              f"vs {ra}")
+        for k in COUNTERS:
+            check(abs(mb[k] - ma[k]) <= 0.02 * max(abs(ma[k]), 1.0),
+                  f"legacy {row['method']}: {k} mean {mb[k]} vs {ma[k]}")
+        if pl is None:
+            check(q_diff["hops"] == 0 and q_diff["page_accesses_index"] == 0,
+                  "scann_vmapped: leaves or leaf pages differ from the "
+                  "batched pipeline's per-query accounting")
+    report["main"]["legacy"] = rows
 
 
 def family_witness(ctx: dict, report: dict, dev="cuda") -> None:
@@ -684,6 +970,7 @@ def phase_kernels(ctx: dict, report: dict) -> list[dict]:
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
                 "call_ms": call_ms, "shape": f"Q={nq_b} U={u} C={c} d={d}"})
+    out += slice3_kernel_rows(ctx)
     for k in out:
         print(f"   {k['name']:22s} {k['shape']:28s} kernel {k['ms']:.4f} ms"
               f" plain {k['plain_ms']:.4f} ms library {k['library_ms']:.4f}"
@@ -692,6 +979,102 @@ def phase_kernels(ctx: dict, report: dict) -> list[dict]:
               f"max|err| {k['max_abs_err']:.3g} launches {k['launches']}",
               flush=True)
     report["kernels"] = out
+    return out
+
+
+def slice3_kernel_rows(ctx: dict) -> list[dict]:
+    """leaf_scan on the whole batch's (Q, nl) opened-leaf block, as the
+    scann_vmapped path launches it, and topk on one query's flattened
+    per-query scores (n = nl * C, k = k * reorder_factor, the selection
+    scann.py:273 makes) and on one query's 1M distances (k = 10)."""
+    import torch
+    from repro_torch.core import full_distances
+    from repro_torch.core.scann import _select_leaves, project_query
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.leaf_scan import leaf_scan_cuda
+    from repro_torch.kernels.topk import topk_cuda
+
+    scann, store = ctx["scann"], ctx["store"]
+    queries, bitmaps = ctx["queries"], ctx["bitmaps"]
+    p = main_params()
+    qn, d = queries.shape
+    L, C, dp = scann.leaf_tiles.shape
+    nl = min(p.num_leaves_to_search, L)
+    qp = project_query(scann, queries).contiguous()
+    leaves, _ = _select_leaves(scann, qp, nl)
+    leaves = leaves.to(torch.int32).contiguous()
+    args = (qp, leaves, scann.leaf_tiles, scann.leaf_rowids, scann.scale,
+            scann.mean, bitmaps, scann.metric)
+    got = leaf_scan_cuda(*args)
+    want = ref.leaf_scan_ids_ref(*args)
+    err = _compare("leaf_scan", got, want)
+    kern = lambda: leaf_scan_cuda(*args)  # noqa: E731
+    ms, call_ms = device_ms(kern, iters=10), cuda_ms(kern, iters=10)
+    plain_ms = device_ms(lambda: ref.leaf_scan_ids_ref(*args), iters=2,
+                         warmup=1)
+
+    def library():
+        # dequantize + torch.bmm, 64 queries at a time
+        for s in range(0, qn, 64):
+            x = ref.dequantize(scann.leaf_tiles[leaves[s:s + 64].long()],
+                               scann.scale, scann.mean)
+            b, n_l = x.shape[:2]
+            torch.bmm(x.reshape(b, n_l * C, dp), qp[s:s + 64, :, None])
+    lib_ms = device_ms(library, iters=2, warmup=1)
+    rows = scann.leaf_rowids[leaves.long()]                  # (Q, nl, C)
+    n_valid = int((rows >= 0).sum())
+    uniq = torch.unique(leaves)
+    distinct_valid = int((scann.leaf_rowids[uniq.long()] >= 0).sum())
+    # queries and the leaf-id block in; each distinct tile with its rowids
+    # once; scale and mean; one bitmap word per valid row; (Q, nl, C) out.
+    # Flops the function needs: q.x per (query, valid row), 2 a term;
+    # dequantizing a row and its ||x||^2 once per distinct valid row, 2 a
+    # term each; ||q||^2 once per query
+    nbytes = (qn * dp * 4 + qn * nl * 4 + int(uniq.numel()) * C * (dp + 4)
+              + 2 * dp * 4 + n_valid * 4 + qn * nl * C * 4)
+    b_ms, b_by = bound(nbytes, 2 * n_valid * dp + 4 * distinct_valid * dp
+                       + 2 * qn * dp)
+    out = [{"name": "leaf_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/leaf_scan.cu",
+            "replaces": "src/repro/kernels/leaf_scan.py:84",
+            "launches": ctx["launches"]["leaf_scan"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib_ms, "call_ms": call_ms,
+            "shape": f"Q={qn} nl={nl} C={C} d={dp} L={L} "
+                     f"({int(uniq.numel())} distinct leaves)",
+            "bytes_rereading_tiles": qn * nl * C * dp}]
+
+    # topk: values and indices exact against the plain version
+    cases = {"per_query": (got[0].reshape(-1).contiguous(),
+                           p.k * p.reorder_factor),
+             "1M": (full_distances(store, queries[:1])[0].contiguous(), p.k)}
+    timing = {}
+    for key, (v, k) in cases.items():
+        gv, gi = topk_cuda(v, k)
+        wv, wi = ref.topk_partial_ref(v, k)
+        check(bool(torch.equal(gv, wv) and torch.equal(gi, wi)),
+              f"topk {key}: values or indices differ from the plain version")
+        kern = lambda: topk_cuda(v, k)  # noqa: E731
+        timing[key] = {
+            "n": int(v.numel()), "k": k, "ms": device_ms(kern),
+            "call_ms": cuda_ms(kern, iters=40),
+            "plain_ms": device_ms(lambda: ref.topk_partial_ref(v, k)),
+            "library_ms": device_ms(lambda: torch.topk(v, k, largest=False)),
+            "bound": bound(v.numel() * 4 + k * 8, v.numel())}
+    t = timing["per_query"]
+    out.append({"name": "topk", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/topk.cu",
+                "replaces": "src/repro/kernels/topk.py:49",
+                "launches": ctx["launches"]["topk"], "max_abs_err": 0.0,
+                "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                "library_ms": t["library_ms"], "call_ms": t["call_ms"],
+                "shape": f"n={t['n']} k={t['k']}", "n_1m": timing["1M"]})
+    t1 = timing["1M"]
+    print(f"   topk n={t1['n']} k={t1['k']}: kernel {t1['ms']:.4f} ms plain "
+          f"{t1['plain_ms']:.4f} ms library {t1['library_ms']:.4f} ms bound "
+          f"{t1['bound'][0]:.4f} ms | per call {t1['call_ms']:.4f} ms",
+          flush=True)
     return out
 
 

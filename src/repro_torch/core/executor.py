@@ -6,13 +6,16 @@
 
 `GraphExecutor` (the frontier engine, with the SQ8 tier and FAVOR
 exclusion pruning), `PartitionedGraphExecutor` (JAG family subgraphs),
-`ScannExecutor` (the query-batched pipeline), `BruteForceExecutor` (exact
-filtered KNN with seqscan counters) and `AdaptivePlanner` (per-batch
-system-aware dispatch on the predictive cost model) are ports of the
-reference executors of the same names, without storage accounting or the
-stepped driver.  `make_executor` builds them by method name; the
-reference's other methods, and `storage=`, raise NotImplementedError
-naming the ROADMAP item that ports them.
+`ScannExecutor` (the query-batched pipeline, or the legacy per-query one),
+`BruteForceExecutor` (exact filtered KNN with seqscan counters) and
+`AdaptivePlanner` (per-batch system-aware dispatch on the predictive cost
+model) are ports of the reference executors of the same names, without the
+stepped driver.  With a `storage` engine (`storage.make_storage_engine`)
+attached, a search also collects its access trace and replays it through
+the buffer pool: the result carries measured StorageStats, and the planner
+prices each candidate with the pool's residency.  `make_executor` builds
+them by method name; the reference's "delta" method raises
+NotImplementedError naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -31,30 +34,31 @@ from repro_torch.core.graph_search import search_batch
 from repro_torch.core.hnsw import HNSWGraph, PartitionedGraph
 from repro_torch.core.scann import (ScannIndex, _quant_pages_per_leaf,
                                     leaves_within_budget, project_query,
-                                    scann_search_batch)
+                                    scann_search_batch,
+                                    scann_search_batch_vmapped)
 from repro_torch.core.types import (SearchParams, SearchResult, SearchStats,
                                     VectorStore, bitmap_popcount,
                                     check_store_device, heap_pages_per_vector,
                                     pack_bool_bitmap, probe_batch,
                                     quantize_store, topk_smallest)
+from repro_torch.storage.engine import (TRACE_UNTOUCHED, StorageEngine,
+                                        merge_storage_stats)
 
 GRAPH_STRATEGIES = costmodel.GRAPH_STRATEGIES
 GRAPH_SQ8_METHODS = tuple(f"{s}_sq8" for s in GRAPH_STRATEGIES)
 EXCL_METHODS = ("sweeping_excl", "sweeping_excl_sq8")
 PARTITIONED_METHODS = ("partitioned", "partitioned_sq8")
 PORTED_METHODS = GRAPH_STRATEGIES + GRAPH_SQ8_METHODS + EXCL_METHODS \
-    + PARTITIONED_METHODS + ("scann", "bruteforce", "adaptive")
+    + PARTITIONED_METHODS + ("scann", "scann_vmapped", "bruteforce",
+                             "adaptive")
 DEFAULT_PLANNER_CANDIDATES = ("bruteforce", "scann", "sweeping",
                               "sweeping_sq8", "navix", "iterative_scan")
 
 # Methods of the reference's registry that the port does not run yet, with
 # the ROADMAP item that ports them.
 _NOT_PORTED = {
-    "scann_vmapped": "ROADMAP 1.8 (legacy vmapped engines)",
     "delta": "ROADMAP 1.11 (mutability)",
 }
-_NO_STORAGE = ("storage accounting is not ported yet: ROADMAP 1.7 "
-               "(storage/, the buffer pool)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,18 +110,29 @@ class BaseExecutor:
 class GraphExecutor(BaseExecutor):
     """The graph strategies (paper §2.3) on the frontier engine, on the
     full-precision or the SQ8 tier (`graph_quant`), with FAVOR exclusion
-    pruning when an `exclusion` index is given (sweeping, l2 only)."""
+    pruning when an `exclusion` index is given (sweeping, l2 only).  With
+    a `storage` engine the search collects its trace (ids, dists and
+    counters unchanged) and the result carries measured StorageStats."""
 
     def __init__(self, graph: HNSWGraph, store: VectorStore,
                  strategy: str = "sweeping", graph_quant: str = "none",
-                 exclusion: Optional[ExclusionIndex] = None):
+                 exclusion: Optional[ExclusionIndex] = None,
+                 storage: Optional[StorageEngine] = None):
         if strategy not in GRAPH_STRATEGIES:
             raise ValueError(f"unknown graph strategy {strategy!r}")
         if graph_quant not in ("none", "sq8"):
             raise ValueError(f"unknown graph_quant {graph_quant!r}")
-        if graph_quant == "sq8" and not store.has_sq8:
-            raise ValueError("graph_quant='sq8' needs a quantize_store'd "
-                             "VectorStore (SQ8 shadow missing)")
+        if storage is not None and storage.graph is None:
+            raise ValueError("storage engine lacks a graph adjacency "
+                             "layout; build it with graph=")
+        if graph_quant == "sq8":
+            if not store.has_sq8:
+                raise ValueError("graph_quant='sq8' needs a quantize_store'd"
+                                 " VectorStore (SQ8 shadow missing)")
+            if storage is not None and storage.qheap is None:
+                raise ValueError("storage engine lacks the qheap (SQ8 "
+                                 "shadow) segment; build it from the "
+                                 "quantized store")
         if exclusion is not None:
             # the keep rule is a triangle-inequality argument in l2 root
             # space, composed with sweeping's W-tail threshold
@@ -135,6 +150,7 @@ class GraphExecutor(BaseExecutor):
         self.strategy = strategy
         self.graph_quant = graph_quant
         self.exclusion = exclusion
+        self.storage = storage
         base = strategy if exclusion is None else f"{strategy}_excl"
         self.name = base if graph_quant == "none" \
             else f"{base}_{graph_quant}"
@@ -168,13 +184,44 @@ class GraphExecutor(BaseExecutor):
 
     def execute(self, plan: SearchPlan) -> SearchResult:
         excl = None if plan.notes is None else plan.notes.get("excl")
-        d, ids, stats = search_batch(self.graph, self.store, plan.queries,
-                                     plan.bitmaps, plan.params, excl=excl)
+        sstats = None
+        if self.storage is None:
+            d, ids, stats = search_batch(self.graph, self.store,
+                                         plan.queries, plan.bitmaps,
+                                         plan.params, excl=excl)
+        else:
+            if plan.params.graph_exec_mode != "frontier":
+                raise ValueError("storage accounting needs the frontier "
+                                 "engine (graph_exec_mode='frontier')")
+            d, ids, stats, trace = search_batch(
+                self.graph, self.store, plan.queries, plan.bitmaps,
+                plan.params, excl=excl, collect_trace=True)
+            sstats = self.storage.account_graph(
+                trace["heap_steps"], trace["index_steps"],
+                rerank_rows=trace.get("rerank_rows"),
+                quant=self.graph_quant == "sq8")
         return SearchResult(dists=d, ids=ids, stats=stats,
                             strategy=self.strategy, plan=plan,
+                            storage=sstats,
                             anytime=costmodel.evaluate_anytime(
                                 stats, plan.params, self.store.dim, ids,
                                 hop_cap=plan.params.max_hops))
+
+
+def _scatter_storage_stats(stats, qsel: np.ndarray, q: int):
+    """A query subset's StorageStats widened to the whole batch: per-query
+    arrays scatter to their slots (zeros / False elsewhere), so
+    `merge_storage_stats` can sum same-shaped parts."""
+    def scatter(arr, fill):
+        full = np.full(q, fill, np.asarray(arr).dtype)
+        full[qsel] = np.asarray(arr)
+        return full
+
+    return dataclasses.replace(
+        stats, index_pages=scatter(stats.index_pages, 0),
+        heap_pages=scatter(stats.heap_pages, 0),
+        faulted=(None if stats.faulted is None
+                 else scatter(stats.faulted, False)))
 
 
 def _allpass_bitmap(n: int, device) -> torch.Tensor:
@@ -218,11 +265,17 @@ class PartitionedGraphExecutor(BaseExecutor):
     comparisons per distinct bitmap, charged to its first query).  Other
     queries fall back to the wrapped base executor on the full graph; a
     store grown past `built_n` demotes the whole batch to the fallback.
-    Local ids map back to global ids on the device."""
+    Local ids map back to global ids on the device.
+
+    With a `storage` engine, matched queries' subgraph traces are scattered
+    to global row ids and replayed through the base heap and adjacency
+    layouts: exact for heap pages, conservative for index pages (a
+    family's adjacency packs denser than the base layout)."""
 
     def __init__(self, partitions: PartitionedGraph, store: VectorStore,
                  base: Optional[Executor] = None,
-                 graph_quant: str = "none"):
+                 graph_quant: str = "none",
+                 storage: Optional[StorageEngine] = None):
         if graph_quant not in ("none", "sq8"):
             raise ValueError(f"unknown graph_quant {graph_quant!r}")
         if not partitions.partitions:
@@ -232,10 +285,14 @@ class PartitionedGraphExecutor(BaseExecutor):
             raise ValueError("graph_quant='sq8' needs partitions built from "
                              "a quantize_store'd VectorStore (SQ8 shadow "
                              "missing in a partition)")
+        if storage is not None and storage.graph is None:
+            raise ValueError("storage engine lacks a graph adjacency "
+                             "layout; build it with graph=")
         self.partitions = partitions
         self.store = store
         self.base = base
         self.graph_quant = graph_quant
+        self.storage = storage
         self.strategy = "partitioned"
         self.name = "partitioned" if graph_quant == "none" \
             else f"partitioned_{graph_quant}"
@@ -264,14 +321,20 @@ class PartitionedGraphExecutor(BaseExecutor):
         ids = torch.full((q, k), -1, dtype=torch.int32, device=dev)
         counters = {f.name: torch.zeros(q, dtype=torch.int32, device=dev)
                     for f in dataclasses.fields(SearchStats)}
+        sparts = []
+        tracing = self.storage is not None
         for f_idx in torch.unique(match[match >= 0]).tolist():
             part = self.partitions.partitions[f_idx]
             qsel = torch.nonzero(match == f_idx).flatten()
             bm = _allpass_bitmap(part.store.n, dev).expand(
                 qsel.numel(), -1).contiguous()
-            d, lids, stats = search_batch(part.graph, part.store,
-                                          plan.queries[qsel], bm,
-                                          plan.params)
+            out = search_batch(part.graph, part.store, plan.queries[qsel],
+                               bm, plan.params, collect_trace=tracing)
+            d, lids, stats = out[:3]
+            if tracing:
+                qsel_np = qsel.cpu().numpy()
+                sparts.append(_scatter_storage_stats(
+                    self._account_partition(out[3], part.rows), qsel_np, q))
             dists[qsel] = d
             ids[qsel] = torch.where(
                 lids >= 0, part.rows[lids.clamp(min=0).long()].to(
@@ -286,6 +349,9 @@ class PartitionedGraphExecutor(BaseExecutor):
             ids[unmatched] = fres.ids[:, :k].to(torch.int32)
             for name in counters:
                 counters[name][unmatched] = getattr(fres.stats, name)
+            if fres.storage is not None:
+                sparts.append(_scatter_storage_stats(
+                    fres.storage, unmatched.cpu().numpy(), q))
         # the plan-time family match, charged once per distinct bitmap
         first = _first_of_each_distinct(plan.bitmaps, match)
         counters["filter_checks"][first] += (
@@ -293,19 +359,54 @@ class PartitionedGraphExecutor(BaseExecutor):
         stats = SearchStats(**counters)
         return SearchResult(dists=dists, ids=ids, stats=stats,
                             strategy="partitioned", plan=plan,
+                            storage=merge_storage_stats(sparts)
+                            if sparts else None,
                             anytime=costmodel.evaluate_anytime(
                                 stats, plan.params, self.store.dim, ids,
                                 hop_cap=plan.params.max_hops))
 
+    def _account_partition(self, trace, rows: torch.Tensor):
+        """A subgraph trace's first-touch stamps (Qg, n_f) scattered to
+        global row ids (Qg, n) and replayed through the base layout."""
+        n = self.store.n
+        hs, isteps = trace["heap_steps"], trace["index_steps"]
+        cols = rows.to(hs.device, torch.int64)
+        heap_g = torch.full((hs.shape[0], n), TRACE_UNTOUCHED,
+                            dtype=torch.int32, device=hs.device)
+        idx_g = torch.full_like(heap_g, TRACE_UNTOUCHED)
+        heap_g[:, cols] = hs
+        idx_g[:, cols] = isteps
+        rr = trace.get("rerank_rows")
+        if rr is not None:
+            rr = torch.where(rr >= 0, cols[rr.clamp(min=0).to(torch.int64)],
+                             torch.full_like(rr, -1, dtype=torch.int64))
+        return self.storage.account_graph(heap_g, idx_g, rerank_rows=rr,
+                                          quant=self.graph_quant == "sq8")
+
 
 class ScannExecutor(BaseExecutor):
-    """Filtered ScaNN (paper §2.3.7), query-batched pipeline."""
+    """Filtered ScaNN (paper §2.3.7): pipeline="batched" is the
+    query-batched union scan, "vmapped" the legacy per-query path (its
+    equivalence oracle).  A `storage` engine needs the batched
+    pipeline."""
 
-    name = "scann"
-
-    def __init__(self, index: ScannIndex, store: VectorStore):
+    def __init__(self, index: ScannIndex, store: VectorStore,
+                 pipeline: str = "batched",
+                 storage: Optional[StorageEngine] = None):
+        if pipeline not in ("batched", "vmapped"):
+            raise ValueError(f"unknown scann pipeline {pipeline!r}")
+        if storage is not None:
+            if pipeline != "batched":
+                raise ValueError("storage accounting needs the batched "
+                                 "scann pipeline")
+            if storage.scann is None:
+                raise ValueError("storage engine lacks a scann leaf "
+                                 "layout; build it with index=")
         self.index = index
         self.store = store
+        self.pipeline = pipeline
+        self.storage = storage
+        self.name = "scann" if pipeline == "batched" else "scann_vmapped"
 
     def plan(self, queries, bitmaps, params: SearchParams) -> SearchPlan:
         if params.strategy != "scann":
@@ -319,15 +420,26 @@ class ScannExecutor(BaseExecutor):
         return SearchPlan("scann", params, queries, bitmaps, notes=notes)
 
     def execute(self, plan: SearchPlan) -> SearchResult:
-        d, ids, stats = scann_search_batch(self.index, self.store,
-                                           plan.queries, plan.bitmaps,
-                                           plan.params)
+        sstats = None
+        if self.storage is not None:
+            d, ids, stats, trace = scann_search_batch(
+                self.index, self.store, plan.queries, plan.bitmaps,
+                plan.params, collect_trace=True)
+            sstats = self.storage.account_scann(
+                trace["leaves"], trace["cand_rows"], trace["cand_ok"],
+                accounting=plan.params.scann_page_accounting,
+                query_block=plan.params.scann_query_block)
+        else:
+            fn = scann_search_batch if self.pipeline == "batched" \
+                else scann_search_batch_vmapped
+            d, ids, stats = fn(self.index, self.store, plan.queries,
+                               plan.bitmaps, plan.params)
         clamped = plan.notes is not None and "leaf_clamp" in plan.notes
         anytime = costmodel.evaluate_anytime(
             None, plan.params, self.store.dim, ids,
             extra_budget=np.full((ids.shape[0],), clamped, bool))
         return SearchResult(dists=d, ids=ids, stats=stats, strategy="scann",
-                            plan=plan, anytime=anytime)
+                            plan=plan, storage=sstats, anytime=anytime)
 
 
 class BruteForceExecutor(BaseExecutor):
@@ -336,8 +448,10 @@ class BruteForceExecutor(BaseExecutor):
 
     name = "bruteforce"
 
-    def __init__(self, store: VectorStore):
+    def __init__(self, store: VectorStore,
+                 storage: Optional[StorageEngine] = None):
         self.store = store
+        self.storage = storage
 
     def plan(self, queries, bitmaps, params: SearchParams) -> SearchPlan:
         if params.strategy != "bruteforce":
@@ -381,6 +495,7 @@ class BruteForceExecutor(BaseExecutor):
                 page_accesses_index=z, page_accesses_heap=npass * ppv,
                 tmap_lookups=z, reorder_rows=z)
             truncated = np.zeros((q,), bool)
+            scan_bitmaps = plan.bitmaps
         else:
             d, ids, n_scored, probes, trunc = filtered_knn_partial(
                 self.store, plan.queries, plan.bitmaps, plan.params.k,
@@ -390,11 +505,29 @@ class BruteForceExecutor(BaseExecutor):
                 page_accesses_index=z, page_accesses_heap=n_scored * ppv,
                 tmap_lookups=z, reorder_rows=z)
             truncated = trunc.cpu().numpy()
+            # the storage replay sees only the scanned prefix
+            scan_bitmaps = _mask_bitmap_prefix(plan.bitmaps, probes)
+        # the bitmap is the seqscan's trace: passing rows in row-id order
+        sstats = None if self.storage is None \
+            else self.storage.account_seqscan(scan_bitmaps)
         return SearchResult(dists=d, ids=ids.to(torch.int32), stats=stats,
-                            strategy="bruteforce", plan=plan,
+                            strategy="bruteforce", plan=plan, storage=sstats,
                             anytime=costmodel.evaluate_anytime(
                                 None, plan.params, self.store.dim, ids,
                                 extra_budget=truncated))
+
+
+def _mask_bitmap_prefix(bitmaps: torch.Tensor,
+                        probes: torch.Tensor) -> torch.Tensor:
+    """Zero every bit at row id >= probes[q]: the part of a budgeted
+    seqscan that was never reached."""
+    words = bitmaps.shape[1]
+    keep = (probes.to(torch.int64)[:, None]
+            - torch.arange(words, device=bitmaps.device)[None, :] * 32
+            ).clamp(0, 32)
+    mask = (torch.bitwise_left_shift(torch.ones_like(keep), keep) - 1)
+    return bitmaps & torch.where(mask >= 2 ** 31, mask - 2 ** 32,
+                                 mask).to(torch.int32)
 
 
 def index_shape(store: VectorStore, index: Optional[ScannIndex] = None,
@@ -442,7 +575,13 @@ class AdaptivePlanner(BaseExecutor):
              recall- and batch-feasible candidates of predict_cycles.
     execute(): the chosen executor's search, plus the planning overhead
     charged to the counters (n/32 filter-word reads per query, the proxy's
-    centroid scan and leaf probes)."""
+    centroid scan and leaf probes).
+
+    With a `storage` engine the dispatch is warm-cache-aware: every plan
+    reads the pool's per-segment residency and each candidate's predicted
+    cycles include its expected miss penalty; the page-sharing fraction
+    measured on the last full-precision graph batch replaces the
+    calibration constant in the next predictions."""
 
     name = "adaptive"
 
@@ -451,7 +590,8 @@ class AdaptivePlanner(BaseExecutor):
                  constants: costmodel.CostConstants = costmodel.SYSTEM,
                  graph_m: int = 16, probe_leaves: int = 4,
                  recall_margin: float = 2.0,
-                 scann_recall_margin: float = 10.0):
+                 scann_recall_margin: float = 10.0,
+                 storage: Optional[StorageEngine] = None):
         if not candidates:
             raise ValueError("AdaptivePlanner needs at least one candidate")
         for name, ex in candidates.items():
@@ -467,8 +607,12 @@ class AdaptivePlanner(BaseExecutor):
         self.probe_leaves = probe_leaves
         self.recall_margin = recall_margin
         self.scann_recall_margin = scann_recall_margin
+        self.storage = storage
         self._scann = next((ex for ex in self.candidates.values()
                             if isinstance(ex, ScannExecutor)), None)
+        # the last full-precision graph batch's measured unique-page
+        # fraction (StorageStats.unique_fraction), None until one ran
+        self._measured_unique: Optional[float] = None
         # memoized (selectivity, γ) of the last batch: see
         # _selectivity_proxy
         self._proxy_key: Optional[tuple] = None
@@ -540,11 +684,15 @@ class AdaptivePlanner(BaseExecutor):
         shape = self._shape()
         s_eff = min(max(s_mean * gamma, 1.0 / n), 1.0)
         batch_q = int(queries.shape[0])
+        pool_state = self.storage.state() if self.storage is not None \
+            else None
         # each candidate priced on the params it would resolve (strategy +
         # graph_quant), e.g. sweeping_sq8 on the quantized tier
         preds = {name: costmodel.predict_cycles(
             _strategy_kind(ex), shape, _candidate_params(ex, params),
-            s_mean, gamma, self.constants, batch_q=batch_q)
+            s_mean, gamma, self.constants, batch_q=batch_q,
+            pool_state=pool_state,
+            measured_unique_frac=self._measured_unique)
             for name, ex in self.candidates.items()}
         batch_ok = {name: self._batch_feasible(ex, bitmaps)
                     for name, ex in self.candidates.items()}
@@ -564,7 +712,13 @@ class AdaptivePlanner(BaseExecutor):
                           predicted_cycles=preds, notes=inner.notes)
 
     def execute(self, plan: SearchPlan) -> SearchResult:
-        res = self.candidates[plan.strategy].execute(plan)
+        chosen = self.candidates[plan.strategy]
+        res = chosen.execute(plan)
+        if res.storage is not None and isinstance(chosen, GraphExecutor) \
+                and chosen.graph_quant == "none":
+            # only the f32 tier updates it: the calibration constant it
+            # replaces was set on full-precision heap geometry
+            self._measured_unique = res.storage.unique_fraction()
         if res.stats is not None:
             words = int(plan.bitmaps.shape[1])
             probe_fc = probe_dc = 0
@@ -622,18 +776,21 @@ def make_executor(method: str, store: VectorStore, *,
                   partitions: Optional[PartitionedGraph] = None,
                   planner_candidates: tuple[str, ...] =
                   DEFAULT_PLANNER_CANDIDATES,
-                  storage=None, device="cuda") -> Executor:
+                  storage: Optional[StorageEngine] = None,
+                  device="cuda") -> Executor:
     """Build the executor for `method` on `device` (the store must live
     there).  Graph strategies need `graph`; "<strategy>_sq8" runs the SQ8
     tier on the store's shadow (`quantize_store`: pass a quantized store
-    to build several executors on one shadow); "scann" needs `index`; "sweeping_excl[_sq8]" needs
-    `graph` and `exclusion` (core.exclusion.build_exclusion);
-    "partitioned[_sq8]" needs `partitions` (hnsw.build_graph_partitioned),
-    with `graph` as the unmatched-query fallback; "adaptive" builds every
-    candidate of `planner_candidates` the given components support."""
+    to build several executors on one shadow); "scann" / "scann_vmapped"
+    need `index`; "sweeping_excl[_sq8]" needs `graph` and `exclusion`
+    (core.exclusion.build_exclusion); "partitioned[_sq8]" needs
+    `partitions` (hnsw.build_graph_partitioned), with `graph` as the
+    unmatched-query fallback; "adaptive" builds every candidate of
+    `planner_candidates` the given components support.  `storage` attaches
+    a paged storage engine (host-side, no device): results carry measured
+    StorageStats, and for "adaptive" one pool backs every candidate (but
+    "scann_vmapped") and feeds the planner's predictions."""
     check_store_device(store, device)
-    if storage is not None:
-        raise NotImplementedError(_NO_STORAGE)
     if method in _NOT_PORTED:
         raise NotImplementedError(f"{method!r} is not ported yet: "
                                   f"{_NOT_PORTED[method]}")
@@ -643,15 +800,17 @@ def make_executor(method: str, store: VectorStore, *,
             raise ValueError("'sweeping_excl' variants need graph= and "
                              "exclusion=")
         return GraphExecutor(graph, st, strategy="sweeping",
-                             graph_quant=quant, exclusion=exclusion)
+                             graph_quant=quant, exclusion=exclusion,
+                             storage=storage)
 
     def part_executor(quant: str, st: VectorStore) -> Executor:
         if partitions is None:
             raise ValueError("'partitioned' variants need partitions=")
         fallback = None if graph is None else GraphExecutor(
-            graph, st, strategy="sweeping", graph_quant=quant)
+            graph, st, strategy="sweeping", graph_quant=quant,
+            storage=storage)
         return PartitionedGraphExecutor(partitions, st, base=fallback,
-                                        graph_quant=quant)
+                                        graph_quant=quant, storage=storage)
 
     def quant_of(name: str) -> str:
         return "sq8" if name.endswith("_sq8") else "none"
@@ -670,13 +829,15 @@ def make_executor(method: str, store: VectorStore, *,
             raise ValueError(f"{method!r} needs graph=")
         return GraphExecutor(graph, quantize_store(store)
                              if quant == "sq8" else store, strategy=base,
-                             graph_quant=quant)
-    if method == "scann":
+                             graph_quant=quant, storage=storage)
+    if method in ("scann", "scann_vmapped"):
         if index is None:
             raise ValueError(f"{method!r} needs index=")
-        return ScannExecutor(index, store)
+        return ScannExecutor(index, store, pipeline="batched"
+                             if method == "scann" else "vmapped",
+                             storage=storage)
     if method == "bruteforce":
-        return BruteForceExecutor(store)
+        return BruteForceExecutor(store, storage=storage)
     if method == "adaptive":
         if graph is not None and any(n.endswith("_sq8")
                                      for n in planner_candidates):
@@ -685,7 +846,7 @@ def make_executor(method: str, store: VectorStore, *,
         for name in planner_candidates:
             cbase, cquant = _parse_graph_method(name)
             if name == "bruteforce":
-                cands[name] = BruteForceExecutor(store)
+                cands[name] = BruteForceExecutor(store, storage=storage)
             elif name in EXCL_METHODS:
                 if graph is not None and exclusion is not None:
                     cands[name] = excl_executor(quant_of(name), store)
@@ -694,12 +855,17 @@ def make_executor(method: str, store: VectorStore, *,
                     cands[name] = part_executor(quant_of(name), store)
             elif cbase in GRAPH_STRATEGIES and graph is not None:
                 cands[name] = GraphExecutor(graph, store, strategy=cbase,
-                                            graph_quant=cquant)
-            elif name == "scann" and index is not None:
-                cands[name] = ScannExecutor(index, store)
+                                            graph_quant=cquant,
+                                            storage=storage)
+            elif name in ("scann", "scann_vmapped") and index is not None:
+                # the legacy pipeline has no trace, so no storage
+                cands[name] = ScannExecutor(
+                    index, store, pipeline="batched" if name == "scann"
+                    else "vmapped",
+                    storage=storage if name == "scann" else None)
             elif name in _NOT_PORTED:
                 raise NotImplementedError(f"{name!r} is not ported yet: "
                                           f"{_NOT_PORTED[name]}")
         return AdaptivePlanner(cands, store, constants=constants,
-                               graph_m=graph_m)
+                               graph_m=graph_m, storage=storage)
     raise ValueError(f"unknown method {method!r}; ported: {PORTED_METHODS}")

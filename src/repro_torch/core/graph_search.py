@@ -31,6 +31,20 @@ their counter increments are zero.
 
 The visited set is a (Q, n + 1) bool map: column n is a sink that absorbs
 the writes of -1 padding, so marking is a plain scatter.
+
+`collect_trace=True` also returns the storage-access trace: per query, the
+first-touch superstep stamp of every heap row fetched and every adjacency
+entry read (`TRACE_UNTOUCHED` where never), for the storage engine to
+replay in traversal order.  Rows are stamped with a scatter-min of the
+superstep's post-increment hop count as the superstep marks them visited,
+which are exactly the rows the reference finds newly set between two
+snapshots of its visited bitsets.
+
+`graph_exec_mode="vmapped"` runs the reference's legacy per-query beam
+search instead, with the query batch written out as a leading dimension:
+every lane steps until its own stop and finished lanes are frozen.  It is
+the equivalence oracle of the frontier engine and scores through the
+search engines' `distance`, not through a kernel.
 """
 from __future__ import annotations
 
@@ -46,6 +60,7 @@ from repro_torch.core.types import (SearchParams, SearchStats, VectorStore,
                                     topk_smallest)
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import dequantize
+from repro_torch.storage.engine import TRACE_UNTOUCHED
 
 INF = float("inf")
 
@@ -127,11 +142,40 @@ def _masked(active: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.where(active, _i32(v), torch.zeros_like(_i32(v)))
 
 
+@dataclasses.dataclass
+class _Trace:
+    """First-touch superstep stamps, (Q, n) int32 each: heap rows fetched
+    and adjacency entries read."""
+    heap: torch.Tensor
+    index: torch.Tensor
+
+    @staticmethod
+    def empty(qn: int, n: int, device) -> "_Trace":
+        return _Trace(*(torch.full((qn, n), TRACE_UNTOUCHED,
+                                   dtype=torch.int32, device=device)
+                        for _ in range(2)))
+
+
+def _stamp(steps: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
+           step: torch.Tensor) -> None:
+    """steps[q, ids[q, j]] = min(., step[q]) where mask[q, j] and the id is
+    not padding, in place."""
+    qn = ids.shape[0]
+    live = (mask & (ids >= 0)).reshape(qn, -1)
+    val = torch.where(live, step.to(torch.int32)[:, None],
+                      torch.full_like(live, TRACE_UNTOUCHED,
+                                      dtype=torch.int32))
+    steps.scatter_reduce_(1, ids.reshape(qn, -1).clamp(min=0).to(
+        torch.int64), val, reduce="amin")
+
+
 def _zoom_in(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor,
-             quant: str = "none"):
+             quant: str = "none", trace: _Trace | None = None):
     """Greedy upper-layer descent of every query (always unfiltered, paper
-    §2.3.1 phase (i)), on the tier `quant` names.  Returns (entry (Q,),
-    entry_d (Q,), stats)."""
+    §2.3.1 phase (i)), on the tier `quant` names.  With a `trace`, the
+    entry and every scored neighbor are stamped into its heap stamps and
+    every node whose adjacency is read into its index stamps, with the hop
+    count at fetch time.  Returns (entry (Q,), entry_d (Q,), stats)."""
     qn = queries.shape[0]
     dev = queries.device
     ppv = _ppv(store, quant)
@@ -140,6 +184,10 @@ def _zoom_in(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor,
     st = SearchStats.zeros((qn,), device=dev)
     st.distance_comps += 1
     st.page_accesses_heap += ppv
+    if trace is not None:
+        _stamp(trace.heap, cur[:, None], torch.ones_like(cur[:, None],
+                                                         dtype=torch.bool),
+               st.hops)
     for lvl in range(graph.num_levels - 1, 0, -1):
         improved = torch.ones(qn, dtype=torch.bool, device=dev)
         while bool(improved.any()):
@@ -156,6 +204,9 @@ def _zoom_in(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor,
             st.hops += _i32(improved)
             st.page_accesses_index += _i32(improved)
             st.page_accesses_heap += _masked(improved, n_valid * ppv)
+            if trace is not None:
+                _stamp(trace.index, cur[:, None], improved[:, None], st.hops)
+                _stamp(trace.heap, nbrs, valid & improved[:, None], st.hops)
             cur = torch.where(better, torch.gather(nbrs, 1, j)[:, 0], cur)
             cur_d = torch.where(better, dj, cur_d)
             improved = better
@@ -214,13 +265,17 @@ def _probe_visited(visited: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return (hit & (flat >= 0)).reshape(ids.shape)
 
 
-def _mark(visited: torch.Tensor, ids: torch.Tensor,
-          mask: torch.Tensor) -> torch.Tensor:
+def _mark(visited: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
+          trace: _Trace | None = None, step=None) -> torch.Tensor:
     """Mark ids[mask] visited, in place (the map is Q x n bytes, too large
     to copy each superstep); everything else lands in the sink column.
-    Every probe that needs the unmarked state runs before the mark."""
+    Every probe that needs the unmarked state runs before the mark.  The
+    marked ids are unvisited until now, so with a `trace` they are the
+    superstep's newly fetched rows and get its heap stamp `step`."""
     sink = visited.shape[1] - 1
     idx = torch.where(mask & (ids >= 0), ids, torch.full_like(ids, sink))
+    if trace is not None:
+        _stamp(trace.heap, ids, mask, step)
     return visited.scatter_(1, idx.reshape(ids.shape[0], -1), True)
 
 
@@ -247,7 +302,8 @@ def _score_insert_chunks(queries, bitmaps, store, cand_ids, sel_mask,
                          chunk: int, pool, w, visited, sweep_worst=None,
                          dedup: bool = False, drop_head=None,
                          quant: str = "none", excl=None,
-                         excl_margin: float = 0.5, excl_exact: bool = False):
+                         excl_margin: float = 0.5, excl_exact: bool = False,
+                         trace: _Trace | None = None, step=None):
     """Score the selected candidates chunk at a time and merge them into
     the pool and the result queue, marking them visited as chunks finish.
 
@@ -262,6 +318,7 @@ def _score_insert_chunks(queries, bitmaps, store, cand_ids, sel_mask,
     candidate keeps its distance, W eligibility, visited mark and filter
     check, but its branch is never popped; `excl_exact` (family-exact
     radii) stops charging the filter check of a pruned candidate.
+    `trace` / `step` stamp the marked rows (`_mark`).
     Returns (pool_d, pool_id, w_d, w_id, visited, n_would)."""
     qn, m = cand_ids.shape
     c = m if chunk <= 0 else min(chunk, m)
@@ -269,7 +326,7 @@ def _score_insert_chunks(queries, bitmaps, store, cand_ids, sel_mask,
     w_d, w_id = w
     n_would = torch.zeros(qn, dtype=torch.int32, device=queries.device)
 
-    def step(pd, pi, wd, wi, vis, nw, cids, drop):
+    def chunk_step(pd, pi, wd, wi, vis, nw, cids, drop):
         if dedup:
             seen = _probe_visited(vis, cids)
             cids = torch.where(_dedup_first(cids) & ~seen, cids,
@@ -300,13 +357,13 @@ def _score_insert_chunks(queries, bitmaps, store, cand_ids, sel_mask,
                 pd, pi, torch.where(keep, cd, torch.full_like(cd, INF)),
                 torch.where(keep, cids, torch.full_like(cids, -1)), drop)
         wd, wi = _merge_smallest(wd, wi, wd_in, wi_in)
-        return pd, pi, wd, wi, _mark(vis, cids, valid), nw
+        return pd, pi, wd, wi, _mark(vis, cids, valid, trace, step), nw
 
     if c >= m:
         # one chunk: score the masked candidates in place
         cids = torch.where(sel_mask, cand_ids, torch.full_like(cand_ids, -1))
-        return step(pool_d, pool_id, w_d, w_id, visited, n_would, cids,
-                    drop_head)
+        return chunk_step(pool_d, pool_id, w_d, w_id, visited, n_would,
+                          cids, drop_head)
 
     if drop_head is not None:   # pop up front: the loop may not run at all
         pool_d = torch.where(drop_head[:, None], torch.cat(
@@ -322,7 +379,7 @@ def _score_insert_chunks(queries, bitmaps, store, cand_ids, sel_mask,
         cids = torch.where(cpos >= 0,
                            torch.gather(cand_ids, 1, cpos.clamp(min=0)),
                            torch.full_like(cpos, -1))
-        pool_d, pool_id, w_d, w_id, visited, n_would = step(
+        pool_d, pool_id, w_d, w_id, visited, n_would = chunk_step(
             pool_d, pool_id, w_d, w_id, visited, n_would, cids, None)
     return pool_d, pool_id, w_d, w_id, visited, n_would
 
@@ -371,9 +428,10 @@ def _count(st: SearchStats, active, dc, fc, pai, pah, tm) -> SearchStats:
 
 def _base_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
                     params: SearchParams, ef_result: int, s: _Lanes,
-                    excl=None) -> _Lanes:
+                    excl=None, trace: _Trace | None = None) -> _Lanes:
     """One superstep of the base (non-iterative) engine.  `excl`
-    (QueryRadii, sweeping only) prunes pool insertion."""
+    (QueryRadii, sweeping only) prunes pool insertion; `trace` collects
+    the storage trace."""
     qn = queries.shape[0]
     strat = params.strategy
     quant = params.graph_quant
@@ -393,6 +451,9 @@ def _base_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
         stop = stop | over
     active = ~s.done & ~stop
     node = best_id.clamp(min=0)
+    step = s.st.hops + 1          # this superstep's post-increment stamp
+    if trace is not None:         # adjacency read of the popped node
+        _stamp(trace.index, node[:, None], active[:, None], step)
 
     nb1 = graph.neighbors[0, node].to(torch.int64)            # (Q, deg)
     v1 = nb1 >= 0
@@ -411,7 +472,8 @@ def _base_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
             drop_head=active, quant=quant,
             excl=excl if strat == "sweeping" else None,
             excl_margin=params.exclusion_margin,
-            excl_exact=params.exclusion == "prune_exact")
+            excl_exact=params.exclusion == "prune_exact", trace=trace,
+            step=step)
         if strat == "sweeping":
             fc = fc + n_w
             if tm_on:
@@ -465,6 +527,8 @@ def _base_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
             expand = torch.zeros_like(expand)
 
         pai = pai + expand.sum(1)                      # branch pages
+        if trace is not None:     # adjacency reads of the expanded branches
+            _stamp(trace.index, nb1, expand & active[:, None], step)
         nb2 = graph.neighbors[0, nb1.clamp(min=0)].to(torch.int64)
         nb2 = torch.where(v1[:, :, None], nb2, torch.full_like(nb2, -1))
         v2 = nb2 >= 0
@@ -489,20 +553,21 @@ def _base_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
         pool_d, pool_id = _merge_smallest(s.pool_d, s.pool_id, in1_d, in1_i,
                                           active)
         w_d, w_id = _merge_smallest(s.w_d, s.w_id, in1_d, in1_i)
-        visited = _mark(s.visited, nb1, ins1)
+        visited = _mark(s.visited, nb1, ins1, trace, step)
         # lazy 2-hop: chunks dedup against visited marks as they go
         cid2 = torch.where(s2, nb2, torch.full_like(nb2, -1)).reshape(qn, -1)
         pool_d, pool_id, w_d, w_id, visited, _ = _score_insert_chunks(
             queries, bitmaps, store, cid2,
             s2.reshape(qn, -1) & active[:, None], params.frontier_chunk2,
-            (pool_d, pool_id), (w_d, w_id), visited, dedup=True, quant=quant)
+            (pool_d, pool_id), (w_d, w_id), visited, dedup=True, quant=quant,
+            trace=trace, step=step)
 
     st = _count(s.st, active, dc, fc, pai, pah, tm)
     return _Lanes(pool_d, pool_id, w_d, w_id, visited, st, s.done | stop)
 
 
 def _frontier_base(graph, store, queries, bitmaps, params, entry, entry_d,
-                   st, ef_result: int, excl=None):
+                   st, ef_result: int, excl=None, trace=None):
     """The base engine's superstep loop.  Returns (W_d, W_id) sorted
     ascending and the stats."""
     seed_ok = probe_batch(bitmaps, entry[:, None])[:, 0] \
@@ -510,12 +575,13 @@ def _frontier_base(graph, store, queries, bitmaps, params, entry, entry_d,
     s = _init_lanes(graph, entry, entry_d, st, params, ef_result, seed_ok)
     while not bool(s.done.all()):
         s = _base_superstep(graph, store, queries, bitmaps, params,
-                            ef_result, s, excl)
+                            ef_result, s, excl, trace)
     return s.w_d, s.w_id, s.st
 
 
 def _iter_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
-                    params: SearchParams, s: _Lanes, eff, rnd, checked):
+                    params: SearchParams, s: _Lanes, eff, rnd, checked,
+                    trace: _Trace | None = None):
     """One superstep of the iterative-scan engine: emit (post-filter the
     batch, maybe extend the scan) or expand."""
     quant = params.graph_quant
@@ -551,13 +617,17 @@ def _iter_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
     checked2 = torch.where(live & batch_done, eff.clamp(max=efmax), checked)
 
     # expansion, on the active lanes only
-    nb1 = graph.neighbors[0, best_id.clamp(min=0)].to(torch.int64)
+    node = best_id.clamp(min=0)
+    step = s.st.hops + 1
+    if trace is not None:
+        _stamp(trace.index, node[:, None], active[:, None], step)
+    nb1 = graph.neighbors[0, node].to(torch.int64)
     score_m = (nb1 >= 0) & ~_probe_visited(s.visited, nb1)
     n_s = score_m.sum(1)
     pool_d, pool_id, w_d, w_id, visited, _ = _score_insert_chunks(
         queries, bitmaps, store, nb1, score_m & active[:, None],
         params.frontier_chunk, (s.pool_d, s.pool_id), (s.w_d, s.w_id),
-        s.visited, drop_head=active, quant=quant)
+        s.visited, drop_head=active, quant=quant, trace=trace, step=step)
 
     zero = torch.zeros_like(fc_emit)
     st = s.st
@@ -576,9 +646,10 @@ def _iter_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
 
 
 def _frontier_iterative(graph, store, queries, bitmaps, params, entry,
-                        entry_d, st):
+                        entry_d, st, trace=None):
     """The iterative-scan engine: unfiltered traversal into a resumable
-    (EFMAX,) result buffer, post-filtered at emit time."""
+    (EFMAX,) result buffer, post-filtered at emit time.  Returns (dists,
+    ids, stats, the SQ8 emit's reranked rows or None)."""
     qn = queries.shape[0]
     dev = queries.device
     efmax = params.batch_tuples * params.max_rounds
@@ -591,21 +662,32 @@ def _frontier_iterative(graph, store, queries, bitmaps, params, entry,
     while not bool(s.done.all()):
         s, eff, rnd, checked = _iter_superstep(graph, store, queries,
                                                bitmaps, params, s, eff, rnd,
-                                               checked)
+                                               checked, trace)
+    return _iter_finish(store, queries, bitmaps, params, s.w_d, s.w_id, eff,
+                        s.st)
+
+
+def _iter_finish(store: VectorStore, queries, bitmaps, params: SearchParams,
+                 w_d, w_id, eff, st: SearchStats):
+    """The iterative scan's final emit over the (Q, EFMAX) result buffer:
+    post-filter the in-batch rows and keep the top k (on the SQ8 tier,
+    rerank the top k * reorder_factor exactly).  Returns (dists, ids,
+    stats, the reranked rows or None)."""
+    efmax = w_d.shape[1]
     if params.graph_quant == "sq8" and params.sq8_rerank:
         r = min(params.k * params.reorder_factor, efmax)
-        dk, ids, n_r = _iter_emit_sq8(store, queries, s.w_d, s.w_id,
-                                      bitmaps, eff, params.k, r)
-        return dk, ids, _add_rerank(s.st, n_r, store.dim)
-    in_batch = torch.arange(efmax, device=dev)[None, :] < eff[:, None]
-    dm = torch.where(in_batch, s.w_d, torch.full_like(s.w_d, INF))
-    im = torch.where(in_batch, s.w_id, torch.full_like(s.w_id, -1))
+        dk, ids, n_r, cand = _iter_emit_sq8(store, queries, w_d, w_id,
+                                            bitmaps, eff, params.k, r)
+        return dk, ids, _add_rerank(st, n_r, store.dim), cand
+    in_batch = torch.arange(efmax, device=w_d.device)[None, :] < eff[:, None]
+    dm = torch.where(in_batch, w_d, torch.full_like(w_d, INF))
+    im = torch.where(in_batch, w_id, torch.full_like(w_id, -1))
     ok = probe_batch(bitmaps, im) & (im >= 0)
     dk, pos = topk_smallest(torch.where(ok, dm, torch.full_like(dm, INF)),
                             params.k)
     ids = torch.where(torch.isinf(dk), torch.full_like(pos, -1),
                       torch.gather(im, 1, pos))
-    return dk, ids, s.st
+    return dk, ids, st, None
 
 
 def _add_rerank(st: SearchStats, n_r, dim: int) -> SearchStats:
@@ -633,7 +715,8 @@ def _iter_emit_sq8(store: VectorStore, queries, w_d, w_id, bitmaps, eff,
                    k: int, r: int):
     """Quantized iterative-scan emit: post-filter the in-batch candidates,
     take the top r by quantized distance and re-score them exactly.
-    Returns (dists (Q, k), ids (Q, k), n_reranked (Q,))."""
+    Returns (dists (Q, k), ids (Q, k), n_reranked (Q,), the reranked rows
+    (Q, r), -1 padded)."""
     efmax = w_d.shape[1]
     in_batch = torch.arange(efmax, device=w_d.device)[None, :] < eff[:, None]
     d = torch.where(in_batch, w_d, torch.full_like(w_d, INF))
@@ -648,7 +731,7 @@ def _iter_emit_sq8(store: VectorStore, queries, w_d, w_id, bitmaps, eff,
     dk, pos = topk_smallest(exact, k)
     out = torch.where(torch.isinf(dk), torch.full_like(pos, -1),
                       torch.gather(cand, 1, pos))
-    return dk, out, (cand >= 0).sum(1)
+    return dk, out, (cand >= 0).sum(1), cand
 
 
 def _finalize(w_d, w_id, bitmaps, k: int, check_filter: bool):
@@ -663,35 +746,339 @@ def _finalize(w_d, w_id, bitmaps, k: int, check_filter: bool):
     return dk, ids
 
 
-def _frontier_search_batch(graph: HNSWGraph, store: VectorStore, queries,
-                           bitmaps, params: SearchParams, excl=None):
+# ---------------------------------------------------------------------------
+# The legacy engine (graph_exec_mode="vmapped"): the reference's per-query
+# beam loop under jax.vmap, with the batch written out.  Its pool is popped
+# by argmin and re-sorted by every insertion, its visited map is dense, and
+# every lane scores its whole 1-hop (and, filter-first, 2-hop) block each
+# step.  A lane's step applies only while it is neither done nor stopping;
+# otherwise its state is kept as it was, as vmap's batched while_loop does.
+# ---------------------------------------------------------------------------
+
+def _insert_sorted(w_d, w_id, cand_d, cand_id):
+    """Merge candidates into each lane's ascending fixed-size buffer."""
+    d = torch.cat([w_d, cand_d], 1)
+    i = torch.cat([w_id, cand_id], 1)
+    nd, pos = topk_smallest(d, w_d.shape[1])
+    return nd, torch.gather(i, 1, pos)
+
+
+def _pool_insert(pool_d, pool_id, cand_d, cand_id):
+    nd, ni = _insert_sorted(pool_d, pool_id, cand_d, cand_id)
+    return torch.where(ni >= 0, nd, torch.full_like(nd, INF)), ni
+
+
+def _pop(pool_d, pool_id):
+    """The argmin pop (first minimum): (best_d, best_id, the pool without
+    it)."""
+    j = torch.argmin(pool_d, 1, keepdim=True)
+    best_d = torch.gather(pool_d, 1, j)[:, 0]
+    best_id = torch.gather(pool_id, 1, j)[:, 0]
+    return (best_d, best_id, pool_d.scatter(1, j, INF),
+            pool_id.scatter(1, j, -1))
+
+
+def _keep(frozen, old, new):
+    """Per lane, the old value where `frozen`, else the new one."""
+    return torch.where(frozen.reshape((-1,) + (1,) * (old.dim() - 1)),
+                       old, new)
+
+
+def _keep_stats(frozen, old: SearchStats, new: SearchStats) -> SearchStats:
+    return SearchStats(*(_keep(frozen, getattr(old, f.name),
+                               getattr(new, f.name))
+                         for f in dataclasses.fields(SearchStats)))
+
+
+def _expand(graph: HNSWGraph, store: VectorStore, queries, bitmaps, node,
+            visited, two_hop: bool, quant: str):
+    """Each lane's 1-hop (and with `two_hop` 2-hop) neighborhood of `node`:
+    ids, validity, unvisited and filter masks and distances."""
+    qn = queries.shape[0]
+    inf = torch.tensor(INF, device=queries.device)
+    nb1 = graph.neighbors[0, node].to(torch.int64)            # (Q, deg)
+    v1 = nb1 >= 0
+    e = dict(nb1=nb1, v1=v1, unv1=v1 & ~_probe_visited(visited, nb1),
+             pass1=probe_batch(bitmaps, nb1),
+             d1=torch.where(v1, _gather_vec_dist(store, queries, nb1, quant),
+                            inf))
+    if not two_hop:
+        return e
+    deg = nb1.shape[1]
+    nb2 = graph.neighbors[0, nb1.clamp(min=0)].to(torch.int64)
+    nb2 = torch.where(v1[:, :, None], nb2, torch.full_like(nb2, -1))
+    v2 = nb2 >= 0
+    d2 = _gather_vec_dist(store, queries, nb2.reshape(qn, -1), quant)
+    e.update(nb2=nb2, v2=v2, unv2=v2 & ~_probe_visited(visited, nb2),
+             pass2=probe_batch(bitmaps, nb2),
+             d2=torch.where(v2, d2.reshape(qn, deg, deg), inf))
+    return e
+
+
+def _legacy_base(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
+                 params: SearchParams, entry, entry_d, st: SearchStats,
+                 ef_result: int):
+    """The legacy beam loop.  Returns (W_d, W_id) sorted ascending and the
+    stats."""
+    qn = queries.shape[0]
+    dev = queries.device
+    strat = params.strategy
     quant = params.graph_quant
-    entry, entry_d, st = _zoom_in(graph, store, queries, quant)
+    ppv = _ppv(store, quant)
+    deg = graph.neighbors.shape[2]
+    tm_on = params.translation_map
+    seed_ok = probe_batch(bitmaps, entry[:, None])[:, 0] \
+        | (strat in ("unfiltered", "iterative_scan"))
+    s = _init_lanes(graph, entry, entry_d, st, params, ef_result, seed_ok)
+    pool_d, pool_id, w_d, w_id, visited, st, done = (
+        s.pool_d, s.pool_id, s.w_d, s.w_id, s.visited, s.st, s.done)
+    we_idx = params.ef_search - 1 if ef_result >= params.ef_search \
+        else ef_result - 1
+    inf = torch.tensor(INF, device=dev)
+    while not bool(done.all()):
+        best_d, best_id, pd, pi = _pop(pool_d, pool_id)
+        w_worst = w_d[:, we_idx]
+        stop = (best_d > w_worst) | torch.isinf(best_d) | \
+            (st.hops >= params.max_hops)
+        over = _budget_over(st, params, store.dim)
+        if over is not None:
+            stop = stop | over
+        run = ~done & ~stop
+        e = _expand(graph, store, queries, bitmaps, best_id.clamp(min=0),
+                    visited, two_hop=strat in ("acorn", "navix"), quant=quant)
+        zero = torch.zeros(qn, dtype=torch.int64, device=dev)
+        dc, fc, pai, pah, tm = zero, zero, zero + 1, zero, zero
+        if strat in ("unfiltered", "iterative_scan", "sweeping"):
+            score_m = e["unv1"]
+            n_s = score_m.sum(1)
+            dc, pah = dc + n_s, pah + n_s * ppv
+            cd = torch.where(score_m, e["d1"], inf)
+            cid = torch.where(score_m, e["nb1"], torch.full_like(e["nb1"], -1))
+            pd, pi = _pool_insert(pd, pi, cd, cid)
+            _mark(visited, e["nb1"], score_m & run[:, None])
+            if strat == "sweeping":
+                would = score_m & (cd < w_worst[:, None])
+                n_w = would.sum(1)
+                fc = fc + n_w
+                if tm_on:
+                    tm = tm + n_w
+                else:
+                    pai = pai + n_w
+                enter = would & e["pass1"]
+                wd = torch.where(enter, cd, inf)
+                wid = torch.where(enter, cid, torch.full_like(cid, -1))
+            else:
+                wd, wid = cd, cid
+            wd2, wi2 = _insert_sorted(w_d, w_id, wd, wid)
+        else:
+            v1, nb1 = e["v1"], e["nb1"]
+            n1 = v1.sum(1)
+            fc = fc + n1
+            if tm_on:
+                tm = tm + n1
+            else:
+                pai = pai + n1
+            pass1 = e["pass1"] & v1
+            local_sel = pass1.sum(1) / n1.clamp(min=1)
+            false = torch.zeros(qn, dtype=torch.bool, device=dev)
+            do_directed, do_twohop_all = false, ~false
+            if strat == "navix":
+                h = params.navix_heuristic
+                if h == "directed":
+                    do_directed, do_twohop_all = ~false, false
+                elif h == "onehop":
+                    do_twohop_all = false
+                elif h != "blind":       # adaptive-local (paper §2.3.4)
+                    sel32 = local_sel.to(torch.float32)
+                    do_directed = (sel32 > 0.08) & (sel32 <= 0.35)
+                    do_twohop_all = sel32 <= 0.08
+            s1 = pass1 & e["unv1"]
+            n_s1 = s1.sum(1)
+            dc, pah = dc + n_s1, pah + n_s1 * ppv
+            cd1 = torch.where(s1, e["d1"], inf)
+            cid1 = torch.where(s1, nb1, torch.full_like(nb1, -1))
+            expand = v1
+            if params.adaptive_skip_2hop:
+                expand = expand & ~pass1
+            if strat == "navix" and params.navix_heuristic in ("directed",
+                                                               "adaptive"):
+                rank = torch.sort(torch.where(v1, e["d1"], inf), dim=1,
+                                  stable=True).indices
+                topr = torch.zeros_like(v1).scatter(
+                    1, rank[:, :max(1, deg // 4)], True)
+                expand = torch.where(do_twohop_all[:, None], expand,
+                                     do_directed[:, None] & expand & topr)
+                extra = torch.where(do_directed, (v1 & ~s1).sum(1), zero)
+                dc, pah = dc + extra, pah + extra * ppv
+            elif strat == "navix" and params.navix_heuristic == "onehop":
+                expand = torch.zeros_like(expand)
+            pai = pai + expand.sum(1)
+            m2 = e["v2"] & expand[:, :, None]
+            n2 = m2.sum((1, 2))
+            fc = fc + n2
+            if tm_on:
+                tm = tm + n2
+            else:
+                pai = pai + n2
+            s2 = m2 & e["pass2"] & e["unv2"]
+            n_s2 = s2.sum((1, 2))
+            dc, pah = dc + n_s2, pah + n_s2 * ppv
+            cd = torch.cat([cd1, torch.where(s2, e["d2"], inf)
+                            .reshape(qn, -1)], 1)
+            cid = torch.cat([cid1, torch.where(s2, e["nb2"], torch.full_like(
+                e["nb2"], -1)).reshape(qn, -1)], 1)
+            uniq = _dedup_first(cid)
+            cd = torch.where(uniq, cd, inf)
+            cid = torch.where(uniq, cid, torch.full_like(cid, -1))
+            pd, pi = _pool_insert(pd, pi, cd, cid)
+            _mark(visited, cid, (cid >= 0) & run[:, None])
+            wd2, wi2 = _insert_sorted(w_d, w_id, cd, cid)
+        st2 = _count(st, torch.ones_like(run), dc, fc, pai, pah, tm)
+        frozen = ~run
+        pool_d, pool_id = _keep(frozen, pool_d, pd), _keep(frozen, pool_id, pi)
+        w_d, w_id = _keep(frozen, w_d, wd2), _keep(frozen, w_id, wi2)
+        st = _keep_stats(frozen, st, st2)
+        done = done | stop
+    return w_d, w_id, st
+
+
+def _legacy_iterative(graph: HNSWGraph, store: VectorStore, queries,
+                      bitmaps, params: SearchParams, entry, entry_d,
+                      st: SearchStats):
+    """The legacy iterative scan (pgvector 0.8.0 resumable post-filter):
+    unfiltered traversal, the emitted batch post-filtered, the scan
+    extended until k rows pass.  Returns (dists, ids, stats, reranked
+    rows or None)."""
+    qn = queries.shape[0]
+    dev = queries.device
+    quant = params.graph_quant
+    ppv = _ppv(store, quant)
+    efmax = params.batch_tuples * params.max_rounds
+    tm_on = params.translation_map
+    s = _init_lanes(graph, entry, entry_d, st, params, efmax,
+                    torch.ones(qn, dtype=torch.bool, device=dev))
+    pool_d, pool_id, w_d, w_id, visited, st, done = (
+        s.pool_d, s.pool_id, s.w_d, s.w_id, s.visited, s.st, s.done)
+    eff = torch.full((qn,), params.batch_tuples, dtype=torch.int64,
+                     device=dev)
+    rnd = torch.zeros(qn, dtype=torch.int64, device=dev)
+    checked = torch.zeros(qn, dtype=torch.int64, device=dev)
+    inf = torch.tensor(INF, device=dev)
+    cols = torch.arange(efmax, device=dev)[None, :]
+    while not bool(done.all()):
+        live = ~done
+        best_d, best_id, pd, pi = _pop(pool_d, pool_id)
+        w_worst = torch.gather(w_d, 1, (eff.clamp(max=efmax) - 1)[:, None])[
+            :, 0]
+        over = _budget_over(st, params, store.dim)
+        batch_done = (best_d > w_worst) | torch.isinf(best_d) | \
+            (st.hops >= params.max_hops)
+        if over is not None:
+            batch_done = batch_done | over
+        # resume / emit: filter the batch, maybe extend the scan
+        n_pass = (probe_batch(bitmaps, w_id) & (cols < eff[:, None])
+                  & (w_id >= 0)).sum(1)
+        newly = (eff.clamp(max=efmax) - checked).clamp(min=0)
+        fc_emit = torch.where(batch_done, newly, torch.zeros_like(newly))
+        exhausted = torch.isinf(best_d) | (st.hops >= params.max_hops) | \
+            (rnd + 1 >= params.max_rounds)
+        if over is not None:
+            exhausted = exhausted | over
+        finish = batch_done & ((n_pass >= params.k) | exhausted)
+        extend = batch_done & ~finish
+        eff2 = torch.where(extend, eff + params.batch_tuples, eff)
+        rnd2 = torch.where(extend, rnd + 1, rnd)
+        checked2 = torch.where(batch_done, eff.clamp(max=efmax), checked)
+        # expansion, applied only when the batch is not done
+        e = _expand(graph, store, queries, bitmaps, best_id.clamp(min=0),
+                    visited, two_hop=False, quant=quant)
+        score_m = e["unv1"]
+        n_s = score_m.sum(1)
+        cd = torch.where(score_m, e["d1"], inf)
+        cid = torch.where(score_m, e["nb1"], torch.full_like(e["nb1"], -1))
+        pd, pi = _pool_insert(pd, pi, cd, cid)
+        _mark(visited, e["nb1"], score_m & (live & ~batch_done)[:, None])
+        wd2, wi2 = _insert_sorted(w_d, w_id, cd, cid)
+        step = _i32(~batch_done)
+        zero = torch.zeros_like(fc_emit)
+        st2 = SearchStats(
+            st.distance_comps + _masked(~batch_done, n_s),
+            st.filter_checks + _i32(fc_emit),
+            st.hops + step,
+            st.page_accesses_index + step + _i32(zero if tm_on else fc_emit),
+            st.page_accesses_heap + _masked(~batch_done, n_s * ppv),
+            st.tmap_lookups + _i32(fc_emit if tm_on else zero),
+            st.reorder_rows)
+        frozen = done | batch_done
+        pool_d, pool_id = _keep(frozen, pool_d, pd), _keep(frozen, pool_id, pi)
+        w_d, w_id = _keep(frozen, w_d, wd2), _keep(frozen, w_id, wi2)
+        st = _keep_stats(done, st, st2)
+        eff, rnd = _keep(done, eff, eff2), _keep(done, rnd, rnd2)
+        checked = _keep(done, checked, checked2)
+        done = done | (live & finish)
+    return _iter_finish(store, queries, bitmaps, params, w_d, w_id, eff, st)
+
+
+def _search_batch(graph: HNSWGraph, store: VectorStore, queries,
+                  bitmaps, params: SearchParams, excl=None,
+                  collect_trace: bool = False):
+    """Zoom-in, the chosen engine's loop, the SQ8 rerank and the final
+    top-k; the trace dict comes fourth when `collect_trace`."""
+    quant = params.graph_quant
+    legacy = params.graph_exec_mode == "vmapped"
+    trace = _Trace.empty(queries.shape[0], graph.n, queries.device) \
+        if collect_trace else None
+    entry, entry_d, st = _zoom_in(graph, store, queries, quant, trace)
+    rerank_rows = None
     if params.strategy == "iterative_scan":
-        dk, ids, st = _frontier_iterative(graph, store, queries, bitmaps,
-                                          params, entry, entry_d, st)
-    else:
-        w_d, w_id, st = _frontier_base(graph, store, queries, bitmaps,
+        run = _legacy_iterative if legacy else _frontier_iterative
+        dk, ids, st, rerank_rows = run(graph, store, queries, bitmaps,
                                        params, entry, entry_d, st,
-                                       ef_result=params.ef_search, excl=excl)
+                                       **({} if legacy else {"trace": trace}))
+    else:
+        if legacy:
+            w_d, w_id, st = _legacy_base(graph, store, queries, bitmaps,
+                                         params, entry, entry_d, st,
+                                         params.ef_search)
+        else:
+            w_d, w_id, st = _frontier_base(graph, store, queries, bitmaps,
+                                           params, entry, entry_d, st,
+                                           ef_result=params.ef_search,
+                                           excl=excl, trace=trace)
         if quant == "sq8" and params.sq8_rerank:
             w_d, st = _rerank_beam(store, queries, w_id, st)
+            rerank_rows = w_id
         dk, ids = _finalize(w_d, w_id, bitmaps, params.k,
                             check_filter=params.strategy != "unfiltered")
-    return dk, ids.to(torch.int32), st
+    if trace is None:
+        return dk, ids.to(torch.int32), st
+    out = {"heap_steps": trace.heap, "index_steps": trace.index}
+    if quant == "sq8" and rerank_rows is not None:
+        out["rerank_rows"] = rerank_rows.to(torch.int32)
+    return dk, ids.to(torch.int32), st, out
 
 
 def search_batch(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor,
                  bitmaps: torch.Tensor, params: SearchParams,
-                 excl: QueryRadii | None = None):
-    """Batched filtered graph search on the frontier engine.
-    queries (Q, d), bitmaps (Q, W) int32.  Returns (dists (Q, k),
-    ids (Q, k) int32, SearchStats with (Q,) counters).
+                 excl: QueryRadii | None = None,
+                 collect_trace: bool = False):
+    """Batched filtered graph search.  queries (Q, d), bitmaps (Q, W)
+    int32.  Returns (dists (Q, k), ids (Q, k) int32, SearchStats with (Q,)
+    counters).
 
+    `params.graph_exec_mode` picks the engine: "frontier" (the superstep
+    engine, through the frontier kernels) or "vmapped" (the legacy
+    per-query loop, its equivalence oracle).
     `params.graph_quant="sq8"` navigates over the store's SQ8 shadow
     (`types.quantize_store`) and re-scores the final beam exactly.
     `params.exclusion` "prune" / "prune_exact" (sweeping, l2) needs
-    `excl`, the batch's QueryRadii (`exclusion.select_radii`)."""
+    `excl`, the batch's QueryRadii (`exclusion.select_radii`).
+    `collect_trace=True` (frontier engine) adds a fourth element, the
+    storage trace `{"heap_steps": (Q, n) int32, "index_steps": (Q, n)
+    int32}` of first-touch superstep stamps (TRACE_UNTOUCHED where never
+    touched), plus `"rerank_rows"` ((Q, r) int32, -1 padded, candidate
+    order) on the SQ8 tier; ids, dists and stats are the same with the
+    flag on or off."""
     if params.graph_quant not in GRAPH_QUANT_MODES:
         raise ValueError(f"unknown graph_quant {params.graph_quant!r}; "
                          f"expected one of {GRAPH_QUANT_MODES}")
@@ -720,12 +1107,15 @@ def search_batch(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor,
                              "everything once W fills)")
     elif excl is not None:
         raise ValueError("excl radii passed but params.exclusion='none'")
-    if params.graph_exec_mode != "frontier":
-        raise NotImplementedError(
-            f"graph_exec_mode={params.graph_exec_mode!r}: only the frontier "
-            "engine is ported (the vmapped engine is ROADMAP 1.8)")
+    if params.graph_exec_mode == "vmapped":
+        if collect_trace:
+            raise ValueError("storage traces need the frontier engine "
+                             "(graph_exec_mode='frontier')")
+    elif params.graph_exec_mode != "frontier":
+        raise ValueError(f"unknown graph_exec_mode {params.graph_exec_mode!r}"
+                         "; expected 'frontier' or 'vmapped'")
     if params.strategy not in ("unfiltered", "sweeping", "acorn", "navix",
                                "iterative_scan"):
         raise ValueError(f"unknown graph strategy {params.strategy!r}")
-    return _frontier_search_batch(graph, store, queries, bitmaps, params,
-                                  excl)
+    return _search_batch(graph, store, queries, bitmaps, params, excl,
+                         collect_trace)

@@ -16,6 +16,11 @@ Counters follow Table 6's ScaNN columns: filter checks = every valid row of
 every opened leaf; distance comps = passing rows + centroids scored +
 reordered rows; hops = leaves scanned; reorder_rows; page accesses =
 quantized leaf pages + heap pages of the reordered rows.
+
+`scann_search_batch_vmapped` is the reference's legacy per-query path,
+its equivalence oracle: centroids scored with the engines' `distance`,
+every query's own leaves scanned by the `leaf_scan` kernel (one launch for
+the batch, tiles read by leaf id), per-query page counters.
 """
 from __future__ import annotations
 
@@ -257,14 +262,18 @@ def _select_leaves(index: ScannIndex, qp: torch.Tensor, nl: int):
 
 def scann_search_batch(index: ScannIndex, store: VectorStore,
                        queries: torch.Tensor, bitmaps: torch.Tensor,
-                       params: SearchParams):
+                       params: SearchParams, collect_trace: bool = False):
     """Filtered ScaNN search, query-batched.  Returns (dists (Q, k),
     ids (Q, k), SearchStats with (Q,) counters).
 
     `params.scann_query_block` > 0 tiles the batch: each tile of that many
     queries runs the whole pipeline over its own leaf union, so the
     (Q, U, C) union-scan output stays bounded.  ids and dists do not depend
-    on the tile size; "batch" index-page accounting amortizes per tile."""
+    on the tile size; "batch" index-page accounting amortizes per tile.
+
+    `collect_trace=True` adds a fourth element, the storage trace
+    `{"leaves": (Q, nl) opened in rank order, "cand_rows": (Q, r) reorder
+    heap rows in candidate order, "cand_ok": (Q, r) validity}`."""
     if index.metric not in ("l2", "ip") or store.metric not in ("l2", "ip"):
         raise NotImplementedError(
             f"batched ScaNN pipeline supports 'l2'/'ip' metrics, got "
@@ -278,17 +287,21 @@ def scann_search_batch(index: ScannIndex, store: VectorStore,
     if B < 0:
         raise ValueError(f"scann_query_block must be >= 0, got {B}")
     if not 0 < B < qn:
-        return _scann_search_block(index, store, queries, bitmaps, params)
+        return _scann_search_block(index, store, queries, bitmaps, params,
+                                   collect_trace)
     outs = [_scann_search_block(index, store, queries[s:s + B],
-                                bitmaps[s:s + B], params)
+                                bitmaps[s:s + B], params, collect_trace)
             for s in range(0, qn, B)]
-    return (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]),
-            SearchStats.cat([o[2] for o in outs]))
+    out = (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]),
+           SearchStats.cat([o[2] for o in outs]))
+    if collect_trace:
+        out += ({k: torch.cat([o[3][k] for o in outs]) for k in outs[0][3]},)
+    return out
 
 
 def _scann_search_block(index: ScannIndex, store: VectorStore,
                         queries: torch.Tensor, bitmaps: torch.Tensor,
-                        params: SearchParams):
+                        params: SearchParams, collect_trace: bool = False):
     """One query tile through stages ①–④."""
     qn = queries.shape[0]
     L, C, _ = index.leaf_tiles.shape
@@ -348,6 +361,76 @@ def _scann_search_block(index: ScannIndex, store: VectorStore,
         filter_checks=n_valid.to(torch.int32),
         hops=z + nl,
         page_accesses_index=idx_pages.to(torch.int32),
+        page_accesses_heap=(n_reorder * heap_pages_per_vector(store.dim)
+                            ).to(torch.int32),
+        tmap_lookups=z,
+        reorder_rows=n_reorder.to(torch.int32))
+    if collect_trace:
+        return dk, ids.to(torch.int32), stats, {
+            "leaves": leaves.to(torch.int32),
+            "cand_rows": cand_rows.to(torch.int32), "cand_ok": cand_ok}
+    return dk, ids.to(torch.int32), stats
+
+
+def scann_search_batch_vmapped(index: ScannIndex, store: VectorStore,
+                               queries: torch.Tensor, bitmaps: torch.Tensor,
+                               params: SearchParams):
+    """The legacy per-query ScaNN path (the reference's vmap of its
+    single-query search), batch written out.  Each query scores the
+    centroids with `distance` (elementwise product + sum, not the
+    distance_matrix kernel), and its own nl leaves are scanned with the
+    `leaf_scan` kernel, every tile re-read per query.  Counters are per
+    query: nl x pages_per_leaf index pages.  Every metric but "ip" scans
+    the leaves as L2, as the reference does."""
+    qn = queries.shape[0]
+    L, C, _ = index.leaf_tiles.shape
+    nl = min(params.num_leaves_to_search, L)
+    qp = project_query(index, queries)[:, None, :]              # (Q, 1, dp)
+    if index.levels >= 2:
+        B, _ = index.branch_leaves.shape
+        bc = index.branch_centroids
+        bd = distance(index.metric, qp, bc[None], (bc * bc).sum(-1)[None])
+        # open enough branches to cover nl leaves (paper Fig. 5-①)
+        nb = min(B, max(1, -(-nl * 2 * B // L)))
+        _, bsel = topk_smallest(bd, nb)
+        cand = index.branch_leaves[bsel].reshape(qn, -1).to(torch.int64)
+        cl = cand.clamp(min=0)
+        lc = index.leaf_centroids[cl]                           # (Q, m, dp)
+        ld = distance(index.metric, qp, lc, (lc * lc).sum(-1))
+        ld = torch.where(cand >= 0, ld, torch.full_like(ld, INF))
+        _, pos = topk_smallest(ld, nl)
+        leaves = torch.gather(cl, 1, pos)
+        cent_scored = B + cand.shape[1]
+    else:
+        lc = index.leaf_centroids
+        ld = distance(index.metric, qp, lc[None], (lc * lc).sum(-1)[None])
+        _, leaves = topk_smallest(ld, nl)
+        cent_scored = L
+    scores = ops.leaf_scan_ids(qp[:, 0], leaves, index.leaf_tiles,
+                               index.leaf_rowids, index.scale, index.mean,
+                               bitmaps, index.metric)           # (Q, nl, C)
+    rowids = index.leaf_rowids[leaves].to(torch.int64)          # (Q, nl, C)
+    n_valid = (rowids >= 0).sum((1, 2))
+    n_pass = torch.isfinite(scores).sum((1, 2))
+    # candidate selection + full-precision reordering (paper §6.2.2)
+    r = min(params.k * params.reorder_factor, nl * C)
+    flat_s, flat_pos = topk_smallest(scores.reshape(qn, -1), r)
+    cand_rows = torch.gather(rowids.reshape(qn, -1), 1, flat_pos)
+    cand_ok = torch.isfinite(flat_s) & (cand_rows >= 0)
+    safe = cand_rows.clamp(min=0)
+    exact = distance(store.metric, queries[:, None, :], store.vectors[safe],
+                     store.norms_sq[safe])
+    exact = torch.where(cand_ok, exact, torch.full_like(exact, INF))
+    dk, pos = topk_smallest(exact, params.k)
+    ids = torch.where(torch.isinf(dk), torch.full_like(pos, -1),
+                      torch.gather(cand_rows, 1, pos))
+    n_reorder = cand_ok.sum(1)
+    z = torch.zeros((qn,), dtype=torch.int32, device=queries.device)
+    stats = SearchStats(
+        distance_comps=(n_pass + cent_scored + n_reorder).to(torch.int32),
+        filter_checks=n_valid.to(torch.int32),
+        hops=z + nl,
+        page_accesses_index=z + nl * _quant_pages_per_leaf(index),
         page_accesses_heap=(n_reorder * heap_pages_per_vector(store.dim)
                             ).to(torch.int32),
         tmap_lookups=z,

@@ -8,6 +8,8 @@ port's bit-reinterpreted int32 words.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -16,6 +18,8 @@ from repro_torch.core.hnsw import GraphPartition, HNSWGraph, PartitionedGraph
 from repro_torch.core.scann import ScannIndex
 from repro_torch.core.types import (VectorStore, resolve_device,
                                     words_from_uint32)
+from repro_torch.storage import (FaultPlan, GraphAdjacencyLayout,
+                                 HeapLayout, ScannLeafLayout, StorageEngine)
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -103,3 +107,34 @@ def partitioned_graph(pg, device="cuda") -> PartitionedGraph:
         store=vector_store(p.store, dev), graph=hnsw_graph(p.graph, dev))
         for p in pg.partitions)
     return PartitionedGraph(partitions=parts, built_n=int(pg.built_n))
+
+
+def _layout(cls, layout):
+    if layout is None:
+        return None
+    return cls(**{f.name: getattr(layout, f.name)
+                  for f in dataclasses.fields(cls)})
+
+
+def storage_engine(engine) -> StorageEngine:
+    """A reference StorageEngine: its layouts, pool capacity and policy,
+    fault plan, and the resident pages of its pool in the pool's order
+    (with their clock bits and dirty marks), so a warm pool starts both
+    packages from the same state.  The pool's counters start at zero and
+    its fault injector afresh."""
+    faults = None
+    if engine.faults is not None:
+        faults = FaultPlan(**{f.name: getattr(engine.faults, f.name)
+                              for f in dataclasses.fields(FaultPlan)})
+    out = StorageEngine(
+        _layout(HeapLayout, engine.heap),
+        scann=_layout(ScannLeafLayout, engine.scann),
+        graph=_layout(GraphAdjacencyLayout, engine.graph),
+        capacity_pages=int(engine.pool.capacity),
+        policy=engine.pool.policy,
+        qheap=_layout(HeapLayout, engine.qheap), faults=faults,
+        delta=_layout(HeapLayout, engine.delta),
+        wal_pages=int(engine.wal_pages))
+    out.pool.restore(list(engine.pool._pages.items()),
+                     sorted(engine.pool._dirty))
+    return out

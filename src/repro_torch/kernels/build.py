@@ -31,7 +31,9 @@ SIGNATURES = {
                       "frontier_scan_excl_f32": "pppppppppppfiiiiiiip",
                       "frontier_scan_excl_sq8": "pppppppppppppfiiiiiiip"},
     "distance": {"distance_matrix_f32": "pppiiiip"},
-    "leaf_scan": {"leaf_scan_batched_f32": "ppppppppiiiiiip"},
+    "leaf_scan": {"leaf_scan_batched_f32": "ppppppppiiiiiip",
+                  "leaf_scan_f32": "ppppppppiiiiiiiip"},
+    "topk": {"topk_chunk_f32": "ppppiiip"},
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -39,7 +41,7 @@ _LOADED: dict[str, ctypes.CDLL] = {}
 # right after its kernel launched, and nothing else touches the counts.
 LAUNCHES = {"frontier_scan": 0, "distance_matrix": 0, "leaf_scan_batched": 0,
             "frontier_scan_sq8": 0, "frontier_scan_excl": 0,
-            "frontier_scan_excl_sq8": 0}
+            "frontier_scan_excl_sq8": 0, "leaf_scan": 0, "topk": 0}
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 

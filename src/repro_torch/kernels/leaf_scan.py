@@ -1,14 +1,56 @@
-"""The batched ScaNN leaf-scan CUDA kernel (csrc/leaf_scan.cu) and its plain
-version: each opened int8 leaf tile is read once per query tile,
-dequantized in the kernel, scored against the whole query block and
-filtered by each query's bitmap."""
+"""The ScaNN leaf-scan CUDA kernels (csrc/leaf_scan.cu) and their plain
+versions.  `leaf_scan_batched`: each opened int8 leaf tile is read once per
+query tile, dequantized in the kernel, scored against the whole query block
+and filtered by each query's bitmap.  `leaf_scan`: the legacy per-query
+scan, every query against its own opened leaves, read by leaf id from the
+index's tile table."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (  # noqa: F401
-    leaf_scan_batched_ref as plain)
+    leaf_scan_batched_ref as plain, leaf_scan_ids_ref as plain_per_query)
+
+
+def leaf_scan_cuda(queries: torch.Tensor, leaf_ids: torch.Tensor,
+                   tiles: torch.Tensor, rowids: torch.Tensor,
+                   scale: torch.Tensor, mean: torch.Tensor,
+                   bitmaps: torch.Tensor, metric: str = "l2") -> torch.Tensor:
+    """queries (Q, d) f32, leaf_ids (Q, nl) int32 into tiles (L, C, d) int8
+    and rowids (L, C) int32, scale/mean (d,) f32, bitmaps (Q, W) int32, all
+    contiguous on one CUDA device -> (Q, nl, C) f32 scores, +inf where a
+    row is padded or filtered out.  "ip" scores the negated inner product,
+    every other metric L2."""
+    qn, d = queries.shape
+    nl = leaf_ids.shape[1]
+    n_leaves, c, _ = tiles.shape
+    w = bitmaps.shape[1]
+    build.require(queries, torch.float32, (qn, d), "queries")
+    build.require(leaf_ids, torch.int32, (qn, nl), "leaf_ids")
+    build.require(tiles, torch.int8, (n_leaves, c, d), "tiles")
+    build.require(rowids, torch.int32, (n_leaves, c), "rowids")
+    build.require(scale, torch.float32, (d,), "scale")
+    build.require(mean, torch.float32, (d,), "mean")
+    build.require(bitmaps, torch.int32, (qn, w), "bitmaps")
+    dev = queries.device
+    for t in (leaf_ids, tiles, rowids, scale, mean, bitmaps):
+        if t.device != dev:
+            raise ValueError("leaf_scan: tensors on different devices")
+    if qn > 65535:
+        raise ValueError(f"leaf_scan kernel: Q={qn} too large for one launch")
+    out = torch.empty((qn, nl, c), dtype=torch.float32, device=dev)
+    # char4 loads need 4-byte aligned rows
+    vec4 = int(d % 4 == 0 and tiles.data_ptr() % 4 == 0)
+    lib = build.load("leaf_scan")
+    status = lib.leaf_scan_f32(
+        queries.data_ptr(), leaf_ids.data_ptr(), tiles.data_ptr(),
+        rowids.data_ptr(), scale.data_ptr(), mean.data_ptr(),
+        bitmaps.data_ptr(), out.data_ptr(), qn, nl, n_leaves, c, d, w,
+        1 if metric == "ip" else 0, vec4,
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(status, "leaf_scan")
+    return out
 
 
 def leaf_scan_batched_cuda(queries: torch.Tensor, tiles: torch.Tensor,

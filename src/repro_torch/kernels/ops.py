@@ -15,7 +15,9 @@ from repro_torch.kernels.frontier_scan import (frontier_scan_cuda,
                                                frontier_scan_excl_cuda,
                                                frontier_scan_excl_sq8_cuda,
                                                frontier_scan_sq8_cuda)
-from repro_torch.kernels.leaf_scan import leaf_scan_batched_cuda
+from repro_torch.kernels.leaf_scan import (leaf_scan_batched_cuda,
+                                           leaf_scan_cuda)
+from repro_torch.kernels.topk import topk_cuda
 
 KERNELS = tuple(build.LAUNCHES)
 
@@ -57,6 +59,47 @@ def leaf_scan_batched(queries, tiles, rowids, scale, mean, bitmaps,
             row_norms_sq.contiguous(), metric)
     return ref.leaf_scan_batched_ref(queries, tiles, rowids, scale, mean,
                                      bitmaps, row_norms_sq, metric)
+
+
+def leaf_scan(query, tiles, rowids, scale, mean, bitmap,
+              metric: str = "l2") -> torch.Tensor:
+    """One query's (nl, C) filtered scores against its nl opened int8 leaf
+    tiles (the reference's single-query signature): query (d,), tiles
+    (nl, C, d), rowids (nl, C), bitmap (W,)."""
+    if _on_cuda(query, "leaf_scan"):
+        ids = torch.arange(tiles.shape[0], dtype=torch.int32,
+                           device=query.device)[None]
+        return leaf_scan_cuda(query[None].contiguous(), ids,
+                              tiles.contiguous(), _i32(rowids),
+                              scale.contiguous(), mean.contiguous(),
+                              bitmap[None].contiguous(), metric)[0]
+    return ref.leaf_scan_ref(query, tiles, rowids, scale, mean, bitmap,
+                             metric)
+
+
+def leaf_scan_ids(queries, leaf_ids, tiles, rowids, scale, mean, bitmaps,
+                  metric: str = "l2") -> torch.Tensor:
+    """`leaf_scan` for a batch in one launch: query q against the leaves
+    leaf_ids[q] (Q, nl) of the (L, C, d) tile and (L, C) rowid tables ->
+    (Q, nl, C)."""
+    if _on_cuda(queries, "leaf_scan"):
+        return leaf_scan_cuda(queries.contiguous(), _i32(leaf_ids),
+                              tiles.contiguous(), _i32(rowids),
+                              scale.contiguous(), mean.contiguous(),
+                              bitmaps.contiguous(), metric)
+    return ref.leaf_scan_ids_ref(queries, leaf_ids, tiles, rowids, scale,
+                                 mean, bitmaps, metric)
+
+
+def topk_smallest(values: torch.Tensor, k: int
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest of a 1-D array: (values (k,), indices (k,) int32),
+    ascending, ties to the lowest index, index -1 at +inf and past n.  The
+    search engines use `core.types.topk_smallest`; this is the reference's
+    `kernels.ops.topk_smallest`."""
+    if _on_cuda(values, "topk"):
+        return topk_cuda(values.to(torch.float32).contiguous(), k)
+    return ref.topk_partial_ref(values, k)
 
 
 def frontier_scan(queries, rows, norms, ids, bitmaps, metric: str = "l2"

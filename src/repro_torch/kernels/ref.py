@@ -2,15 +2,18 @@
 
 They are the CPU path of `ops` and the yardstick `chip_smoke.py` holds each
 CUDA kernel against on the card.  Their arithmetic follows the reference's
-jnp oracles: the distance matrix and the leaf scan contract with a matrix
+jnp oracles: the distance matrix and the leaf scans contract with a matrix
 product, the frontier scan with an elementwise product and a last-axis sum
-(the search engines' `distance`).
+(the search engines' `distance`); the top-k is a stable sort.
 """
 from __future__ import annotations
 
 import torch
 
 INF = float("inf")
+
+# queries `leaf_scan_ids_ref` gathers at a time: a (16, nl, C, d) f32 block
+LEAF_QUERY_BLOCK = 16
 
 
 def probe_batch(bitmaps: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -65,6 +68,70 @@ def leaf_scan_batched_ref(queries: torch.Tensor, tiles: torch.Tensor,
     ok = probe_batch(bitmaps, rowids.reshape(1, -1).expand(
         queries.shape[0], u * c)).reshape(-1, u, c)
     return torch.where(ok, d, torch.full_like(d, INF))
+
+
+def leaf_scan_ref(query: torch.Tensor, tiles: torch.Tensor,
+                  rowids: torch.Tensor, scale: torch.Tensor,
+                  mean: torch.Tensor, bitmap: torch.Tensor,
+                  metric: str = "l2") -> torch.Tensor:
+    """One query's filtered leaf scoring: query (d,) f32, tiles (nl, C, d)
+    int8, rowids (nl, C) int32 (-1 padded), scale/mean (d,) f32, bitmap
+    (W,) int32 -> (nl, C) f32, +inf where a row is padded or filtered out.
+    ||x||^2 is summed from the dequantized rows.  Every metric other than
+    "ip" scores as L2, as the reference's kernel and oracle do."""
+    x = dequantize(tiles, scale, mean)                      # (nl, C, d)
+    ip = torch.einsum("lcd,d->lc", x, query)
+    if metric == "ip":
+        d = -ip
+    else:
+        d = (query * query).sum() + (x * x).sum(-1) - 2.0 * ip
+    ok = probe_bitmap_ref(bitmap, rowids)
+    return torch.where(ok, d, torch.full_like(d, INF))
+
+
+def leaf_scan_ids_ref(queries: torch.Tensor, leaf_ids: torch.Tensor,
+                      tiles: torch.Tensor, rowids: torch.Tensor,
+                      scale: torch.Tensor, mean: torch.Tensor,
+                      bitmaps: torch.Tensor, metric: str = "l2"
+                      ) -> torch.Tensor:
+    """`leaf_scan_ref` for a batch, each query against its own leaves:
+    queries (Q, d), leaf_ids (Q, nl) into the (L, C, d) tiles and (L, C)
+    rowids, bitmaps (Q, W) -> (Q, nl, C).  LEAF_QUERY_BLOCK queries at a
+    time, so the gathered rows stay small."""
+    qn, nl = leaf_ids.shape
+    block = LEAF_QUERY_BLOCK
+    out = torch.empty((qn, nl, tiles.shape[1]), dtype=torch.float32,
+                      device=queries.device)
+    for s in range(0, qn, block):
+        lid = leaf_ids[s:s + block].to(torch.int64)
+        q = queries[s:s + block]
+        x = dequantize(tiles[lid], scale, mean)             # (b, nl, C, d)
+        ip = torch.einsum("blcd,bd->blc", x, q)
+        if metric == "ip":
+            d = -ip
+        else:
+            d = (q * q).sum(-1)[:, None, None] + (x * x).sum(-1) - 2.0 * ip
+        ok = probe_batch(bitmaps[s:s + block], rowids[lid])
+        out[s:s + block] = torch.where(ok, d, torch.full_like(d, INF))
+    return out
+
+
+def topk_partial_ref(values: torch.Tensor, k: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest of a 1-D array, ascending, ties to the lowest index
+    (a stable sort): (values (k,), indices (k,) int32).  +inf entries and
+    the slots past n report index -1."""
+    n = values.shape[0]
+    kk = min(k, n)
+    vals, idx = torch.sort(values.to(torch.float32), stable=True)
+    vals, idx = vals[:kk], idx[:kk].to(torch.int32)
+    idx = torch.where(vals == INF, torch.full_like(idx, -1), idx)
+    if kk < k:
+        vals = torch.cat([vals, torch.full((k - kk,), INF,
+                                           device=values.device)])
+        idx = torch.cat([idx, torch.full((k - kk,), -1, dtype=torch.int32,
+                                         device=values.device)])
+    return vals, idx
 
 
 def frontier_scan_chunk_ref(queries: torch.Tensor, vecs: torch.Tensor,

@@ -175,3 +175,79 @@ def test_slice_two_search_on_card_matches_cpu(cuda):
             x = getattr(a.stats, f.name).cpu().double().mean()
             y = getattr(b.stats, f.name).double().mean()
             assert abs(x - y) <= 0.01 * max(abs(float(y)), 1.0), (m, f.name)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip", "cos"])
+@pytest.mark.parametrize("d", [128, 37])
+def test_leaf_scan_kernel_matches_plain_version(cuda, metric, d):
+    """Ragged sizes: d not a multiple of 4 (no char4 loads), C not a
+    multiple of 32, leaves repeated across queries."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(9, d, device=cuda, generator=g)
+    tiles = torch.randint(-127, 128, (11, 45, d), device=cuda, generator=g,
+                          dtype=torch.int8)
+    rowids = torch.randint(-1, 5000, (11, 45), device=cuda, generator=g,
+                           dtype=torch.int32)
+    scale = torch.rand(d, device=cuda, generator=g) * 0.02 + 1e-3
+    mean = torch.randn(d, device=cuda, generator=g) * 0.1
+    bm = torch.randint(-2 ** 31, 2 ** 31 - 1, (9, 157), device=cuda,
+                       generator=g, dtype=torch.int32)
+    leaf_ids = torch.randint(0, 11, (9, 6), device=cuda, generator=g,
+                             dtype=torch.int32)
+    ops.reset_launches()
+    got = ops.leaf_scan_ids(q, leaf_ids, tiles, rowids, scale, mean, bm,
+                            metric)
+    assert ops.launches()["leaf_scan"] == 1
+    _close(got, ref.leaf_scan_ids_ref(q, leaf_ids, tiles, rowids, scale,
+                                      mean, bm, metric))
+    one = ops.leaf_scan(q[0], tiles[:3], rowids[:3], scale, mean, bm[0],
+                        metric)
+    _close(one, ref.leaf_scan_ref(q[0], tiles[:3], rowids[:3], scale, mean,
+                                  bm[0], metric))
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (7, 12), (1000, 10), (1025, 40),
+                                 (3001, 40), (56_640, 40), (1_000_000, 10),
+                                 (5000, 1500)])
+def test_topk_kernel_matches_plain_version(cuda, n, k):
+    """n not a multiple of 1,024, k > n, k above the first pass's chunk,
+    runs of ties and +-inf: values and indices exact."""
+    g = torch.Generator(device=cuda).manual_seed(n + k)
+    v = torch.randn(n, device=cuda, generator=g)
+    v[::7] = float("inf")
+    v[3 % n::11] = -float("inf")
+    v[10:60] = 0.25
+    ops.reset_launches()
+    gv, gi = ops.topk_smallest(v, k)
+    assert ops.launches()["topk"] >= 1
+    wv, wi = ref.topk_partial_ref(v, k)
+    assert torch.equal(gv, wv) and torch.equal(gi, wi)
+
+
+def test_legacy_engines_on_card_match_cpu(cuda):
+    from repro_torch.data import DatasetSpec, make_dataset
+    store, q = make_dataset(DatasetSpec("g3", 3000, 64, "l2", clusters=16),
+                            num_queries=16, device=cuda)
+    store = T.quantize_store(store)
+    graph = T.build_graph(store, m=8, ef_construction=32, device=cuda)
+    scann = T.build_scann(store, num_leaves=40, device=cuda)
+    bm = T.generate_bitmaps(store, q, T.WorkloadSpec(0.1, "med_pos"),
+                            device=cuda)
+    cpu = [T.to_device(o, "cpu") for o in (store, graph, scann)]
+    p = T.SearchParams(k=10, ef_search=32, beam_width=64,
+                       num_leaves_to_search=8, graph_exec_mode="vmapped")
+    for m in ("sweeping", "acorn", "navix_sq8", "iterative_scan",
+              "scann_vmapped"):
+        ops.reset_launches()
+        a = T.make_executor(m, store, graph=graph, index=scann,
+                            device=cuda).search(q, bm, p)
+        if m == "scann_vmapped":
+            assert ops.launches()["leaf_scan"] == 1
+        b = T.make_executor(m, cpu[0], graph=cpu[1], index=cpu[2],
+                            device="cpu").search(q.cpu(), bm.cpu(), p)
+        overlap = (a.ids.cpu()[:, :, None] == b.ids[:, None, :]).any(-1)
+        assert overlap.float().mean() >= 0.99, m
+        for f in dataclasses.fields(T.SearchStats):
+            x = getattr(a.stats, f.name).cpu().double().mean()
+            y = getattr(b.stats, f.name).double().mean()
+            assert abs(x - y) <= 0.01 * max(abs(float(y)), 1.0), (m, f.name)

@@ -3,11 +3,12 @@ reference's on the same data, index and bitmaps, the cost model on their
 counters, and the port's own quickstart (tensors on the CPU)."""
 import numpy as np
 import pytest
+import torch
 
 import repro.core as R
 import repro_torch.core as T
 from repro_torch import quickstart
-from torch_parity import FIXTURES, check, run_both, torch_params
+from torch_parity import FIXTURES, check, run_both, tiers, torch_params
 
 METHODS = ("sweeping", "acorn", "navix", "iterative_scan", "scann",
            "bruteforce")
@@ -77,21 +78,32 @@ def test_bruteforce_budgeted_scan_matches_reference():
                                   jres.anytime.budget_exhausted)
 
 
-_UNPORTED_ITEM = {"scann_vmapped": "ROADMAP 1.8", "delta": "ROADMAP 1.11"}
+_UNPORTED_ITEM = {"delta": "ROADMAP 1.11"}
 
 
 @pytest.mark.parametrize("method", ["adaptive", "sweeping_sq8", "acorn_sq8",
                                     "sweeping_excl", "partitioned",
                                     "scann_vmapped", "delta"])
 def test_methods_of_later_slices_name_their_roadmap_item(method):
-    # unported methods name their item; the ported ones still refuse
-    # storage= (the buffer pool, ROADMAP 1.7)
-    fx = FIXTURES["exact"]()
+    # an unported method names its item; the ported ones (scann_vmapped
+    # since the legacy engines, ROADMAP 1.8) take a storage engine
+    # (ROADMAP 1.7), all but scann_vmapped, which has no trace
+    from repro_torch.storage import make_storage_engine
+    fx = tiers("exact")
     item = _UNPORTED_ITEM.get(method)
-    kw = {} if item else {"storage": object()}
-    with pytest.raises(NotImplementedError, match=item or "ROADMAP 1.7"):
-        T.make_executor(method, fx["store"], graph=fx["graph"],
-                        index=fx["scann"], device="cpu", **kw)
+    engine = make_storage_engine(fx["store"], fx["scann"], fx["graph"])
+    kw = dict(graph=fx["graph"], index=fx["scann"], exclusion=fx["excl"],
+              partitions=fx["parts"], device="cpu")
+    if item:
+        with pytest.raises(NotImplementedError, match=item):
+            T.make_executor(method, fx["store"], storage=engine, **kw)
+    elif method == "scann_vmapped":
+        with pytest.raises(ValueError, match="batched"):
+            T.make_executor(method, fx["store"], storage=engine, **kw)
+        assert T.make_executor(method, fx["store"], **kw).name == method
+    else:
+        ex = T.make_executor(method, fx["store"], storage=engine, **kw)
+        assert ex.name == method and ex.storage is engine
     with pytest.raises(ValueError, match="unknown method"):
         T.make_executor("nonsense", fx["store"], device="cpu")
 
@@ -111,9 +123,16 @@ def test_unported_knobs_raise():
     fx = FIXTURES["exact"]()
     ex = T.make_executor("sweeping", fx["store"], graph=fx["graph"],
                          device="cpu")
+    # the legacy engine (ROADMAP 1.8) runs, bit-equal to the frontier one
     p = torch_params(dataclasses.replace(P, graph_exec_mode="vmapped"))
-    with pytest.raises(NotImplementedError, match="1.8"):
-        ex.search(fx["q"], fx["bitmaps"]["med_pos_0.1"], p)
+    legacy = ex.search(fx["q"], fx["bitmaps"]["med_pos_0.1"], p)
+    front = ex.search(fx["q"], fx["bitmaps"]["med_pos_0.1"],
+                      torch_params(P))
+    assert torch.equal(legacy.ids, front.ids)
+    assert torch.equal(legacy.dists, front.dists)
+    with pytest.raises(ValueError, match="graph_exec_mode"):
+        ex.search(fx["q"], fx["bitmaps"]["med_pos_0.1"],
+                  dataclasses.replace(p, graph_exec_mode="nonsense"))
     # the tier knobs of slice 2 are the executor's to set: a plain
     # sweeping executor resolves them away, as the reference's does
     for knobs in (dict(graph_quant="sq8"), dict(exclusion="prune")):

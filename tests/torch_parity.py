@@ -149,11 +149,14 @@ def tiers(kind: str) -> dict:
 
 
 def run_both(fx: dict, method: str, params: "R.SearchParams",
-             workload: str = "med_pos_0.1", **kw):
+             workload: str = "med_pos_0.1", storage=None, **kw):
     """The method on both sides on the same data; `kw` may name
-    planner_candidates.  Exclusion and partitions ride along when the
-    fixture has them."""
+    planner_candidates, `storage` a (reference, port) pair of storage
+    engines.  Exclusion and partitions ride along when the fixture has
+    them."""
     jkw, tkw = dict(kw), dict(kw)
+    if storage is not None:
+        jkw["storage"], tkw["storage"] = storage
     if "jexcl" in fx:
         jkw.update(exclusion=fx["jexcl"], partitions=fx["jparts"])
         tkw.update(exclusion=fx["excl"], partitions=fx["parts"])
