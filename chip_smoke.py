@@ -4,6 +4,7 @@ check it, end to end.
 
     python3 chip_smoke.py                 # the full run, one card
     python3 chip_smoke.py --n 100000 --queries 200 --phases main,kernels
+    python3 chip_smoke.py --phases lm --lm-frames 2048   # model serving
 
 Phases:
   device    the card's name and power limit; the kernels' build time
@@ -13,7 +14,8 @@ Phases:
             tensors (the kernels): recall@10 within 0.01, the mean of each of
             the seven Table-6 counters within 1 %, the same planner choice;
             the legacy engines too, and with a storage engine attached on
-            each side, equal StorageStats
+            each side, equal StorageStats; the ScaNN index is built twice
+            on the card and must be the same bytes
   main      the main path at full size: a SIFT1M-shaped store (1M x 128,
             1,000 queries), build_graph_blocked and build_scann on the card,
             two workloads, the quickstart's six methods; then the second
@@ -31,7 +33,17 @@ Phases:
             path's shapes, with its device time (torch.profiler), the plain
             version's, one PyTorch library call's, the least time the card
             could take, and the time per call with the host's work (CUDA
-            events around back-to-back calls)
+            events around back-to-back calls); flash_attention at the
+            encoder's shape, (2, 8192, 16, 80) bf16, with SDPA as the
+            library call, and a causal and a GQA case
+  lm        model serving at full width, after the search path's data is
+            freed: smoke-size models on the CPU and the card (the hubert
+            prefill through the kernel, granite-8b and gemma3-12b greedy
+            tokens); hubert-xlarge's prefill of 2 x 8,192 frames with every
+            layer through the flash kernel (48 launches a prefill, held
+            against the jnp-path prefill); granite-8b's ServeEngine, 4
+            prompts x 128 tokens + 32 greedy (no flash launch).  The
+            kernel's launches on this path fill its `kernels` row
   profile   (only when named in --phases) one search per method under
             torch.profiler: the device's busy share and its top kernels
 
@@ -53,9 +65,11 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and FP32 (non-tensor)
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bandwidth, FP32 outside
+# the tensor cores, and bf16 on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
 
 METHODS = ("sweeping", "acorn", "navix", "iterative_scan", "scann",
            "bruteforce")
@@ -163,10 +177,12 @@ def device_ms(fn, iters: int = 40, warmup: int = 3) -> float:
     return total_us / iters / 1e3
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    """Least time (ms) on an H100 SXM for this work, and what sets it."""
+def bound(nbytes: float, flops: float, peak_ops: float = PEAK_FP32_PER_S
+          ) -> tuple[float, str]:
+    """Least time (ms) on an H100 SXM for this work, and what sets it:
+    `peak_ops` is the card's peak rate for the inputs' type."""
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    tf = flops / PEAK_FP32_PER_S * 1e3
+    tf = flops / peak_ops * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -207,6 +223,16 @@ def phase_parity(n: int, nq: int, report: dict, dev="cuda") -> None:
                                 device=dev)
     scann = build_scann(store, num_leaves=round(2 * math.sqrt(n)), levels=2,
                         seed=0, device=dev)
+    # the card's k-means is deterministic: a second build is the same index
+    again = build_scann(store, num_leaves=round(2 * math.sqrt(n)), levels=2,
+                        seed=0, device=dev)
+    same = {f: bool(torch.equal(getattr(scann, f), getattr(again, f)))
+            for f in ("leaf_rowids", "leaf_centroids", "leaf_tiles",
+                      "branch_centroids", "branch_leaves")}
+    print(f"   scann built twice on the {dev}: byte-identical {same}",
+          flush=True)
+    check(all(same.values()), f"parity: two ScaNN builds differ: {same}")
+    del again
     bitmaps = generate_bitmaps(store, queries, WorkloadSpec(0.10, "med_pos"),
                                seed=2, device=dev)
     # the second slice's artifacts, built once on the card and copied
@@ -250,7 +276,7 @@ def phase_parity(n: int, nq: int, report: dict, dev="cuda") -> None:
         "scann", "adaptive")] + [
         ("scann[storage,per_query]", "scann", "A", None, pq, True),
         ("partitioned[storage]", "partitioned", "F", None, p, True)]
-    rows = {}
+    rows = {"scann_rebuild_identical": same}
     for label, method, wl, menu, pp, with_storage in cases:
         bm_card, truth = workloads[wl]
         kw = {} if menu is None else {"planner_candidates": menu}
@@ -972,14 +998,18 @@ def phase_kernels(ctx: dict, report: dict) -> list[dict]:
                 "call_ms": call_ms, "shape": f"Q={nq_b} U={u} C={c} d={d}"})
     out += slice3_kernel_rows(ctx)
     for k in out:
-        print(f"   {k['name']:22s} {k['shape']:28s} kernel {k['ms']:.4f} ms"
-              f" plain {k['plain_ms']:.4f} ms library {k['library_ms']:.4f}"
-              f" ms bound {k['bound_ms']:.4f} ms ({k['bound_by']}) | "
-              f"per call with the host's work {k['call_ms']:.4f} ms | "
-              f"max|err| {k['max_abs_err']:.3g} launches {k['launches']}",
-              flush=True)
+        print_kernel_row(k)
     report["kernels"] = out
     return out
+
+
+def print_kernel_row(k: dict) -> None:
+    print(f"   {k['name']:22s} {k['shape']:28s} kernel {k['ms']:.4f} ms"
+          f" plain {k['plain_ms']:.4f} ms library {k['library_ms']:.4f}"
+          f" ms bound {k['bound_ms']:.4f} ms ({k['bound_by']}) | "
+          f"per call with the host's work {k['call_ms']:.4f} ms | "
+          f"max|err| {k['max_abs_err']:.3g} launches {k['launches']}",
+          flush=True)
 
 
 def slice3_kernel_rows(ctx: dict) -> list[dict]:
@@ -1240,12 +1270,453 @@ def phase_profile(ctx: dict, report: dict) -> None:
     report["profile"] = rows
 
 
+# ---------------------------------------------------------------------------
+# lm: model serving (the encoder prefill through the flash kernel, the
+# dense decoder's ServeEngine), at full width
+# ---------------------------------------------------------------------------
+
+# relative L2 error allowed between two bf16 paths over the same weights:
+# bf16 keeps 8 significant bits (2^-9 = 0.2 % per rounding), the paths
+# round at other points (or, kernel against plain version, round a few
+# outputs one ulp apart), and 36-48 layers of random weights carry each
+# difference on and grow it.  Set between the encoder's readings (0.032
+# against the plain version, 0.034 against the jnp path) and two broken
+# kernels' (0.47 with the output zeroed, 1.35 with the scale dropped),
+# PERF.md section 6
+LM_REL_TOL = 0.05
+# the smoke-size models compute in f32: card vs CPU within a few ulp
+LM_SMOKE_TOL = 1e-4
+
+
+def _rel(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def _free_cuda(dev="cuda"):
+    import gc
+
+    import torch
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
+def lm_smoke_parity(out: dict, dev="cuda") -> None:
+    """Smoke-size models, f32, with the same weights on the CPU (plain
+    versions) and on the card (the kernel): the hubert prefill through the
+    flash kernel within LM_SMOKE_TOL; granite-8b's and gemma3-12b's greedy
+    serving tokens equal."""
+    import numpy as np
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, params_to
+    from repro_torch.serving import ServeEngine
+
+    cfg = dataclasses.replace(C.smoke_config("hubert-xlarge"),
+                              pallas_flash=True)
+    bundle = build_model(cfg)
+    params = bundle.init(0, "cpu")
+    frames = torch.as_tensor(np.random.RandomState(0).randn(
+        2, 300, cfg.d_model).astype(np.float32))
+    with torch.inference_mode():
+        want = bundle.prefill(params, {"frames": frames})
+        ops.reset_launches()
+        got = bundle.prefill(params_to(params, dev),
+                             {"frames": frames.to(dev)})
+        sync(dev)
+    launches = ops.launches()["flash_attention"]
+    err = float((got.cpu() - want).abs().max())
+    check(launches == (cfg.n_layers if dev == "cuda" else 0),
+          f"lm smoke: {launches} flash launches, {cfg.n_layers} layers")
+    check(bool(torch.allclose(got.cpu(), want, rtol=LM_SMOKE_TOL,
+                              atol=LM_SMOKE_TOL)),
+          f"lm smoke: hubert prefill card vs CPU max |err| {err}")
+    out["smoke_hubert"] = {"max_abs_err": err, "launches": launches}
+    print(f"   smoke hubert prefill (2 x 300 frames, f32): card vs CPU max "
+          f"|err| {err:.3g}, {launches} flash launches", flush=True)
+    for arch in ("granite-8b", "gemma3-12b"):
+        cfg = C.smoke_config(arch)
+        if arch == "gemma3-12b":       # two 5:1 groups
+            cfg = dataclasses.replace(cfg, n_layers=12)
+        bundle = build_model(cfg)
+        params = bundle.init(0, "cpu")
+        prompts = np.random.RandomState(1).randint(0, cfg.vocab, (4, 24))
+        toks = {dev: ServeEngine(bundle, p, 24 + 16, 4, device=dev)
+                .generate(prompts, 16)
+                for dev, p in (("cpu", params),
+                               (dev, params_to(params, dev)))}
+        same = bool((toks["cpu"] == toks[dev]).all())
+        out[f"smoke_{arch}_tokens_equal"] = same
+        print(f"   smoke {arch} greedy tokens (4 x 24 + 16) card == CPU: "
+              f"{same}", flush=True)
+        check(same, f"lm smoke: {arch} greedy tokens differ card vs CPU")
+
+
+@contextlib.contextmanager
+def _attention(fn):
+    """Send the encoder's fused attention (`ops.flash_attention_fused`) to
+    `fn` inside the block."""
+    from repro_torch.kernels import ops
+    saved = ops.flash_attention_fused
+    ops.flash_attention_fused = fn
+    try:
+        yield
+    finally:
+        ops.flash_attention_fused = saved
+
+
+def _unscaled(q, k, v, causal=True):
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q = (q * math.sqrt(q.shape[-1])).contiguous()
+    if q.is_cuda:
+        return flash_attention_cuda(q, k.contiguous(), v.contiguous(), causal)
+    return ref.flash_attention_ref(q, k, v, causal)
+
+
+# kernels broken on purpose: the output zeroed, the 1/sqrt(hd) scale dropped
+_ATTENTION_CONTROLS = {
+    "zeroed": lambda q, k, v, causal=True: q.new_zeros(q.shape),
+    "unscaled": _unscaled}
+
+
+def encoder_serving(out: dict, frames: int, batch: int, dev="cuda") -> int:
+    """hubert-xlarge's prefill at full width, every layer through the flash
+    kernel, twice; then under torch.profiler for the kernel's share of the
+    device time; then the blocked jnp-path prefill on the same weights, and
+    the same prefill with the kernel's plain version, and with each of two
+    broken kernels, in its place.  Returns the flash launches of the two
+    prefills."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs as C
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(C.get_config("hubert-xlarge"),
+                              pallas_flash=True)
+    bundle = build_model(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(0, dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(int(t.numel()) for t in _leaves(params))
+    x = torch.as_tensor(np.random.RandomState(0).randn(
+        batch, frames, cfg.d_model).astype(np.float32), device=dev)
+    on_card = dev == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    walls = []
+    with torch.inference_mode():
+        ops.reset_launches()
+        for i in range(2):
+            t0 = time.perf_counter()
+            y = bundle.prefill(params, {"frames": x})
+            sync(dev)
+            walls.append(time.perf_counter() - t0)
+            got = ops.launches()["flash_attention"]
+            check(got == (i + 1) * cfg.n_layers * on_card,
+                  f"encoder prefill {i}: {got} flash launches in all, "
+                  f"{cfg.n_layers} a prefill expected")
+        launches = ops.launches()
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        check(tuple(y.shape) == (batch, frames, cfg.d_model),
+              f"encoder output shape {tuple(y.shape)}")
+        check(bool(torch.isfinite(y).all()), "encoder output not finite")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            bundle.prefill(params, {"frames": x})
+            sync(dev)
+        per_name = device_us_by_name(prof)
+        dev_us = max(sum(per_name.values()), 1e-9)
+        flash_us = sum(v for k, v in per_name.items()
+                       if "flash_attention_kernel" in k)
+        plain = build_model(dataclasses.replace(cfg, pallas_flash=False))
+        t0 = time.perf_counter()
+        yp = plain.prefill(params, {"frames": x})
+        sync(dev)
+        plain_s = time.perf_counter() - t0
+        # the same prefill with the kernel's plain version in its place,
+        # and two broken kernels as controls of the comparison
+        with _attention(lambda q, k, v, causal=True:
+                        ref.flash_attention_ref(q, k, v, causal)):
+            yref = bundle.prefill(params, {"frames": x})
+        controls = {}
+        for name, fn in _ATTENTION_CONTROLS.items():
+            with _attention(fn):
+                controls[name] = bundle.prefill(params, {"frames": x})
+        sync(dev)
+    rel_ref = _rel(y, yref)
+    ctl_ref = {k: _rel(c, yref) for k, c in controls.items()}
+    ctl_jnp = {k: _rel(c, yp) for k, c in controls.items()}
+    rel = _rel(y, yp)
+    maxerr = float((y.float() - yp.float()).abs().max())
+    print(f"   encoder vs the same prefill through the plain version: "
+          f"relative error {rel_ref:.4f}, vs the jnp path {rel:.4f} "
+          f"(tolerance {LM_REL_TOL}); broken kernels: "
+          + ", ".join(f"{k} {ctl_ref[k]:.4f} and {ctl_jnp[k]:.4f}"
+                      for k in ctl_ref), flush=True)
+    check(rel_ref <= LM_REL_TOL, f"encoder prefill: kernel vs plain "
+          f"version relative error {rel_ref} > {LM_REL_TOL}")
+    check(rel <= LM_REL_TOL, f"encoder prefill: kernel path vs jnp path "
+          f"relative error {rel} > {LM_REL_TOL}")
+    check(min(*ctl_ref.values(), *ctl_jnp.values()) > LM_REL_TOL,
+          f"encoder prefill: a broken kernel passes a comparison: "
+          f"{ctl_ref}, {ctl_jnp}")
+    out["encoder"] = {
+        "config": "hubert-xlarge, pallas_flash=True", "params": n_params,
+        "batch": batch, "frames": frames, "init_s": init_s,
+        "prefill_s": walls, "frames_per_s": batch * frames / walls[-1],
+        "peak_bytes": peak, "device_ms": dev_us / 1e3,
+        "flash_device_ms": flash_us / 1e3, "flash_share": flash_us / dev_us,
+        "top": sorted(((k[:80], v / 1e3) for k, v in per_name.items()),
+                      key=lambda kv: -kv[1])[:6],
+        "plain_path_s": plain_s, "rel_err_vs_plain_path": rel,
+        "max_abs_err_vs_plain_path": maxerr,
+        "rel_err_vs_plain_kernel": rel_ref,
+        "controls_rel_err_vs_plain_kernel": ctl_ref,
+        "controls_rel_err_vs_plain_path": ctl_jnp, "launches": launches}
+    print(f"   encoder hubert-xlarge ({n_params / 1e9:.3f} B params, f32 "
+          f"weights, bf16 compute): {batch} x {frames} frames, prefill "
+          f"{walls[0]:.3f} s then {walls[1]:.3f} s = "
+          f"{batch * frames / walls[-1]:.0f} frames/s; peak "
+          f"{peak / 2**30:.2f} GiB; device {dev_us / 1e3:.1f} ms of which "
+          f"flash_attention {flash_us / 1e3:.1f} ms "
+          f"({flash_us / dev_us:.3f}); {launches['flash_attention']} flash "
+          f"launches in 2 prefills", flush=True)
+    print(f"   encoder jnp-path prefill {plain_s:.3f} s, max |err| against "
+          f"it {maxerr:.4g}", flush=True)
+    return launches["flash_attention"]
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def decoder_serving(out: dict, batch: int = 4, prompt_len: int = 128,
+                    new: int = 32, dev="cuda") -> None:
+    """granite-8b's ServeEngine at full width: greedy generation of `new`
+    tokens for `batch` prompts of `prompt_len`, the prefill and each decode
+    step timed to a synchronize.  The flash kernel must not run."""
+    import numpy as np
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+
+    cfg = C.get_config("granite-8b")
+    bundle = build_model(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(0, dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(int(t.numel()) for t in _leaves(params))
+    spent = {"prefill": [], "decode": []}
+    # the prefill's logits and the decode replay's at the last prompt
+    # position (decode call prompt_len): two paths' views of one position
+    kept = {}
+
+    def timed(kind, fn):
+        def run(*a):
+            sync(dev)
+            t0 = time.perf_counter()
+            r = fn(*a)
+            sync(dev)
+            spent[kind].append(time.perf_counter() - t0)
+            if kind == "prefill":
+                kept["prefill"] = r
+            elif len(spent[kind]) == prompt_len:
+                kept["replay"] = r[0]
+            return r
+        return run
+
+    tb = dataclasses.replace(bundle, prefill=timed("prefill", bundle.prefill),
+                             decode=timed("decode", bundle.decode))
+    prompts = np.random.RandomState(0).randint(
+        0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
+    engine = ServeEngine(tb, params, max_seq=prompt_len + new,
+                         batch_size=batch, device=dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    toks = engine.generate(prompts, new)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = ops.launches()
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    check(launches["flash_attention"] == 0,
+          f"the decoder launched flash_attention "
+          f"{launches['flash_attention']} times")
+    check(toks.shape == (batch, new), f"generated {toks.shape}")
+    check(bool((toks >= 0).all() and (toks < cfg.vocab).all()),
+          "generated tokens out of range")
+    rel = _rel(kept["replay"], kept["prefill"])
+    agree = float((kept["replay"].argmax(-1)
+                   == kept["prefill"].argmax(-1)).float().mean())
+    check(rel <= LM_REL_TOL, f"decoder: replayed vs prefill logits relative "
+          f"error {rel} > {LM_REL_TOL}")
+    prof = _profile_decode(bundle, params, batch, prompt_len + new, dev)
+    steps = spent["decode"]
+    gen_steps = steps[prompt_len:]
+    pre_s = spent["prefill"][0]
+    ms_step = 1e3 * sum(steps) / len(steps)
+    ms_gen = 1e3 * sum(gen_steps) / max(len(gen_steps), 1)
+    out["decoder"] = {
+        "config": "granite-8b", "params": n_params, "batch": batch,
+        "prompt_len": prompt_len, "new_tokens": new, "init_s": init_s,
+        "generate_s": wall, "prefill_s": pre_s,
+        "prefill_tokens_per_s": batch * prompt_len / pre_s,
+        "decode_steps": len(steps), "ms_per_decode_step": ms_step,
+        "ms_per_generated_step": ms_gen,
+        "decode_tokens_per_s": batch * 1e3 / ms_gen, "peak_bytes": peak,
+        "replay_vs_prefill_rel_err": rel,
+        "replay_vs_prefill_argmax_agree": agree,
+        "stats": dataclasses.asdict(engine.stats), "launches": launches,
+        "profile_4_steps": prof,
+        "first_tokens": toks[:, :8].tolist()}
+    print(f"   decoder granite-8b ({n_params / 1e9:.3f} B params, f32 "
+          f"weights, bf16 compute, init {init_s:.1f} s): {batch} x "
+          f"{prompt_len} prompt + {new} greedy in {wall:.2f} s; prefill "
+          f"{pre_s:.3f} s = {batch * prompt_len / pre_s:.0f} tokens/s; "
+          f"{len(steps)} decode steps at {ms_step:.2f} ms "
+          f"({ms_gen:.2f} ms a generated step = "
+          f"{batch * 1e3 / ms_gen:.1f} tokens/s); peak "
+          f"{peak / 2**30:.2f} GiB; flash launches "
+          f"{launches['flash_attention']}", flush=True)
+    print(f"   decoder replayed vs prefill logits: relative error {rel:.4f}"
+          f", argmax agreement {agree:.3f} (tolerance {LM_REL_TOL})",
+          flush=True)
+
+
+def _profile_decode(bundle, params, batch: int, seq: int, dev) -> dict:
+    """Four decode steps of a fresh cache under torch.profiler: the wall,
+    the device time, its busy share and the top device items."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if dev != "cuda":
+        return {}
+    cache = bundle.init_cache(batch, seq, dev)
+    tok = torch.zeros((batch, 1), dtype=torch.int64, device=dev)
+    with torch.inference_mode():
+        bundle.decode(params, cache, {"tokens": tok}, 0)
+        sync(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for pos in range(1, 5):
+                bundle.decode(params, cache, {"tokens": tok}, pos)
+            sync(dev)
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    per_name = device_us_by_name(prof)
+    dev_ms = sum(per_name.values()) / 1e3
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    out = {"wall_ms": wall_ms, "device_ms": dev_ms,
+           "busy_share": dev_ms / wall_ms,
+           "top": [(k[:80], v / 1e3) for k, v in top]}
+    print(f"   decoder, 4 decode steps profiled: wall {wall_ms:.1f} ms, "
+          f"device {dev_ms:.1f} ms (busy {dev_ms / wall_ms:.3f}); top: "
+          + "; ".join(f"{k[:50]} {v / 1e3:.1f} ms" for k, v in top[:5]),
+          flush=True)
+    return out
+
+
+def phase_lm(report: dict, frames: int, batch: int, dev="cuda") -> int:
+    """The model-serving path; returns the flash launches of its encoder
+    prefills (the kernel's launches on the main path)."""
+    import torch
+    print(f"== lm: model serving at full width ({batch} x {frames} frames; "
+          "granite-8b 4 x 128 + 32) ==", flush=True)
+    out = report["lm"] = {}
+    lm_smoke_parity(out, dev)
+    launches = encoder_serving(out, frames, batch, dev)
+    _free_cuda(dev)
+    with torch.inference_mode():
+        decoder_serving(out, dev=dev)
+    _free_cuda(dev)
+    return launches
+
+
+def flash_kernel_row(batch: int = 2, frames: int = 8192) -> dict:
+    """flash_attention at the encoder's shape, q, k, v (batch, frames, 16,
+    80) bf16, non-causal, against its plain version on the card, timed;
+    and a causal and a GQA case (G = 4, T not a multiple of the block)
+    checked against the plain version."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def qkv(b, t, h, kv, hd):
+        return tuple(torch.randn(shape, device="cuda", generator=gen)
+                     .to(torch.bfloat16)
+                     for shape in ((b, t, h, hd), (b, t, kv, hd),
+                                   (b, t, kv, hd)))
+
+    def compare(name, q, k, v, causal):
+        got = flash_attention_cuda(q, k, v, causal)
+        want = ref.flash_attention_ref(q, k, v, causal)
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.allclose(got.float(), want.float(), rtol=2 ** -7,
+                                  atol=1e-5)),
+              f"flash_attention {name}: max |err| {err}")
+        return err
+
+    # bf16 outputs may round one bf16 ulp (2^-7 relative) apart
+    extra = {"causal (1, 2048, 16, 80)": compare(
+                 "causal", *qkv(1, 2048, 16, 16, 80), True),
+             "gqa G=4 (2, 1000, 16/4, 80)": compare(
+                 "gqa", *qkv(2, 1000, 16, 4, 80), False)}
+    q, k, v = qkv(batch, frames, 16, 16, 80)
+    err = compare("encoder shape", q, k, v, False)
+    kern = lambda: flash_attention_cuda(q, k, v, False)  # noqa: E731
+    ms = device_ms(kern, iters=10, warmup=2)
+    call_ms = cuda_ms(kern, iters=10, warmup=1)
+    plain_ms = device_ms(lambda: ref.flash_attention_ref(q, k, v, False),
+                         iters=2, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                       iters=10)
+    b, t, h, hd = q.shape
+    flops = 4 * b * h * t * t * hd
+    nbytes = 4 * b * t * h * hd * 2
+    # bf16 inputs: the bound is at the bf16 tensor-core peak; the FP32
+    # figure is what the kernel's FP32 FMAs could reach at best
+    b_ms, b_by = bound(nbytes, flops, PEAK_BF16_PER_S)
+    fp32_ms = flops / PEAK_FP32_PER_S * 1e3
+    print(f"   flash_attention FP32-FMA figure: {fp32_ms:.3f} ms at 67 "
+          f"TFLOP/s; causal and GQA cases max |err| {extra}", flush=True)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:99",
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms, "call_ms": call_ms,
+            "shape": f"B={b} T=S={t} H=KV={h} hd={hd} bf16",
+            "fp32_fma_bound_ms": fp32_ms, "cases_max_abs_err": extra}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port "
                                  "on one card and check it.")
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=1000)
-    ap.add_argument("--phases", default="parity,main,kernels")
+    ap.add_argument("--phases", default="parity,main,kernels,lm")
+    ap.add_argument("--lm-frames", type=int, default=8192,
+                    help="frames of each encoder prefill (lm phase)")
+    ap.add_argument("--lm-batch", type=int, default=2,
+                    help="encoder prefill batch (lm phase)")
     ap.add_argument("--out", default=None,
                     help="also write the full report as JSON to this file")
     args = ap.parse_args(argv)
@@ -1291,6 +1762,23 @@ def main(argv=None) -> int:
             kernels = timed("kernels", phase_kernels, ctx, report)
         if "profile" in phases:
             timed("profile", phase_profile, ctx, report)
+        # the search path's data leaves the card before the models come
+        del ctx
+        _free_cuda()
+    if "kernels" in phases:
+        flash = timed("kernels_flash", flash_kernel_row, args.lm_batch,
+                      args.lm_frames)
+        print_kernel_row(flash)       # launches: filled in by the lm phase
+        kernels.append(flash)
+        report["kernels"] = kernels
+    if "lm" in phases:
+        launches = timed("lm", phase_lm, report, args.lm_frames,
+                         args.lm_batch)
+        check(launches > 0, "flash_attention was not launched on the "
+              "encoder's path")
+        for k in kernels:
+            if k["name"] == "flash_attention":
+                k["launches"] = launches
     report["total_s"] = time.perf_counter() - t_start
     print(f"total {report['total_s']:.1f} s ("
           + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()) + ")",
@@ -1299,6 +1787,8 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
+    # the card's name and power limit again, beside the numbers
+    print(smi, flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS}
                                   for r in kernels]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,9 @@
+"""granite-20b [dense]: 52L d_model=6144 48H (GQA kv=1 = MQA) d_ff=24576
+vocab=49152 — llama-arch, code [arXiv:2405.04324]."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-20b", family="dense",
+    n_layers=52, d_model=6144, n_heads=48, n_kv=1, d_ff=24576, vocab=49152,
+    remat="dots", fsdp=True,
+)

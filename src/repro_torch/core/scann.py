@@ -79,7 +79,7 @@ def _kmeans(x: torch.Tensor, k: int, iters: int = 12, seed: int = 0,
             d = (xb * xb).sum(1)[:, None] + cn[None, :] \
                 - 2.0 * (xb.to(cent.dtype) @ cent.T)
             assign[s:s + block] = d.argmin(1)
-        sums = torch.zeros_like(cent).index_add_(0, assign, x.to(cent.dtype))
+        sums = _segment_sum(x.to(cent.dtype), assign, k)
         cnt = torch.bincount(assign, minlength=k).to(torch.float64)
         empty = cnt == 0
         cent = torch.where(empty[:, None], cent,
@@ -90,6 +90,19 @@ def _kmeans(x: torch.Tensor, k: int, iters: int = 12, seed: int = 0,
                                   device=x.device)
             cent[empty] = x[far].to(cent.dtype)
     return cent.to(torch.float32), assign
+
+
+def _segment_sum(x: torch.Tensor, assign: torch.Tensor, k: int
+                 ) -> torch.Tensor:
+    """(k, d) sums of the rows of x by group, each group's rows added one
+    after another in ascending row order, from zero: the order of the
+    reference's `np.add.at`, so the result is the same bytes on every run.
+    (`index_add_` on a CUDA tensor adds with atomics in no fixed order.)
+    The rows are sorted stably by group, and `segment_reduce` adds up each
+    group's segment in that order, all groups in one launch."""
+    counts = torch.bincount(assign, minlength=k)
+    order = torch.sort(assign, stable=True).indices
+    return torch.segment_reduce(x[order], "sum", lengths=counts, axis=0)
 
 
 def _place(assign: torch.Tensor, k: int) -> torch.Tensor:

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.exclusion import ExclusionIndex
 from repro_torch.core.hnsw import GraphPartition, HNSWGraph, PartitionedGraph
 from repro_torch.core.scann import ScannIndex
@@ -138,3 +139,19 @@ def storage_engine(engine) -> StorageEngine:
     out.pool.restore(list(engine.pool._pages.items()),
                      sorted(engine.pool._dirty))
     return out
+
+
+def lm_params(params, device="cuda"):
+    """A reference model's parameter pytree (nested dicts of arrays, layers
+    stacked (L, ...) or (G, group, ...)) as the port's nested dicts of
+    tensors, same keys, shapes and dtypes (float32 and integer arrays)."""
+    dev = resolve_device(device)
+    if isinstance(params, dict):
+        return {k: lm_params(v, dev) for k, v in params.items()}
+    return _t(params, dev)
+
+
+def arch_config(cfg) -> ArchConfig:
+    """A reference ArchConfig as the port's, field by field."""
+    return ArchConfig(**{f.name: getattr(cfg, f.name)
+                         for f in dataclasses.fields(ArchConfig)})

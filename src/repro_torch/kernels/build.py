@@ -34,6 +34,7 @@ SIGNATURES = {
     "leaf_scan": {"leaf_scan_batched_f32": "ppppppppiiiiiip",
                   "leaf_scan_f32": "ppppppppiiiiiiiip"},
     "topk": {"topk_chunk_f32": "ppppiiip"},
+    "flash_attention": {"flash_attention": "ppppiiiiiiiip"},
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -41,7 +42,8 @@ _LOADED: dict[str, ctypes.CDLL] = {}
 # right after its kernel launched, and nothing else touches the counts.
 LAUNCHES = {"frontier_scan": 0, "distance_matrix": 0, "leaf_scan_batched": 0,
             "frontier_scan_sq8": 0, "frontier_scan_excl": 0,
-            "frontier_scan_excl_sq8": 0, "leaf_scan": 0, "topk": 0}
+            "frontier_scan_excl_sq8": 0, "leaf_scan": 0, "topk": 0,
+            "flash_attention": 0}
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 

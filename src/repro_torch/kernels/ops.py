@@ -1,4 +1,4 @@
-"""Dispatch of the kernels the search path runs.
+"""Dispatch of the kernels the search path and the encoder prefill run.
 
 A tensor on the CPU goes to the kernel's plain PyTorch version; a CUDA
 tensor launches the hand-written kernel, which raises when it cannot build
@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.distance import distance_matrix_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.frontier_scan import (frontier_scan_cuda,
                                                frontier_scan_excl_cuda,
                                                frontier_scan_excl_sq8_cuda,
@@ -159,3 +160,14 @@ def frontier_scan_excl_sq8(queries, qrows, scale, mean, norms, ids, bitmaps,
     return ref.frontier_scan_excl_sq8_ref(queries, qrows, scale, mean, norms,
                                           ids, bitmaps, table, radius_row,
                                           tau, metric, margin)
+
+
+def flash_attention_fused(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True) -> torch.Tensor:
+    """Flash attention as the reference's Pallas kernel computes it: q (B,
+    T, H, hd), k and v (B, S, KV, hd) -> (B, T, H, hd).  One card and no
+    mesh, so no shard_map: the whole batch goes to one launch."""
+    if _on_cuda(q, "flash_attention"):
+        return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal)
+    return ref.flash_attention_ref(q, k, v, causal)

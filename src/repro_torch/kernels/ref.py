@@ -4,10 +4,12 @@ They are the CPU path of `ops` and the yardstick `chip_smoke.py` holds each
 CUDA kernel against on the card.  Their arithmetic follows the reference's
 jnp oracles: the distance matrix and the leaf scans contract with a matrix
 product, the frontier scan with an elementwise product and a last-axis sum
-(the search engines' `distance`); the top-k is a stable sort.
+(the search engines' `distance`); the top-k is a stable sort; flash
+attention is the Pallas kernel's blocked online softmax.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 INF = float("inf")
@@ -229,3 +231,64 @@ def frontier_scan_excl_sq8_ref(queries, qrows, scale, mean, norms, ids,
                                   bitmaps, metric)
     e = gather_radii(table, radius_row, ids)
     return d, ok, excl_keep_mask(d, e, tau[:, None], ok, margin)
+
+
+# the Pallas flash kernel's finite mask value
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, block_q: int = 512,
+                        block_k: int = 512) -> torch.Tensor:
+    """The reference's `flash_attention_pallas`, step for step: q (B, T, H,
+    hd), k and v (B, S, KV, hd) -> (B, T, H, hd) in q's dtype.  T and S are
+    padded to block multiples; each query block runs the online softmax
+    over the key blocks in order (a causal block stops after the diagonal),
+    with q cast to f32 and scaled by 1/sqrt(hd) rounded to f32, masked
+    scores at the finite NEG_INF, f32 probabilities in P.V and the output
+    acc / max(l, 1e-20).  Padded keys are masked, padded query rows
+    dropped.  Positions count from 0 for queries and keys alike."""
+    b, t, h, hd = q.shape
+    s_len, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = float(np.float32(1.0 / np.sqrt(hd)))
+    block_q, block_k = min(block_q, t), min(block_k, s_len)
+    tp = t + (-t) % block_q
+    sp = s_len + (-s_len) % block_k
+    qf = torch.nn.functional.pad(q.to(torch.float32),
+                                 (0, 0, 0, 0, 0, tp - t)) * scale
+    qf = qf.reshape(b, tp, kvh, g, hd)
+    kf = torch.nn.functional.pad(k.to(torch.float32),
+                                 (0, 0, 0, 0, 0, sp - s_len))
+    vf = torch.nn.functional.pad(v.to(torch.float32),
+                                 (0, 0, 0, 0, 0, sp - s_len))
+    out = torch.empty((b, tp, kvh, g, hd), dtype=torch.float32,
+                      device=q.device)
+    kpos0 = torch.arange(block_k, device=q.device)
+    for qi in range(tp // block_q):
+        rows = slice(qi * block_q, (qi + 1) * block_q)
+        qb = qf[:, rows]                                  # (B, BQ, KV, G, hd)
+        qpos = qi * block_q + torch.arange(block_q, device=q.device)
+        m = torch.full((b, block_q, kvh, g), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qb)
+        hi = min((qi + 1) * block_q + block_k - 1, sp) // block_k \
+            if causal else sp // block_k
+        for i in range(hi):
+            keys = slice(i * block_k, (i + 1) * block_k)
+            s = torch.einsum("bqkgh,bskh->bqkgs", qb, kf[:, keys])
+            kpos = i * block_k + kpos0
+            valid = (kpos < s_len)[None, :]
+            if causal:
+                valid = valid & (kpos[None, :] <= qpos[:, None])
+            s = torch.where(valid[None, :, None, None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] \
+                + torch.einsum("bqkgs,bskh->bqkgh", p, vf[:, keys])
+            m = m_new
+        out[:, rows] = acc / torch.clamp(l, min=1e-20)[..., None]
+    return out.reshape(b, tp, h, hd)[:, :t].to(q.dtype)

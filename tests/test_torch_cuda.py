@@ -251,3 +251,108 @@ def test_legacy_engines_on_card_match_cpu(cuda):
             x = getattr(a.stats, f.name).cpu().double().mean()
             y = getattr(b.stats, f.name).double().mean()
             assert abs(x - y) <= 0.01 * max(abs(float(y)), 1.0), (m, f.name)
+
+
+def test_scann_build_on_card_is_deterministic(cuda):
+    # the k-means centroid sums are a fixed-order segment sum on the card:
+    # two builds of one store give the same index byte for byte
+    from repro_torch.data import DatasetSpec, make_dataset
+    store, _ = make_dataset(DatasetSpec("det", 50_000, 64, "l2",
+                                        clusters=32), num_queries=1,
+                            device=cuda)
+    a = T.build_scann(store, num_leaves=256, device=cuda)
+    b = T.build_scann(store, num_leaves=256, device=cuda)
+    for f in ("leaf_rowids", "leaf_centroids", "leaf_tiles",
+              "branch_centroids", "branch_leaves"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+# flash attention, kernel vs plain: f32 sums in another order (a few ulp of
+# outputs ~1); bf16 outputs may round one bf16 ulp (2^-7 relative) apart
+FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 1e-5)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,s,h,kv,hd,causal", [
+    (2, 300, 300, 4, 4, 80, False),       # the encoder's head dim
+    (2, 300, 300, 4, 4, 80, True),
+    (1, 97, 203, 8, 2, 64, True),         # GQA G=4, T, S not block sizes
+    (1, 203, 97, 8, 2, 32, False),
+    (1, 70, 70, 12, 1, 128, True),        # MQA G=12
+    (1, 33, 40, 2, 1, 256, False),        # the widest head
+    (1, 50, 50, 4, 2, 96, True),          # hd padded to 128
+])
+def test_flash_attention_kernel_matches_plain_version(cuda, dtype, b, t, s,
+                                                      h, kv, hd, causal):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    g = torch.Generator(device=cuda).manual_seed(t * s + hd)
+    q, k, v = (torch.randn(shape, device=cuda, generator=g).to(dtype)
+               for shape in ((b, t, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    ops.reset_launches()
+    got = ops.flash_attention_fused(q, k, v, causal)
+    assert ops.launches()["flash_attention"] == 1
+    want = ref.flash_attention_ref(q, k, v, causal)
+    assert got.dtype == dtype and got.shape == want.shape
+    rtol, atol = FLASH_TOL[dtype]
+    assert torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+    # a second launch repeats the first bit for bit
+    assert torch.equal(flash_attention_cuda(q, k, v, causal), got)
+
+
+def test_flash_attention_wrapper_refuses_what_the_kernel_cannot_take(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q = torch.zeros(1, 4, 6, 8, device=cuda)
+    k = torch.zeros(1, 4, 4, 8, device=cuda)
+    with pytest.raises(ValueError, match="heads"):
+        flash_attention_cuda(q, k, k)
+    big = torch.zeros(1, 4, 2, 264, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(big, big, big)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention_cuda(q.half(), k.half(), k.half())
+
+
+def test_flash_attention_empty_batch_launches_nothing(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    for b, t in ((0, 4), (1, 0)):
+        q = torch.zeros(b, t, 4, 8, device=cuda)
+        k = torch.zeros(b, 5, 4, 8, device=cuda)
+        ops.reset_launches()
+        assert flash_attention_cuda(q, k, k).shape == (b, t, 4, 8)
+        assert ops.launches()["flash_attention"] == 0
+
+
+def test_models_on_card_match_cpu(cuda):
+    # smoke configs in f32: the hubert prefill through the kernel against
+    # the plain version on the CPU, and greedy serving tokens equal
+    from repro_torch import configs as C
+    from repro_torch.models import build_model, params_to
+    from repro_torch.serving import ServeEngine
+    cfg = dataclasses.replace(C.smoke_config("hubert-xlarge"),
+                              pallas_flash=True)
+    bundle = build_model(cfg)
+    params = bundle.init(0, "cpu")
+    on_card = params_to(params, cuda)
+    frames = torch.randn(2, 77, cfg.d_model,
+                         generator=torch.Generator().manual_seed(1))
+    ops.reset_launches()
+    with torch.inference_mode():
+        got = bundle.prefill(on_card, {"frames": frames.to(cuda)})
+        want = bundle.prefill(params, {"frames": frames})
+    assert ops.launches()["flash_attention"] == cfg.n_layers
+    assert torch.allclose(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    for arch in ("granite-8b", "gemma3-12b"):
+        cfg = C.smoke_config(arch)
+        if arch == "gemma3-12b":
+            cfg = dataclasses.replace(cfg, n_layers=12)
+        bundle = build_model(cfg)
+        params = bundle.init(0, "cpu")
+        on_card = params_to(params, cuda)
+        prompts = torch.randint(0, cfg.vocab, (2, 9),
+                                generator=torch.Generator().manual_seed(2))
+        ops.reset_launches()
+        a = ServeEngine(bundle, on_card, 17, 2).generate(prompts.numpy(), 8)
+        b = ServeEngine(bundle, params, 17, 2, device="cpu").generate(
+            prompts.numpy(), 8)
+        assert ops.launches()["flash_attention"] == 0
+        assert (a == b).all(), arch

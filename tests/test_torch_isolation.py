@@ -1,6 +1,6 @@
-"""The port stands alone: no module of it (nor chip_smoke.py) imports JAX
-or the reference package, and its entry points run on the card unless the
-caller asks for the CPU."""
+"""The port stands alone: no module of it (nor chip_smoke.py, nor the
+scripts in tools_torch/) imports JAX or the reference package, and its
+entry points run on the card unless the caller asks for the CPU."""
 import os
 import pathlib
 import shutil
@@ -29,6 +29,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for n in names:
     __import__(n)
 import chip_smoke
+sys.path.insert(0, %(tools)r)
+import time_scann_build
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -37,7 +39,8 @@ print(len(names))
 
 
 def test_port_and_chip_smoke_import_neither_jax_nor_repro():
-    code = _BLOCKER % {"src": str(SRC), "root": str(ROOT)}
+    code = _BLOCKER % {"src": str(SRC), "root": str(ROOT),
+                       "tools": str(ROOT / "tools_torch")}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
@@ -75,8 +78,12 @@ def _no_card():
 def test_entry_points_default_to_the_card():
     _no_card()
     import repro_torch.core as T
-    from repro_torch import quickstart
+    from repro_torch import interop, quickstart
+    from repro_torch.configs import smoke_config
     from repro_torch.data import DatasetSpec, make_dataset
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
     spec = DatasetSpec("iso", 200, 8, "l2", clusters=4)
     store, q = make_dataset(spec, num_queries=2, device="cpu")
     calls = [
@@ -92,6 +99,13 @@ def test_entry_points_default_to_the_card():
         lambda: T.build_exclusion(store),
         lambda: T.build_graph_partitioned(store, {}),
         lambda: quickstart.main(n=200, dim=8),
+        lambda: build_model(smoke_config("granite-8b")).init(0),
+        lambda: build_model(smoke_config("hubert-xlarge")).init(0),
+        lambda: build_model(smoke_config("granite-8b")).init_cache(1, 4),
+        lambda: ServeEngine(build_model(smoke_config("granite-8b")), {}, 8,
+                            1),
+        lambda: serve.main(["--arch", "granite-8b"]),
+        lambda: interop.lm_params({"w": np.ones(2, np.float32)}),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -11,7 +11,7 @@ import repro.core as R
 from repro.core.scann import _kmeans as jkmeans
 from repro.core.scann import _unique_pad as junique_pad
 import repro_torch.core as T
-from repro_torch.core.scann import _kmeans, _unique_pad
+from repro_torch.core.scann import _kmeans, _segment_sum, _unique_pad
 from torch_parity import fixture_kind  # noqa: F401
 from torch_parity import FIXTURES, check, run_both, torch_params
 
@@ -76,6 +76,24 @@ def test_kmeans_assignments_match_reference():
     tc, ta = _kmeans(fx["store"].vectors, 40, seed=3)
     assert (ta.numpy() == ja).mean() >= 0.99
     np.testing.assert_allclose(tc.numpy(), jc, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,k,skew", [(5000, 40, False), (3000, 64, True),
+                                       (7, 10, False)])
+def test_segment_sum_is_np_add_at(n, k, skew):
+    # the k-means centroid sums: np.add.at's order, byte for byte, with
+    # empty and lopsided groups
+    rs = np.random.RandomState(n + k)
+    x = rs.randn(n, 24)
+    a = rs.randint(0, k, n)
+    if skew:
+        a[rs.rand(n) < 0.7] = 5
+    a[a == 1] = 2
+    want = np.zeros((k, x.shape[1]))
+    np.add.at(want, a, x)
+    got = _segment_sum(torch.as_tensor(x), torch.as_tensor(a), k)
+    assert got.dtype == torch.float64
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("levels", [1, 2])
