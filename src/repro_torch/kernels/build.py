@@ -34,7 +34,8 @@ SIGNATURES = {
     "leaf_scan": {"leaf_scan_batched_f32": "ppppppppiiiiiip",
                   "leaf_scan_f32": "ppppppppiiiiiiiip"},
     "topk": {"topk_chunk_f32": "ppppiiip"},
-    "flash_attention": {"flash_attention": "ppppiiiiiiiip"},
+    "flash_attention": {"flash_attention": "ppppiiiiiiiip",
+                        "flash_attention_wgmma": "ppppiiiiiiip"},
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -44,6 +45,9 @@ LAUNCHES = {"frontier_scan": 0, "distance_matrix": 0, "leaf_scan_batched": 0,
             "frontier_scan_sq8": 0, "frontier_scan_excl": 0,
             "frontier_scan_excl_sq8": 0, "leaf_scan": 0, "topk": 0,
             "flash_attention": 0}
+# Launches by route, for a kernel with more than one: "<kernel>.<route>",
+# counted beside the kernel's total in LAUNCHES.
+ROUTES = {"flash_attention.wgmma": 0, "flash_attention.fma": 0}
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
@@ -55,22 +59,23 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def _lib_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+def _lib_path(name: str, src_dir=CSRC, out_dir=BUILD_DIR) -> pathlib.Path:
+    src = (pathlib.Path(src_dir) / f"{name}.cu").read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    return pathlib.Path(out_dir) / f"lib{name}-{digest[:12]}.so"
 
 
-def _start_build(name: str):
+def _start_build(name: str, src_dir=CSRC, out_dir=BUILD_DIR):
     """Start nvcc for one source; returns (process, tmp path, final path),
     or None when the library is already built."""
-    out = _lib_path(name)
+    out = _lib_path(name, src_dir, out_dir)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           str(pathlib.Path(src_dir) / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -85,11 +90,13 @@ def _finish_build(name: str, started) -> None:
     os.replace(tmp, out)
 
 
-def build_all(names=tuple(SIGNATURES)) -> float:
-    """Compile every named source, all nvcc processes running at once.
-    Returns the wall seconds the build took (0 when all were built)."""
+def build_all(names=tuple(SIGNATURES), src_dir=CSRC,
+              out_dir=BUILD_DIR) -> float:
+    """Compile every named source of `src_dir` into `out_dir`, all nvcc
+    processes running at once.  Returns the wall seconds the build took
+    (0 when all were built)."""
     t0 = time.perf_counter()
-    started = {n: _start_build(n) for n in names}
+    started = {n: _start_build(n, src_dir, out_dir) for n in names}
     errors = []
     for n, s in started.items():
         if s is None:
@@ -103,29 +110,39 @@ def build_all(names=tuple(SIGNATURES)) -> float:
     return time.perf_counter() - t0
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The bound library of `csrc/<name>.cu`, built on first use."""
-    lib = _LOADED.get(name)
-    if lib is not None:
-        return lib
-    started = _start_build(name)
+def load_from(src_dir, name: str, out_dir) -> ctypes.CDLL:
+    """The bound library of `<src_dir>/<name>.cu` (another checkout's copy
+    of a source, for example), built into `out_dir` when it is not built
+    yet.  Binds each entry point of SIGNATURES[name] that the library
+    exports: an older source may lack a newer entry."""
+    started = _start_build(name, src_dir, out_dir)
     if started is not None:
         _finish_build(name, started)
-    lib = ctypes.CDLL(str(_lib_path(name)))
+    lib = ctypes.CDLL(str(_lib_path(name, src_dir, out_dir)))
     for fn, sig in SIGNATURES[name].items():
-        f = getattr(lib, fn)
-        f.argtypes = [_CTYPES[c] for c in sig]
-        f.restype = ctypes.c_int
-    _LOADED[name] = lib
+        if hasattr(lib, fn):
+            f = getattr(lib, fn)
+            f.argtypes = [_CTYPES[c] for c in sig]
+            f.restype = ctypes.c_int
     return lib
 
 
-def check(status: int, what: str) -> None:
+def load(name: str) -> ctypes.CDLL:
+    """The bound library of `csrc/<name>.cu`, built on first use."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        lib = _LOADED[name] = load_from(CSRC, name, BUILD_DIR)
+    return lib
+
+
+def check(status: int, what: str, route: str | None = None) -> None:
     """Raise when a C entry point reports a failed launch; count it when it
-    launched."""
+    launched, and under its route when the kernel has several."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {status}")
     LAUNCHES[what] += 1
+    if route is not None:
+        ROUTES[f"{what}.{route}"] += 1
 
 
 def metric_code(metric: str, kernel: str) -> int:

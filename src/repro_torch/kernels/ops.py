@@ -3,7 +3,8 @@
 A tensor on the CPU goes to the kernel's plain PyTorch version; a CUDA
 tensor launches the hand-written kernel, which raises when it cannot build
 or launch.  There is no fallback between the two.  `launches()` reads how
-often each kernel ran since `reset_launches()`.
+often each kernel ran since `reset_launches()`, `routes()` how often each
+route of a kernel with several (flash attention's) did.
 """
 from __future__ import annotations
 
@@ -27,9 +28,14 @@ def launches() -> dict[str, int]:
     return dict(build.LAUNCHES)
 
 
+def routes() -> dict[str, int]:
+    return dict(build.ROUTES)
+
+
 def reset_launches() -> None:
-    for k in build.LAUNCHES:
-        build.LAUNCHES[k] = 0
+    for counts in (build.LAUNCHES, build.ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _on_cuda(t: torch.Tensor, name: str) -> bool:

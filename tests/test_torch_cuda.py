@@ -10,6 +10,7 @@ import torch
 
 import repro_torch.core as T
 from repro_torch.kernels import ops, ref
+from repro_torch.measure import rel_l2
 
 pytestmark = pytest.mark.gpu
 
@@ -28,6 +29,22 @@ def _close(got, want):
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     fin = torch.isfinite(want)
     assert torch.allclose(got[fin], want[fin], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qn", [1, 64, 100])
+@pytest.mark.parametrize("n", [44, 2000, 2001])
+def test_distance_matrix_kernel_at_search_shapes(cuda, metric, qn, n):
+    # the branch (44) and leaf (2000) centroid levels, a ragged N; one
+    # query, one query block, a block and a half; both block layouts
+    g = torch.Generator(device=cuda).manual_seed(qn * n)
+    q = torch.randn(qn, 128, device=cuda, generator=g)
+    x = torch.randn(n, 128, device=cuda, generator=g)
+    ops.reset_launches()
+    got = ops.distance_matrix(q, x, metric)
+    assert ops.launches()["distance_matrix"] == 1
+    _close(got, ref.distance_matrix_ref(q, x, metric))
+    assert torch.equal(ops.distance_matrix(q, x, metric), got)
 
 
 @pytest.mark.parametrize("metric", ["l2", "ip"])
@@ -267,9 +284,42 @@ def test_scann_build_on_card_is_deterministic(cuda):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 
-# flash attention, kernel vs plain: f32 sums in another order (a few ulp of
-# outputs ~1); bf16 outputs may round one bf16 ulp (2^-7 relative) apart
+# flash attention, kernel vs plain.  The FP32 FMA route (f32 at every
+# width, bf16 at the widths the tensor-core kernel does not take): f32 sums
+# in another order (a few ulp of outputs ~1), bf16 outputs one bf16 ulp
+# (2^-7 relative) apart.
 FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 1e-5)}
+# The tensor-core route rounds each probability to bf16 before P.V: a
+# relative error of at most 2^-8, about 1.6e-3 rms.  The output, a weighted
+# average over the keys, then moves by about that much relative (rms over
+# outputs), and rounding kernel and plain outputs to bf16 (ulp ~5.6e-3
+# relative) turns that into one-ulp flips, about 2.7e-3 relative L2 in all
+# (measured: 1.8e-3 to 2.5e-3, H100, hd 64 to 128).  The limit, 1e-2, is four
+# times that; a kernel that drops one 64-key tile of S keys is off by about
+# sqrt(64 / S) (0.09 at S = 8192, more below), one that drops the 1/sqrt(hd)
+# scale by O(1).  Each (position, head) row on its own: 5e-2, which a row
+# computed wrongly (O(1)) or without a key tile cannot meet, while one-ulp
+# flips in a row of hd outputs read about 1e-2 at worst.
+FLASH_WGMMA_REL_L2, FLASH_WGMMA_ROW_REL_L2 = 1e-2, 5e-2
+
+
+def _flash_close(got, want, route):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    if route == "wgmma":
+        rel, row = rel_l2(got, want)
+        assert rel <= FLASH_WGMMA_REL_L2 and row <= FLASH_WGMMA_ROW_REL_L2, \
+            (rel, row)
+    else:
+        rtol, atol = FLASH_TOL[got.dtype]
+        assert torch.allclose(got.float(), want.float(), rtol=rtol,
+                              atol=atol)
+
+
+def _flash_inputs(device, dtype, seed, b, t, s, h, kv, hd):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(shape, device=device, generator=g).to(dtype)
+                 for shape in ((b, t, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -284,19 +334,59 @@ FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -7, 1e-5)}
 ])
 def test_flash_attention_kernel_matches_plain_version(cuda, dtype, b, t, s,
                                                       h, kv, hd, causal):
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    g = torch.Generator(device=cuda).manual_seed(t * s + hd)
-    q, k, v = (torch.randn(shape, device=cuda, generator=g).to(dtype)
-               for shape in ((b, t, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     route)
+    q, k, v = _flash_inputs(cuda, dtype, t * s + hd, b, t, s, h, kv, hd)
     ops.reset_launches()
     got = ops.flash_attention_fused(q, k, v, causal)
     assert ops.launches()["flash_attention"] == 1
+    kind = route(dtype, hd)
+    assert ops.routes()[f"flash_attention.{kind}"] == 1
     want = ref.flash_attention_ref(q, k, v, causal)
-    assert got.dtype == dtype and got.shape == want.shape
-    rtol, atol = FLASH_TOL[dtype]
-    assert torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+    _flash_close(got, want, kind)
     # a second launch repeats the first bit for bit
     assert torch.equal(flash_attention_cuda(q, k, v, causal), got)
+
+
+@pytest.mark.parametrize("hd", [64, 80, 128])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("b,t,s", [
+    (2, 300, 300),        # B = 2, T and S not multiples of the tiles
+    (1, 97, 203),         # S != T
+    (1, 203, 97),
+    (1, 40, 20),          # S under one 64-key tile
+])
+def test_flash_attention_tensor_core_route(cuda, hd, g, causal, b, t, s):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    h = 4 * g
+    q, k, v = _flash_inputs(cuda, torch.bfloat16, t * s + hd + h, b, t, s, h,
+                            4, hd)
+    ops.reset_launches()
+    got = flash_attention_cuda(q, k, v, causal)
+    assert ops.routes() == {"flash_attention.wgmma": 1,
+                            "flash_attention.fma": 0}
+    _flash_close(got, ref.flash_attention_ref(q, k, v, causal), "wgmma")
+    assert torch.equal(flash_attention_cuda(q, k, v, causal), got)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_tolerance_refuses_broken_kernels(cuda, causal):
+    # the tensor-core route's limit must refuse a kernel that misses the
+    # last 128 keys and one that drops the 1/sqrt(hd) scale
+    import math
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q, k, v = _flash_inputs(cuda, torch.bfloat16, 1024 * 1024 + 88, 2, 1024,
+                            1024, 8, 8, 80)
+    want = ref.flash_attention_ref(q, k, v, causal)
+    cut = flash_attention_cuda(q, k[:, :-128].contiguous(),
+                               v[:, :-128].contiguous(), causal)
+    unscaled = flash_attention_cuda((q * math.sqrt(80)).contiguous(), k, v,
+                                    causal)
+    for broken in (cut, unscaled):
+        rel, row = rel_l2(broken, want)
+        assert rel > FLASH_WGMMA_REL_L2 or row > FLASH_WGMMA_ROW_REL_L2
+    _flash_close(flash_attention_cuda(q, k, v, causal), want, "wgmma")
 
 
 def test_flash_attention_wrapper_refuses_what_the_kernel_cannot_take(cuda):
@@ -310,6 +400,11 @@ def test_flash_attention_wrapper_refuses_what_the_kernel_cannot_take(cuda):
         flash_attention_cuda(big, big, big)
     with pytest.raises(ValueError, match="dtype"):
         flash_attention_cuda(q.half(), k.half(), k.half())
+    # the tensor-core route copies 16 bytes at a time
+    flat = torch.zeros(1 + 4 * 2 * 80, device=cuda, dtype=torch.bfloat16)
+    odd = flat[1:].view(1, 4, 2, 80)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention_cuda(odd, odd, odd)
 
 
 def test_flash_attention_empty_batch_launches_nothing(cuda):

@@ -31,6 +31,7 @@ for n in names:
 import chip_smoke
 sys.path.insert(0, %(tools)r)
 import time_scann_build
+import time_kernel_redesign
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
