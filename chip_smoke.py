@@ -15,7 +15,11 @@ Phases:
             the seven Table-6 counters within 1 %, the same planner choice;
             the legacy engines too, and with a storage engine attached on
             each side, equal StorageStats; the ScaNN index is built twice
-            on the card and must be the same bytes
+            on the card and must be the same bytes; then a cos store of
+            the same shape with its graph and SQ8 shadow: the graph
+            methods on the card and the CPU (the frontier scans have no cos
+            kernel, so the card runs their plain versions and counts no
+            launch, as the reference runs its oracle)
   main      the main path at full size: a SIFT1M-shaped store (1M x 128,
             1,000 queries), build_graph_blocked and build_scann on the card,
             two workloads, the quickstart's six methods; then the second
@@ -309,6 +313,67 @@ def phase_parity(n: int, nq: int, report: dict, dev="cuda") -> None:
         check(sc_ == sg, f"parity {label}: planner chose {sg} on the card, "
               f"{sc_} on the CPU")
     report["parity"] = rows
+    cos_graph_parity(n, nq, report, dev)
+
+
+def cos_graph_parity(n: int, nq: int, report: dict, dev="cuda") -> None:
+    """A cos store's graph search on the card and the CPU: recall@10
+    within 0.01 and each counter's mean within 1 %, as the parity rows; no
+    kernel launch on the card (cos routes to the plain frontier scans)."""
+    from repro_torch.core import (WorkloadSpec, build_graph_blocked,
+                                  filtered_knn, generate_bitmaps,
+                                  make_executor, quantize_store, recall_at_k,
+                                  to_device)
+    from repro_torch.data import DatasetSpec, make_dataset
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    store, queries = make_dataset(DatasetSpec("parity_cos", n, 128, "cos",
+                                              clusters=128),
+                                  num_queries=nq, seed=3, device=dev)
+    store = quantize_store(store)
+    graph = build_graph_blocked(store, m=16, ef_construction=32, seed=0,
+                                device=dev)
+    bm = generate_bitmaps(store, queries, WorkloadSpec(0.10, "med_pos"),
+                          seed=4, device=dev)
+    cpu = (to_device(store, "cpu"), to_device(graph, "cpu"))
+    truth = filtered_knn(cpu[0], queries.cpu(), bm.cpu(), 10)[1]
+    print(f"== parity, cos: {n} x 128 store, {nq} queries, setup "
+          f"{time.perf_counter() - t0:.1f} s ==", flush=True)
+    p = main_params()
+    rows = {}
+    for method in GRAPH_METHODS + ("sweeping_sq8",):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        card = make_executor(method, store, graph=graph,
+                             device=dev).search(queries, bm, p)
+        sync(dev)
+        tg = time.perf_counter() - t0
+        launched = {k: v for k, v in ops.launches().items() if v}
+        t0 = time.perf_counter()
+        host = make_executor(method, cpu[0], graph=cpu[1],
+                             device="cpu").search(queries.cpu(), bm.cpu(), p)
+        tc = time.perf_counter() - t0
+        rg = float(recall_at_k(card.ids.cpu(), truth, 10).mean())
+        rc = float(recall_at_k(host.ids, truth, 10).mean())
+        cg, cc = counter_means(card), counter_means(host)
+        worst = max(abs(cg[k] - cc[k]) / max(abs(cc[k]), 1e-9)
+                    if cc[k] or cg[k] else 0.0 for k in COUNTERS)
+        ids_diff = int((card.ids.cpu() != host.ids).sum())
+        print(f"   {method + '[cos]':26s} recall cpu {rc:.4f} card {rg:.4f} "
+              f"| worst counter drift {worst:.5f} | differing ids "
+              f"{ids_diff} | launches {launched} | cpu {tc:.1f} s card "
+              f"{tg:.2f} s", flush=True)
+        rows[method] = {"recall_cpu": rc, "recall_card": rg,
+                        "worst_counter_drift": worst,
+                        "ids_differing": ids_diff, "launches": launched}
+        check(abs(rc - rg) <= 0.01, f"parity cos {method}: recall {rc} vs "
+              f"{rg}")
+        check(worst <= 0.01, f"parity cos {method}: counters drift {worst}")
+        if dev == "cuda":
+            check(not launched, f"parity cos {method}: kernels launched "
+                  f"{launched}")
+    report["parity_cos"] = rows
 
 
 # ---------------------------------------------------------------------------
@@ -964,12 +1029,16 @@ def phase_kernels(ctx: dict, report: dict) -> list[dict]:
         qp, (tiles.to(torch.float32) * scann.scale + scann.mean)
         .reshape(u * c, d).T), iters=5)
     valid = rowids >= 0
+    n_valid = int(valid.sum())
     words = int(torch.unique(rowids[valid] >> 5).numel())
-    # queries, tiles, rowids, norms, scale/mean in once; each query's
-    # bitmap words over the union's rows; (Q, U, C) scores out
-    nbytes = (nq_b * d * 4 + u * c * d + u * c * 8 + 2 * d * 4
+    # queries, scale/mean and every row id in once; the valid rows' int8
+    # codes and norms; each query's bitmap words over those rows; (Q, U, C)
+    # scores out, padded rows (+inf) too.  Flops the function needs: q.x
+    # per (query, valid row), 2 a term; each valid row dequantized once, 2
+    # a term
+    nbytes = (nq_b * d * 4 + 2 * d * 4 + u * c * 4 + n_valid * (d + 4)
               + nq_b * words * 4 + nq_b * u * c * 4)
-    flops = 2 * nq_b * u * c * d + 2 * u * c * d
+    flops = 2 * nq_b * n_valid * d + 2 * n_valid * d
     b_ms, b_by = bound(nbytes, flops)
     out.append({"name": "leaf_scan_batched", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/leaf_scan.cu",
@@ -977,7 +1046,8 @@ def phase_kernels(ctx: dict, report: dict) -> list[dict]:
                 "launches": ctx["launches"]["leaf_scan_batched"],
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                "call_ms": call_ms, "shape": f"Q={nq_b} U={u} C={c} d={d}"})
+                "call_ms": call_ms, "shape": f"Q={nq_b} U={u} C={c} d={d}",
+                "valid_rows": n_valid})
     out += slice3_kernel_rows(ctx)
     for k in out:
         print_kernel_row(k)

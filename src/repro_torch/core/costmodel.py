@@ -141,9 +141,11 @@ def cache_miss_penalty(counters: Mapping[str, float], strategy: str,
                        graph_quant: str = "none",
                        dim: Optional[int] = None) -> float:
     """Expected extra cycles from buffer-pool misses, per query, given a
-    pool state with `miss_fraction(segment)`.  With no pool state (the
-    port has no buffer pool yet, ROADMAP 1.7) or page_miss_extra == 1 it
-    is 0 and predictions reduce to the classic ones."""
+    pool state with `miss_fraction(segment)`: the `BufferPoolState`
+    snapshot that `storage/bufferpool.py`'s pool returns from `state()`
+    (the planner reads it from a storage engine's `state()`).  With no pool
+    state (a search without storage) or page_miss_extra == 1 it is 0 and
+    predictions reduce to the classic ones."""
     if pool_state is None or constants.page_miss_extra <= 1.0:
         return 0.0
     extra = constants.page_access * (constants.page_miss_extra - 1.0)

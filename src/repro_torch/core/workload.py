@@ -43,14 +43,19 @@ class WorkloadSpec:
 
 
 def full_distances(store: VectorStore, queries: torch.Tensor) -> torch.Tensor:
-    """(Q, N) dense distance matrix ||q||^2 + ||x||^2 - 2 q.x (or -q.x for
-    the inner product), its cross term as one matrix product."""
+    """(Q, N) dense distance matrix ||q||^2 + ||x||^2 - 2 q.x, -q.x for the
+    inner product, or 1 - q.x / ((||q|| + 1e-12)(||x|| + 1e-12)) for cos
+    (`types.distance`'s guards), its cross term as one matrix product."""
     q = queries.to(torch.float32)
     ip = q @ store.vectors.T
     if store.metric == "ip":
         return -ip
+    if store.metric == "cos":
+        qn = torch.linalg.norm(q, dim=-1) + 1e-12
+        xn = torch.linalg.norm(store.vectors, dim=-1) + 1e-12
+        return 1.0 - ip / (qn[:, None] * xn[None, :])
     if store.metric != "l2":
-        raise NotImplementedError(f"full_distances: metric {store.metric!r}")
+        raise ValueError(f"unknown metric {store.metric!r}")
     return (q * q).sum(-1, keepdim=True) + store.norms_sq[None, :] - 2.0 * ip
 
 

@@ -31,9 +31,9 @@ SIGNATURES = {
                       "frontier_scan_excl_f32": "pppppppppppfiiiiiiip",
                       "frontier_scan_excl_sq8": "pppppppppppppfiiiiiiip"},
     "distance": {"distance_matrix_f32": "pppiiiip"},
-    "leaf_scan": {"leaf_scan_batched_f32": "ppppppppiiiiiip",
+    "leaf_scan": {"leaf_scan_batched_f32": "pppppppppiiiiiip",
                   "leaf_scan_f32": "ppppppppiiiiiiiip"},
-    "topk": {"topk_chunk_f32": "ppppiiip"},
+    "topk": {"topk_f32": "ppppiiip"},
     "flash_attention": {"flash_attention": "ppppiiiiiiiip",
                         "flash_attention_wgmma": "ppppiiiiiiip"},
 }

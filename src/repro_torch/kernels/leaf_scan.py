@@ -1,9 +1,10 @@
 """The ScaNN leaf-scan CUDA kernels (csrc/leaf_scan.cu) and their plain
-versions.  `leaf_scan_batched`: each opened int8 leaf tile is read once per
-query tile, dequantized in the kernel, scored against the whole query block
-and filtered by each query's bitmap.  `leaf_scan`: the legacy per-query
-scan, every query against its own opened leaves, read by leaf id from the
-index's tile table."""
+versions.  `leaf_scan_batched`: every query of a block against every row of
+the opened int8 leaf tiles, in persistent blocks that own a tile of 64
+queries; the bitmaps are first turned into one 64-bit pass mask per (query
+tile, row id), so a row is probed once for the whole tile.  `leaf_scan`:
+the legacy per-query scan, every query against its own opened leaves, read
+by leaf id from the index's tile table."""
 from __future__ import annotations
 
 import torch
@@ -61,7 +62,8 @@ def leaf_scan_batched_cuda(queries: torch.Tensor, tiles: torch.Tensor,
     """queries (Q, d) f32, tiles (U, C, d) int8, rowids (U, C) int32,
     scale/mean (d,) f32, bitmaps (Q, W) int32, row_norms_sq (U, C) f32, all
     contiguous on one CUDA device -> (Q, U, C) f32 scores, +inf where a row
-    is padded or filtered out."""
+    is padded or filtered out.  Two launches (the pass masks, the scan),
+    counted as one call."""
     code = build.metric_code(metric, "leaf_scan_batched")
     qn, d = queries.shape
     u, c, _ = tiles.shape
@@ -77,14 +79,18 @@ def leaf_scan_batched_cuda(queries: torch.Tensor, tiles: torch.Tensor,
     for t in (tiles, rowids, scale, mean, bitmaps, row_norms_sq):
         if t.device != dev:
             raise ValueError("leaf_scan_batched: tensors on different devices")
-    if u > 65535 or -(-qn // 64) > 65535:
-        raise ValueError(f"leaf_scan_batched kernel: U={u}, Q={qn} too large")
+    if u * c >= 2 ** 31 or -(-qn // 64) > 65535 or w >= 2 ** 26:
+        raise ValueError(f"leaf_scan_batched kernel: U={u}, C={c}, Q={qn}, "
+                         f"W={w} too large")
     out = torch.empty((qn, u, c), dtype=torch.float32, device=dev)
+    # scratch: one 64-bit pass mask per (64-query tile, row id)
+    masks = torch.empty((-(-qn // 64), 32 * w), dtype=torch.int64,
+                        device=dev)
     lib = build.load("leaf_scan")
     status = lib.leaf_scan_batched_f32(
         queries.data_ptr(), tiles.data_ptr(), rowids.data_ptr(),
         scale.data_ptr(), mean.data_ptr(), bitmaps.data_ptr(),
-        row_norms_sq.data_ptr(), out.data_ptr(), qn, u, c, d, w,
-        code, torch.cuda.current_stream(dev).cuda_stream)
+        row_norms_sq.data_ptr(), masks.data_ptr(), out.data_ptr(), qn, u, c,
+        d, w, code, torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "leaf_scan_batched")
     return out

@@ -2,7 +2,10 @@
 
 A tensor on the CPU goes to the kernel's plain PyTorch version; a CUDA
 tensor launches the hand-written kernel, which raises when it cannot build
-or launch.  There is no fallback between the two.  `launches()` reads how
+or launch.  There is no fallback between the two.  The one dispatch by
+metric is the reference's: the frontier scans have no cos kernel, and a
+cos store's graph search runs their plain versions on either device, as
+the reference's `frontier_scan*` send cos to the oracle always.  `launches()` reads how
 often each kernel ran since `reset_launches()`, `routes()` how often each
 route of a kernel with several (flash attention's) did.
 """
@@ -113,7 +116,7 @@ def frontier_scan(queries, rows, norms, ids, bitmaps, metric: str = "l2"
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dists (Q, C), pass (Q, C)) of each query's candidate ids, gathered
     from the (n, d) store rows; +inf / False at -1 padding."""
-    if _on_cuda(queries, "frontier_scan"):
+    if _on_cuda(queries, "frontier_scan") and metric != "cos":
         return frontier_scan_cuda(queries.contiguous(), rows.contiguous(),
                                   norms.contiguous(),
                                   ids.to(torch.int32).contiguous(),
@@ -129,7 +132,7 @@ def frontier_scan_sq8(queries, qrows, scale, mean, norms, ids, bitmaps,
                       metric: str = "l2"):
     """`frontier_scan` on the (n, d) int8 SQ8 shadow rows, dequantized
     with scale/mean (d,); norms (n,) are the dequantized rows' ||x̂||^2."""
-    if _on_cuda(queries, "frontier_scan_sq8"):
+    if _on_cuda(queries, "frontier_scan_sq8") and metric != "cos":
         return frontier_scan_sq8_cuda(
             queries.contiguous(), qrows.contiguous(), scale.contiguous(),
             mean.contiguous(), norms.contiguous(), _i32(ids),
@@ -144,7 +147,7 @@ def frontier_scan_excl(queries, rows, norms, ids, bitmaps, table,
     """`frontier_scan` plus the FAVOR keep mask: table (R + F, n) squared
     exclusion radii, radius_row (Q,) each query's table row, tau (Q,) its
     result-queue tail -> (dists, pass, keep)."""
-    if _on_cuda(queries, "frontier_scan_excl"):
+    if _on_cuda(queries, "frontier_scan_excl") and metric != "cos":
         return frontier_scan_excl_cuda(
             queries.contiguous(), rows.contiguous(), norms.contiguous(),
             _i32(ids), bitmaps.contiguous(), table.contiguous(),
@@ -157,7 +160,7 @@ def frontier_scan_excl_sq8(queries, qrows, scale, mean, norms, ids, bitmaps,
                            table, radius_row, tau, metric: str = "l2",
                            margin: float = 0.5):
     """`frontier_scan_sq8` plus the keep mask on the quantized distances."""
-    if _on_cuda(queries, "frontier_scan_excl_sq8"):
+    if _on_cuda(queries, "frontier_scan_excl_sq8") and metric != "cos":
         return frontier_scan_excl_sq8_cuda(
             queries.contiguous(), qrows.contiguous(), scale.contiguous(),
             mean.contiguous(), norms.contiguous(), _i32(ids),

@@ -241,6 +241,171 @@ def test_topk_kernel_matches_plain_version(cuda, n, k):
     assert torch.equal(gv, wv) and torch.equal(gi, wi)
 
 
+def _leaf_batched_inputs(cuda, qn, u, c, d, seed=3):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(qn, d, device=cuda, generator=g)
+    tiles = torch.randint(-127, 128, (u, c, d), device=cuda, generator=g,
+                          dtype=torch.int8)
+    rowids = torch.randint(-1, 5000, (u, c), device=cuda, generator=g,
+                           dtype=torch.int32)
+    scale = torch.rand(d, device=cuda, generator=g) * 0.02 + 1e-3
+    mean = torch.randn(d, device=cuda, generator=g) * 0.1
+    bm = torch.randint(-2 ** 31, 2 ** 31 - 1, (qn, 157), device=cuda,
+                       generator=g, dtype=torch.int32)
+    xd = ref.dequantize(tiles, scale, mean)
+    return q, tiles, rowids, scale, mean, bm, (xd * xd).sum(-1)
+
+
+def _leaf_batched_close(args, metric):
+    ops.reset_launches()
+    got = ops.leaf_scan_batched(*args, metric)
+    assert ops.launches()["leaf_scan_batched"] == 1
+    _close(got, ref.leaf_scan_batched_ref(*args, metric))
+    return got
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", [100, 128])
+@pytest.mark.parametrize("c", [37, 1416])
+@pytest.mark.parametrize("u", [1, 3])
+@pytest.mark.parametrize("qn", [1, 63, 65, 130])
+def test_leaf_scan_batched_kernel_at_ragged_shapes(cuda, qn, u, c, d,
+                                                   metric):
+    """Query tiles of 64 cut at 1, 63, 65 and 130; U * C rows not a
+    multiple of the 256-row item or of 4 (scalar stores); d not a multiple
+    of 16 (rows staged without cp.async)."""
+    _leaf_batched_close(_leaf_batched_inputs(cuda, qn, u, c, d), metric)
+
+
+@pytest.mark.parametrize("d", [200, 384])
+def test_leaf_scan_batched_kernel_over_several_k_slices(cuda, d):
+    _leaf_batched_close(_leaf_batched_inputs(cuda, 70, 3, 300, d), "l2")
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("qn,u,c,d", [(64, 200, 1416, 128),
+                                      (130, 60, 1416, 100),
+                                      (70, 40, 300, 384), (1, 300, 256, 128)])
+def test_leaf_scan_batched_kernel_skips_padded_items(cuda, qn, u, c, d,
+                                                     metric):
+    """Leaves filled from the head and padded with -1 to C, some empty, as
+    the index builds them: 256-row items of padding only (which get +inf
+    without a product) lie between live ones, more items than blocks."""
+    args = list(_leaf_batched_inputs(cuda, qn, u, c, d, seed=u))
+    g = torch.Generator(device=cuda).manual_seed(c)
+    sizes = torch.randint(0, c + 1, (u, 1), device=cuda, generator=g)
+    sizes[::7] = 0
+    args[2] = torch.where(torch.arange(c, device=cuda)[None] < sizes,
+                          args[2].clamp(min=0), -1).to(torch.int32)
+    flat = args[2].reshape(-1)
+    items = torch.nn.functional.pad(flat, (0, -flat.numel() % 256),
+                                    value=-1).reshape(-1, 256)
+    live = (items >= 0).any(1)
+    assert 0 < int(live.sum()) < live.numel()
+    _leaf_batched_close(args, metric)
+
+
+@pytest.mark.parametrize("case", ["all_filtered", "all_padded"])
+def test_leaf_scan_batched_kernel_all_inf(cuda, case):
+    args = list(_leaf_batched_inputs(cuda, 65, 3, 37, 128))
+    if case == "all_filtered":
+        args[5] = torch.zeros_like(args[5])
+    else:
+        args[2] = torch.full_like(args[2], -1)
+    got = _leaf_batched_close(args, "l2")
+    assert bool(torch.isinf(got).all())
+
+
+def _topk_exact(v, k):
+    ops.reset_launches()
+    gv, gi = ops.topk_smallest(v, k)
+    assert ops.launches()["topk"] == 1
+    wv, wi = ref.topk_partial_ref(v, k)
+    assert torch.equal(gi, wi)
+    assert torch.equal(gv, wv)
+    # -0.0 comes out as -0.0: the values are read back by index
+    assert torch.equal(torch.signbit(gv), torch.signbit(wv))
+
+
+@pytest.mark.parametrize("case", ["signed_zeros", "runs_across_chunks",
+                                  "infinities", "k_above_n", "max_k",
+                                  "two_to_the_20_plus_3"])
+def test_topk_kernel_edge_cases(cuda, case):
+    from repro_torch.kernels.topk import MAX_K
+    g = torch.Generator(device=cuda).manual_seed(7)
+    n, k = 56_640, 40
+    if case == "two_to_the_20_plus_3":
+        n, k = 2 ** 20 + 3, 10
+    v = torch.randn(n, device=cuda, generator=g)
+    if case == "signed_zeros":
+        # -0.0 beside +0.0, both below every positive value: ties by index
+        v = v.abs() + 1.0
+        v[100:140:2] = -0.0
+        v[101:141:2] = 0.0
+        v[7] = 0.0
+    elif case == "runs_across_chunks":
+        # equal values straddling every chunk boundary the wrapper may pick
+        v = v.abs() + 1.0
+        for edge in (2048, 4096, 8192, 16384):
+            v[edge - 30:edge + 30] = 0.5
+    elif case == "infinities":
+        v[::3] = float("inf")
+        v[5::97] = -float("inf")
+    elif case == "k_above_n":
+        n, k = 3000, 4000
+        v = v[:n].contiguous()
+        v[::5] = float("inf")
+    elif case == "max_k":
+        k = MAX_K
+        v[::4] = float("inf")
+        v[1000:3000] = 0.25
+    _topk_exact(v, k)
+
+
+@pytest.mark.parametrize("n,k", [(56_640, 40), (1_000_000, 10), (3000, 40)])
+def test_topk_kernel_takes_at_most_two_launches(cuda, n, k):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    v = torch.randn(n, device=cuda)
+    ops.topk_smallest(v, k)                 # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ops.topk_smallest(v, k)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and "topk" in e.key)
+    assert 1 <= kernels <= 2
+
+
+def test_cos_graph_search_on_card_matches_cpu(cuda):
+    """The frontier scans have no cos kernel: a cos store's graph search
+    runs their plain versions on the card, as the reference runs its
+    oracle, and counts no kernel launch."""
+    from repro_torch.data import DatasetSpec, make_dataset
+    store, q = make_dataset(DatasetSpec("gc", 3000, 64, "cos", clusters=16),
+                            num_queries=16, device=cuda)
+    store = T.quantize_store(store)
+    graph = T.build_graph(store, m=8, ef_construction=32, device=cuda)
+    bm = T.generate_bitmaps(store, q, T.WorkloadSpec(0.1, "med_pos"),
+                            device=cuda)
+    cpu = [T.to_device(o, "cpu") for o in (store, graph)]
+    p = T.SearchParams(k=10, ef_search=32, beam_width=64)
+    for m in ("sweeping", "acorn", "navix", "iterative_scan",
+              "sweeping_sq8"):
+        ops.reset_launches()
+        a = T.make_executor(m, store, graph=graph, device=cuda).search(
+            q, bm, p)
+        assert sum(ops.launches().values()) == 0, (m, ops.launches())
+        b = T.make_executor(m, cpu[0], graph=cpu[1], device="cpu").search(
+            q.cpu(), bm.cpu(), p)
+        overlap = (a.ids.cpu()[:, :, None] == b.ids[:, None, :]).any(-1)
+        assert overlap.float().mean() >= 0.99, m
+        for f in dataclasses.fields(T.SearchStats):
+            x = getattr(a.stats, f.name).cpu().double().mean()
+            y = getattr(b.stats, f.name).double().mean()
+            assert abs(x - y) <= 0.01 * max(abs(float(y)), 1.0), (m, f.name)
+
+
 def test_legacy_engines_on_card_match_cpu(cuda):
     from repro_torch.data import DatasetSpec, make_dataset
     store, q = make_dataset(DatasetSpec("g3", 3000, 64, "l2", clusters=16),

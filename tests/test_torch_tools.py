@@ -42,3 +42,88 @@ def test_a_source_from_another_directory_builds_into_its_own(tmp_path):
     assert same.name == build._lib_path("distance").name
     (src / "distance.cu").write_text("// another version\n")
     assert build._lib_path("distance", src, out).name != same.name
+
+
+def _timing_tool():
+    import importlib.util
+    import pathlib
+    path = (pathlib.Path(__file__).resolve().parents[1] / "tools_torch"
+            / "time_kernel_redesign.py")
+    spec = importlib.util.spec_from_file_location("time_kernel_redesign",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("text,want", [
+    ("leaf_scan_batched,topk", ["leaf_scan_batched", "topk"]),
+    (" topk , leaf_scan_batched,topk", ["topk", "leaf_scan_batched"]),
+    ("flash_attention,distance_matrix", ["flash_attention",
+                                         "distance_matrix"]),
+])
+def test_timing_tool_reads_its_kernel_names(text, want):
+    tool = _timing_tool()
+    assert tool.parse_kernels(text) == want
+    assert tool.parse_kernels(tool.DEFAULT_KERNELS) == ["leaf_scan_batched",
+                                                        "topk"]
+
+
+def test_timing_tool_names_the_parent_sources_each_kernel_needs():
+    tool = _timing_tool()
+    assert tool.parent_sources(["leaf_scan_batched", "topk"]) == (
+        "leaf_scan", "topk")
+    assert tool.parent_sources(["flash_attention", "distance_matrix"]) == (
+        "flash_attention", "distance")
+    # every source is one the build knows
+    assert set(tool.SOURCES.values()) <= set(build.SIGNATURES)
+
+
+@pytest.mark.parametrize("text", ["leaf_scan_batched,bogus", "", "topk2"])
+def test_timing_tool_refuses_an_unknown_kernel(text, capsys):
+    tool = _timing_tool()
+    with pytest.raises(ValueError, match="choose from flash_attention"):
+        tool.parse_kernels(text)
+    with pytest.raises(SystemExit):
+        tool.main(["--kernels", text])
+    assert "unknown kernel" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("name", sorted(build.SIGNATURES))
+def test_timing_tool_reads_each_entry_point_from_its_source(name):
+    """A parent is bound by its own declarations: read from this
+    checkout's sources they are exactly what the build binds."""
+    tool = _timing_tool()
+    text = (build.CSRC / f"{name}.cu").read_text()
+    assert tool.entry_signatures(text) == build.SIGNATURES[name]
+
+
+def test_timing_tool_binds_an_older_interface_or_refuses_it():
+    import ctypes
+    import types
+    tool = _timing_tool()
+    # the leaf_scan_batched entry without its pass-mask scratch, and the
+    # per-chunk top-k entry an older topk.cu exported
+    older = """
+extern "C" int leaf_scan_batched_f32(const void* queries, const void* tiles,
+                                     const void* rowids, const void* scale,
+                                     const void* mean, const void* bitmaps,
+                                     const void* norms, void* out, int Q,
+                                     int U, int C, int d, int W, int metric,
+                                     void* stream) {
+extern "C" int topk_chunk_f32(const void* vals, const void* idx,
+                              void* out_v, void* out_i, int n, int chunk,
+                              int k, void* stream) {
+"""
+    assert tool.entry_signatures(older) == {
+        "leaf_scan_batched_f32": "ppppppppiiiiiip",
+        "topk_chunk_f32": "ppppiiip"}
+    with pytest.raises(ValueError, match="cannot bind parameter"):
+        tool.entry_signatures('extern "C" int f(double x, void* s) {')
+    f = types.SimpleNamespace(argtypes=[ctypes.c_void_p, ctypes.c_int])
+    lib = types.SimpleNamespace(f=f)
+    assert tool.parent_entry(lib, "f", "ppi", "pi") is f
+    with pytest.raises(RuntimeError, match="parent's f is pi"):
+        tool.parent_entry(lib, "f", "ppi")
+    with pytest.raises(RuntimeError, match="parent's g is missing"):
+        tool.parent_entry(lib, "g", "pi")

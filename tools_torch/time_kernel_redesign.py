@@ -1,30 +1,47 @@
-"""Time a parent commit's flash_attention and distance_matrix kernels beside
-this checkout's, in one process on one card.
+"""Time a parent commit's hand-written kernels beside this checkout's, in one
+process on one card.
 
     mkdir -p build/parent
-    git show <parent>:src/repro_torch/kernels/csrc/flash_attention.cu \
-        > build/parent/flash_attention.cu
-    git show <parent>:src/repro_torch/kernels/csrc/distance.cu \
-        > build/parent/distance.cu
-    python3 tools_torch/time_kernel_redesign.py --parent build/parent
+    for f in leaf_scan topk; do
+        git show <parent>:src/repro_torch/kernels/csrc/$f.cu \\
+            > build/parent/$f.cu
+    done
+    python3 tools_torch/time_kernel_redesign.py --parent build/parent \\
+        --kernels leaf_scan_batched,topk
 
-Builds the parent's two sources with the port's nvcc flags into
-`build/parent_kernels/` while this checkout's own sources build, then at
-the main path's shapes times parent, new, new, parent: flash attention on
-q, k, v (2, 8192, 16, 80) bf16, non-causal, the hubert-xlarge encoder's
-prefill (the parent's FP32 FMA template, the new tensor-core route), and
-distance_matrix at (64, 2000, 128) and (64, 44, 128), L2.  Device
-milliseconds per call from torch.profiler, as `chip_smoke.py` takes them.
-Checks that the parent and the new kernel agree (relative L2 1e-2 for
-flash attention, whose new route rounds P to bf16; allclose(1e-5, 1e-4)
-for the distances) and prints one JSON line with every time, the card's
-name and its power limit.
+`--kernels` names the kernels to compare (default leaf_scan_batched,topk;
+flash_attention,distance_matrix is the earlier pair); each needs its
+parent's source in `--parent` (`parent_sources`).  The parent's sources
+build with the port's nvcc flags into `build/parent_kernels/` while this
+checkout's own build.  Each parent entry point is bound by the C
+declaration in its own source (`entry_signatures`), so a parent whose
+interface differs from this checkout's is called as it was written (the
+leaf_scan_batched entry with or without its mask scratch, topk's one
+`topk_f32` call or the older per-chunk `topk_chunk_f32` passes), and an
+interface the tool does not know is refused before any call.  Then each
+kernel is timed parent, new, new, parent at the main path's shapes:
+- flash_attention: q, k, v (2, 8192, 16, 80) bf16, non-causal, the
+  hubert-xlarge encoder's prefill; parent and new agree within relative L2
+  1e-2 (the new route rounds P to bf16);
+- distance_matrix: (64, 2000, 128) and (64, 44, 128), L2;
+- leaf_scan_batched: one ScaNN query block's union scan, (Q, U, C, d) =
+  (64, 1345, 1416, 128), L2, over a 1M-row id space (W = 31,250 words)
+  with leaves of 1 .. 999 valid rows (about 500) then -1 padding, and
+  bitmaps of selectivity 0.1; the library call (dequantize +
+  `torch.matmul`) is timed beside it;
+- topk: n = 56,640, k = 40 (one query's per-query ScaNN scores, 96 %
+  +inf) and n = 1M, k = 10 (one query's distances); `torch.topk` beside.
+Distances agree within allclose(1e-5, 1e-4) with the same +inf pattern;
+ids and top-k values exactly.  Device milliseconds per call from
+torch.profiler, as `chip_smoke.py` takes them.  Prints one JSON line with
+every time, the card's name and its power limit.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -32,52 +49,126 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # q, k, v of one encoder prefill: (batch, frames, heads, head width)
 FLASH_SHAPE = (2, 8192, 16, 80)
-PARENT_SOURCES = ("flash_attention", "distance")
+# one ScaNN query block's union scan at the SIFT1M-shaped main path
+LEAF_SHAPE = (64, 1345, 1416, 128)
+LEAF_N, LEAF_MEAN_ROWS, LEAF_SEL = 1_000_000, 500, 0.1
+TOPK_CASES = ((56_640, 40), (1_000_000, 10))
+# each kernel's parent source under --parent
+SOURCES = {"flash_attention": "flash_attention", "distance_matrix": "distance",
+           "leaf_scan_batched": "leaf_scan", "topk": "topk"}
+DEFAULT_KERNELS = "leaf_scan_batched,topk"
+# an entry point's C declaration in a kernel source
+_ENTRY = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", default=os.path.join(ROOT, "build", "parent"),
-                    help="directory holding the parent's flash_attention.cu "
-                         "and distance.cu")
-    args = ap.parse_args(argv)
+def parse_kernels(text: str) -> list[str]:
+    """The comma-separated kernel names of --kernels, in order; raises
+    ValueError naming the choices for an unknown one."""
+    names = [t.strip() for t in text.split(",") if t.strip()]
+    unknown = [t for t in names if t not in SOURCES]
+    if unknown or not names:
+        raise ValueError(f"unknown kernel(s) {unknown or text!r}; choose "
+                         f"from {', '.join(SOURCES)}")
+    return list(dict.fromkeys(names))
 
+
+def parent_sources(kernels) -> tuple[str, ...]:
+    """The parent's csrc/<name>.cu sources the named kernels need."""
+    return tuple(dict.fromkeys(SOURCES[k] for k in kernels))
+
+
+def entry_signatures(text: str) -> dict[str, str]:
+    """The argument types of each `extern "C" int` entry point of a kernel
+    source, in `build.SIGNATURES`' letters ("p" pointer, "i" int, "f"
+    float); raises ValueError for a parameter of another type."""
+    out = {}
+    for name, params in _ENTRY.findall(text):
+        sig = ""
+        for param in params.split(","):
+            param = " ".join(param.split())
+            if "*" in param:
+                sig += "p"
+            elif param.startswith(("int ", "float ")):
+                sig += param[0]
+            else:
+                raise ValueError(f"{name}: cannot bind parameter {param!r}")
+        out[name] = sig
+    return out
+
+
+def bind_parent(lib, text: str):
+    """Bind each entry point the library exports by its declaration in the
+    source it was built from."""
+    import ctypes
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    for fn, sig in entry_signatures(text).items():
+        if hasattr(lib, fn):
+            f = getattr(lib, fn)
+            f.argtypes = [kinds[c] for c in sig]
+            f.restype = ctypes.c_int
+    return lib
+
+
+def parent_entry(lib, fn: str, *sigs: str):
+    """The parent's entry point `fn`, refused unless it takes one of the
+    argument lists `sigs` this tool knows how to call."""
+    f = getattr(lib, fn, None)
+    sig = None if getattr(f, "argtypes", None) is None else "".join(
+        {"c_void_p": "p", "c_int": "i", "c_float": "f"}[t.__name__]
+        for t in f.argtypes)
+    if sig not in sigs:
+        raise RuntimeError(f"the parent's {fn} is {sig or 'missing'}; this "
+                           f"tool calls {' or '.join(sigs)}")
+    return f
+
+
+def _four(key, parent_fn, new_fn, times, ms):
+    times[key] = {"parent": [], "new": []}
+    for who, fn in (("parent", parent_fn), ("new", new_fn),
+                    ("new", new_fn), ("parent", parent_fn)):
+        times[key][who].append(ms(who, fn))
+        print(f"{key} {who}: {times[key][who][-1]} ms", flush=True)
+
+
+def leaf_scan_inputs(gen):
+    """Inputs of one union scan at LEAF_SHAPE: leaves of 1 .. 2 x
+    LEAF_MEAN_ROWS valid rows (ids from one permutation of LEAF_N) then -1
+    padding; bitmaps of selectivity LEAF_SEL over LEAF_N rows."""
     import torch
-    if not torch.cuda.is_available():
-        print("time_kernel_redesign: no CUDA device is available",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.kernels import build
-    from repro_torch.kernels.distance import distance_matrix_cuda
+    from repro_torch.kernels import ref
+    qn, u, c, d = LEAF_SHAPE
+    q = torch.randn(qn, d, device="cuda", generator=gen)
+    tiles = torch.randint(-127, 128, (u, c, d), device="cuda", generator=gen,
+                          dtype=torch.int8)
+    sizes = torch.randint(1, 2 * LEAF_MEAN_ROWS, (u, 1), device="cuda",
+                          generator=gen)
+    ids = torch.randperm(LEAF_N, device="cuda", generator=gen).repeat(
+        -(-u * c // LEAF_N))[:u * c]
+    rowids = torch.where(torch.arange(c, device="cuda")[None] < sizes,
+                         ids.reshape(u, c), -1).to(torch.int32).contiguous()
+    scale = torch.rand(d, device="cuda", generator=gen) * 0.02 + 1e-3
+    mean = torch.randn(d, device="cuda", generator=gen) * 0.1
+    from repro_torch.core.types import pack_bool_bitmap
+    bits = torch.rand(qn, LEAF_N, device="cuda", generator=gen) < LEAF_SEL
+    bitmaps = pack_bool_bitmap(bits).contiguous()
+    xd = ref.dequantize(tiles, scale, mean)
+    norms = (xd * xd).sum(-1).contiguous()
+    return q, tiles, rowids, scale, mean, bitmaps, norms
+
+
+def time_flash(parent, device_ms, gen, stream, times):
+    import torch
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.measure import device_ms, rel_l2
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
-    parent_dir = os.path.abspath(args.parent)
-    parent_out = os.path.join(ROOT, "build", "parent_kernels")
-    with ThreadPoolExecutor() as pool:
-        builds = [pool.submit(build.build_all),
-                  pool.submit(build.build_all, PARENT_SOURCES, parent_dir,
-                              parent_out)]
-        for b in builds:
-            b.result()
-    parent = {name: build.load_from(parent_dir, name, parent_out)
-              for name in PARENT_SOURCES}
-    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    # flash attention at the encoder's shape
+    from repro_torch.measure import rel_l2
     b, t, h, hd = FLASH_SHAPE
     q, k, v = (torch.randn(FLASH_SHAPE, device="cuda", generator=gen)
                .to(torch.bfloat16) for _ in range(3))
     out = torch.empty_like(q)
+    entry = parent_entry(parent["flash_attention"], "flash_attention",
+                         "ppppiiiiiiiip")
 
     def flash_parent():
-        status = parent["flash_attention"].flash_attention(
+        status = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t,
             t, h, h, hd, 0, 1, stream())
         if status:
@@ -92,23 +183,23 @@ def main(argv=None) -> int:
     if rel > 1e-2:
         raise RuntimeError(f"flash_attention: parent and new differ, "
                            f"relative L2 {rel}")
-    times = {"flash_attention": {"parent": [], "new": []}}
-    for who, fn in (("parent", flash_parent), ("new", flash_new),
-                    ("new", flash_new), ("parent", flash_parent)):
-        times["flash_attention"][who].append(
-            device_ms(fn, iters=3 if who == "parent" else 20, warmup=1))
-        print(f"flash_attention {who}: {times['flash_attention'][who][-1]} "
-              "ms", flush=True)
-    del q, k, v, out
+    _four("flash_attention", flash_parent, flash_new, times,
+          lambda who, fn: device_ms(fn, iters=3 if who == "parent" else 20,
+                                    warmup=1))
 
-    # distance_matrix at the centroid levels' shapes
+
+def time_distance(parent, device_ms, gen, stream, times):
+    import torch
+    from repro_torch.kernels.distance import distance_matrix_cuda
+    entry = parent_entry(parent["distance"], "distance_matrix_f32",
+                         "pppiiiip")
     for n in (2000, 44):
         qd = torch.randn(64, 128, device="cuda", generator=gen)
         xd = torch.randn(n, 128, device="cuda", generator=gen)
         od = torch.empty(64, n, device="cuda")
 
         def dist_parent():
-            status = parent["distance"].distance_matrix_f32(
+            status = entry(
                 qd.data_ptr(), xd.data_ptr(), od.data_ptr(), 64, n, 128, 0,
                 stream())
             if status:
@@ -122,13 +213,165 @@ def main(argv=None) -> int:
         if not torch.allclose(dist_new(), od, rtol=1e-5, atol=1e-4):
             raise RuntimeError(f"distance_matrix N={n}: parent and new "
                                "differ")
-        key = f"distance_matrix N={n}"
-        times[key] = {"parent": [], "new": []}
-        for who, fn in (("parent", dist_parent), ("new", dist_new),
-                        ("new", dist_new), ("parent", dist_parent)):
-            times[key][who].append(device_ms(fn, iters=200))
-            print(f"{key} {who}: {times[key][who][-1]} ms", flush=True)
-    print(json.dumps({"device_ms": times, "flash_shape": FLASH_SHAPE,
+        _four(f"distance_matrix N={n}", dist_parent, dist_new, times,
+              lambda who, fn: device_ms(fn, iters=200))
+
+
+def _close(name, got, want):
+    import torch
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)):
+        raise RuntimeError(f"{name}: +inf positions differ")
+    if not torch.allclose(got[fin], want[fin], rtol=1e-5, atol=1e-4):
+        err = float((got[fin] - want[fin]).abs().max())
+        raise RuntimeError(f"{name}: max abs error {err}")
+
+
+def time_leaf_scan(parent, device_ms, gen, stream, times):
+    """Parent, new, new, parent at LEAF_SHAPE, and the library call."""
+    import torch
+    from repro_torch.kernels.leaf_scan import leaf_scan_batched_cuda
+    args = leaf_scan_inputs(gen)
+    q, tiles, rowids, scale, mean, bitmaps, norms = args
+    qn, u, c, d = LEAF_SHAPE
+    w = bitmaps.shape[1]
+    out = torch.empty(qn, u, c, device="cuda")
+    masks = torch.empty((-(-qn // 64), 32 * w), dtype=torch.int64,
+                        device="cuda")
+
+    # an older parent's entry takes no pass-mask scratch
+    entry = parent_entry(parent["leaf_scan"], "leaf_scan_batched_f32",
+                         "ppppppppiiiiiip", "pppppppppiiiiiip")
+    scratch = (masks.data_ptr(),) if len(entry.argtypes) == 16 else ()
+
+    def old():
+        status = entry(q.data_ptr(), tiles.data_ptr(), rowids.data_ptr(),
+                       scale.data_ptr(), mean.data_ptr(), bitmaps.data_ptr(),
+                       norms.data_ptr(), *scratch, out.data_ptr(), qn, u, c,
+                       d, w, 0, stream())
+        if status:
+            raise RuntimeError(f"parent leaf_scan_batched: error {status}")
+        return out
+
+    def new():
+        return leaf_scan_batched_cuda(*args, "l2")
+
+    want = old().clone()
+    _close("leaf_scan_batched parent vs new", new(), want)
+    ms = lambda who, fn: device_ms(fn, iters=10, warmup=2)  # noqa: E731
+    _four("leaf_scan_batched", old, new, times, ms)
+    times["leaf_scan_batched"]["library"] = ms("library", lambda: torch.matmul(
+        q, (tiles.to(torch.float32) * scale + mean).reshape(u * c, d).T))
+
+
+def parent_topk(lib, values, k, stream):
+    """The parent's top-k: this checkout's wrapper around the parent's
+    `topk_f32`, or, for an older parent, passes of its `topk_chunk_f32`
+    over the survivors until one chunk is left."""
+    import torch
+    from repro_torch.kernels.topk import topk_cuda
+    if hasattr(lib, "topk_f32"):
+        parent_entry(lib, "topk_f32", "ppppiiip")
+        return topk_cuda(values, k, lib)
+    entry = parent_entry(lib, "topk_chunk_f32", "ppppiiip")
+    n = values.shape[0]
+    chunk = min(1024, max(k, n))
+    vals, idx, m = values, None, n
+    while True:
+        nb = -(-m // chunk)
+        out_v = torch.empty(nb * k, dtype=torch.float32, device="cuda")
+        out_i = torch.empty(nb * k, dtype=torch.int32, device="cuda")
+        status = entry(
+            vals.data_ptr(), None if idx is None else idx.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(), m, chunk, k, stream())
+        if status:
+            raise RuntimeError(f"parent topk: error {status}")
+        if nb == 1:
+            return out_v, out_i
+        vals, idx, m = out_v, out_i, nb * k
+        chunk = max(1024, 2 * k)
+
+
+def time_topk(parent, device_ms, gen, stream, times):
+    import torch
+    from repro_torch.kernels.topk import topk_cuda
+    for n, k in TOPK_CASES:
+        v = torch.randn(n, device="cuda", generator=gen).abs() * 100.0
+        if n < 100_000:
+            v[torch.rand(n, device="cuda", generator=gen) < 0.96] = \
+                float("inf")
+        pv, pi = parent_topk(parent["topk"], v, k, stream)
+        nv, ni = topk_cuda(v, k)
+        if not (torch.equal(pv, nv) and torch.equal(pi, ni)):
+            raise RuntimeError(f"topk n={n} k={k}: parent and new differ")
+        key = f"topk n={n} k={k}"
+        _four(key, lambda: parent_topk(parent["topk"], v, k, stream),
+              lambda: topk_cuda(v, k), times,
+              lambda who, fn: device_ms(fn, iters=200))
+        times[key]["library"] = device_ms(
+            lambda: torch.topk(v, k, largest=False), iters=200)
+
+
+# each takes (parent libraries, device_ms, generator, stream, times) and
+# adds its readings to times
+TIMERS = {"flash_attention": time_flash, "distance_matrix": time_distance,
+          "leaf_scan_batched": time_leaf_scan, "topk": time_topk}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", default=os.path.join(ROOT, "build", "parent"),
+                    help="directory holding the parent's sources the "
+                         "kernels need (csrc/<name>.cu)")
+    ap.add_argument("--kernels", default=DEFAULT_KERNELS,
+                    help="comma-separated kernels to compare, of "
+                         + ", ".join(SOURCES))
+    args = ap.parse_args(argv)
+    try:
+        kernels = parse_kernels(args.kernels)
+    except ValueError as e:
+        ap.error(str(e))
+    parent_dir = os.path.abspath(args.parent)
+    sources = parent_sources(kernels)
+    missing = [s for s in sources
+               if not os.path.exists(os.path.join(parent_dir, f"{s}.cu"))]
+    if missing:
+        ap.error(f"{parent_dir} lacks the parent's "
+                 + ", ".join(f"{s}.cu" for s in missing))
+
+    import torch
+    if not torch.cuda.is_available():
+        print("time_kernel_redesign: no CUDA device is available",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build
+    from repro_torch.measure import device_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    parent_out = os.path.join(ROOT, "build", "parent_kernels")
+    with ThreadPoolExecutor() as pool:
+        builds = [pool.submit(build.build_all),
+                  pool.submit(build.build_all, sources, parent_dir,
+                              parent_out)]
+        for b in builds:
+            b.result()
+    parent = {}
+    for s in sources:
+        with open(os.path.join(parent_dir, f"{s}.cu")) as f:
+            parent[s] = bind_parent(build.load_from(parent_dir, s, parent_out),
+                                    f.read())
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    times: dict = {}
+    for name in kernels:
+        TIMERS[name](parent, device_ms, gen, stream, times)
+        torch.cuda.empty_cache()
+    print(json.dumps({"device_ms": times, "kernels": kernels,
+                      "flash_shape": FLASH_SHAPE, "leaf_shape": LEAF_SHAPE,
                       "nvidia_smi": smi,
                       "device": torch.cuda.get_device_name(0)}))
     return 0
