@@ -74,8 +74,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
-from repro_torch.measure import (device_ms, device_us_by_name,  # noqa: E402
-                                 rel_l2)
+from repro_torch.measure import (cuda_ms, device_ms,  # noqa: E402
+                                 device_us_by_name, rel_l2)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bandwidth, FP32 outside
 # the tensor cores, and bf16 on the tensor cores
@@ -145,22 +145,6 @@ def sync(dev="cuda"):
     import torch
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call of `fn` over `iters` calls, CUDA events."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    sync()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound(nbytes: float, flops: float, peak_ops: float = PEAK_FP32_PER_S
@@ -978,10 +962,15 @@ def phase_kernels(ctx: dict, report: dict) -> list[dict]:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     qn = queries.shape[0]
-    blocks = [graph.neighbors[0, torch.randint(store.n, (qn,), generator=gen,
-                                               device="cuda")].contiguous()
-              for _ in range(8)]
-    out = frontier_kernel_rows(ctx, blocks)
+
+    def hop():
+        return graph.neighbors[0, torch.randint(store.n, (qn,), generator=gen,
+                                                device="cuda")]
+
+    blocks = [hop().contiguous() for _ in range(8)]
+    # the 2-hop chunks (frontier_chunk2 = 64): two neighbor lists a query
+    blocks2 = [torch.cat([hop(), hop()], 1).contiguous() for _ in range(8)]
+    out = frontier_kernel_rows(ctx, blocks, blocks2)
 
     # distance_matrix: one query block against the 2000 leaf centroids
     qb = queries[:p.scann_query_block]
@@ -1160,12 +1149,13 @@ def slice3_kernel_rows(ctx: dict) -> list[dict]:
     return out
 
 
-def frontier_kernel_rows(ctx: dict, blocks) -> list[dict]:
+def frontier_kernel_rows(ctx: dict, blocks, blocks2) -> list[dict]:
     """The four frontier kernels on the main path's (Q, 32) 1-hop blocks,
     over the full-precision and the SQ8 rows of the quantized store: the
     f32 scan with workload A's bitmaps, the others with the family
     workload's, whose radius rows the exclusion variants read, and tau =
-    each query's exact 10th filtered distance (a full W tail)."""
+    each query's exact 10th filtered distance (a full W tail).  The f32
+    and SQ8 scans also on the (Q, 64) 2-hop blocks (`two_hop`)."""
     import torch
     from repro_torch.core import filtered_knn, select_radii
     from repro_torch.kernels import ref
@@ -1208,13 +1198,15 @@ def frontier_kernel_rows(ctx: dict, blocks) -> list[dict]:
     }
     replaces = {"frontier_scan": 92, "frontier_scan_sq8": 164,
                 "frontier_scan_excl": 240, "frontier_scan_excl_sq8": 322}
-    it = iter(range(10 ** 9))
 
-    def pick():
-        return blocks[next(it) % len(blocks)]
+    def measure(name, kern, plain, sq8, has_keep, blocks):
+        """Kernel vs plain on every block, times and the bound, cycling
+        over the blocks."""
+        it = iter(range(10 ** 9))
 
-    out = []
-    for name, (kern, plain, sq8, has_keep) in variants.items():
+        def pick():
+            return blocks[next(it) % len(blocks)]
+
         errs, flips, pruned = [], 0, 0
         for ids in blocks:
             got, want = kern(ids), plain(ids)
@@ -1264,13 +1256,9 @@ def frontier_kernel_rows(ctx: dict, blocks) -> list[dict]:
             nbytes.append(b)
             flops.append(fl)
         b_ms, b_by = bound(sum(nbytes) / len(nbytes), sum(flops) / len(flops))
-        row = {"name": name, "route": "cuda",
-               "source": "src/repro_torch/kernels/csrc/frontier_scan.cu",
-               "replaces": "src/repro/kernels/frontier_scan.py:"
-                           f"{replaces[name]}",
-               "launches": ctx["launches"][name], "max_abs_err": max(errs),
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-               "bound_by": b_by, "library_ms": lib_ms, "call_ms": call_ms,
+        row = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+               "call_ms": call_ms,
                "shape": f"Q={qn} C={blocks[0].shape[1]} d={d} n={st.n}"}
         if has_keep:
             row["keep_vs_plain_flips"] = flips
@@ -1279,6 +1267,25 @@ def frontier_kernel_rows(ctx: dict, blocks) -> list[dict]:
                   f"{flips} of {len(blocks) * blocks[0].numel()} decisions "
                   f"differ from the plain version's ({pruned} pruned)",
                   flush=True)
+        return row
+
+    out = []
+    for name, (kern, plain, sq8, has_keep) in variants.items():
+        row = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/kernels/csrc/frontier_scan.cu",
+               "replaces": "src/repro/kernels/frontier_scan.py:"
+                           f"{replaces[name]}",
+               "launches": ctx["launches"][name]}
+        row.update(measure(name, kern, plain, sq8, has_keep, blocks))
+        if not has_keep:
+            # the 2-hop chunk (frontier_chunk2) the same way
+            two = measure(f"{name} 2-hop", kern, plain, sq8, False, blocks2)
+            row["two_hop"] = two
+            print(f"   {name} 2-hop {two['shape']}: kernel {two['ms']:.4f} ms"
+                  f" plain {two['plain_ms']:.4f} ms library "
+                  f"{two['library_ms']:.4f} ms bound {two['bound_ms']:.4f} ms"
+                  f" ({two['bound_by']}) | per call {two['call_ms']:.4f} ms |"
+                  f" max|err| {two['max_abs_err']:.3g}", flush=True)
         out.append(row)
     return out
 

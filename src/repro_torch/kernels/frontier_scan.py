@@ -17,9 +17,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import frontier_scan_ref as plain  # noqa: F401
 
 
-def _common(name, queries, rows, row_dtype, norms, ids, bitmaps, metric):
+def _common(name, queries, rows, row_dtype, norms, ids, bitmaps, metric,
+            staged: bool):
     """Check the arguments every variant takes; returns (metric code,
-    Q, C, d, W, n, vec4)."""
+    Q, C, d, W, n, vec4).  `staged`: the kernel stages the query in shared
+    memory, one block row a query (the exclusion variants)."""
     code = build.metric_code(metric, name)
     qn, d = queries.shape
     n = rows.shape[0]
@@ -32,10 +34,16 @@ def _common(name, queries, rows, row_dtype, norms, ids, bitmaps, metric):
     build.require(bitmaps, torch.int32, (bitmaps.shape[0], w), "bitmaps")
     if bitmaps.shape[0] != qn or w * 32 < n:
         raise ValueError("bitmaps must be (Q, ceil(n/32)) words")
-    # the query (and, for SQ8, scale and mean) fits the 48 KB of static
-    # shared memory
-    if qn > 65535 or d > (12288 if row_dtype == torch.float32 else 4096):
-        raise ValueError(f"{name} kernel: Q={qn}, d={d} too large")
+    if staged:
+        # grid.y is the query, and the query (and, for SQ8, scale and mean)
+        # fits the 48 KB of shared memory a launch gets by default
+        if qn > 65535 or d > (12288 if row_dtype == torch.float32
+                              else 4096):
+            raise ValueError(f"{name} kernel: Q={qn}, d={d} too large")
+    elif max(qn, c, d) >= 2 ** 31:
+        # the grid strides over (query, 32-candidate) items with no limit
+        # of its own; Q, C and d are C ints
+        raise ValueError(f"{name} kernel: Q={qn}, C={c}, d={d} too large")
     for t in (rows, norms, ids, bitmaps):
         if t.device != queries.device:
             raise ValueError(f"{name}: tensors on different devices")
@@ -81,13 +89,17 @@ def frontier_scan_cuda(queries: torch.Tensor, rows: torch.Tensor,
     -> (dists (Q, C) f32, pass (Q, C) bool)."""
     code, qn, c, d, w, n, vec4 = _common(
         "frontier_scan", queries, rows, torch.float32, norms, ids, bitmaps,
-        metric)
+        metric, staged=False)
     dev = queries.device
     dist, ok = _outputs(qn, c, dev, keep=False)
+    if qn == 0 or c == 0:         # nothing to launch, nothing to count
+        return dist, ok
+    # the stream is read as a raw handle: no Stream object a call
     status = build.load("frontier_scan").frontier_scan_f32(
         queries.data_ptr(), rows.data_ptr(), norms.data_ptr(),
         ids.data_ptr(), bitmaps.data_ptr(), dist.data_ptr(), ok.data_ptr(),
-        qn, c, d, w, n, code, vec4, _stream(dev))
+        qn, c, d, w, n, code, vec4,
+        torch._C._cuda_getCurrentRawStream(dev.index))
     build.check(status, "frontier_scan")
     return dist, ok
 
@@ -98,15 +110,18 @@ def frontier_scan_sq8_cuda(queries, qrows, scale, mean, norms, ids, bitmaps,
     scale/mean (d,) f32, norms (n,) the dequantized rows' ||x̂||^2."""
     code, qn, c, d, w, n, vec4 = _common(
         "frontier_scan_sq8", queries, qrows, torch.int8, norms, ids, bitmaps,
-        metric)
+        metric, staged=False)
     dev = queries.device
     _dequant_args(scale, mean, d, dev)
     dist, ok = _outputs(qn, c, dev, keep=False)
+    if qn == 0 or c == 0:
+        return dist, ok
     status = build.load("frontier_scan").frontier_scan_sq8(
         queries.data_ptr(), qrows.data_ptr(), scale.data_ptr(),
         mean.data_ptr(), norms.data_ptr(), ids.data_ptr(),
         bitmaps.data_ptr(), dist.data_ptr(), ok.data_ptr(),
-        qn, c, d, w, n, code, vec4, _stream(dev))
+        qn, c, d, w, n, code, vec4,
+        torch._C._cuda_getCurrentRawStream(dev.index))
     build.check(status, "frontier_scan_sq8")
     return dist, ok
 
@@ -119,7 +134,7 @@ def frontier_scan_excl_cuda(queries, rows, norms, ids, bitmaps, table,
     -> (dists, pass, keep)."""
     code, qn, c, d, w, n, vec4 = _common(
         "frontier_scan_excl", queries, rows, torch.float32, norms, ids,
-        bitmaps, metric)
+        bitmaps, metric, staged=True)
     dev = queries.device
     _excl_args(table, radius_row, tau, qn, n, dev)
     dist, ok, keep = _outputs(qn, c, dev, keep=True)
@@ -140,7 +155,7 @@ def frontier_scan_excl_sq8_cuda(queries, qrows, scale, mean, norms, ids,
     distances."""
     code, qn, c, d, w, n, vec4 = _common(
         "frontier_scan_excl_sq8", queries, qrows, torch.int8, norms, ids,
-        bitmaps, metric)
+        bitmaps, metric, staged=True)
     dev = queries.device
     _dequant_args(scale, mean, d, dev)
     _excl_args(table, radius_row, tau, qn, n, dev)

@@ -1,7 +1,8 @@
 """Measurements that `chip_smoke.py`, the scripts in `tools_torch/` and the
 card's tests share: device time per call as torch.profiler (CUPTI) records
-it, and the relative L2 error that holds a bf16 kernel against its plain
-version.  Nothing here runs when the module is imported."""
+it, time per call with the host's work (CUDA events), and the relative L2
+error that holds a bf16 kernel against its plain version.  Nothing here
+runs when the module is imported."""
 from __future__ import annotations
 
 
@@ -50,6 +51,24 @@ def device_ms(fn, iters: int = 40, warmup: int = 3) -> float:
             f"the profiler recorded no device time ({len(events)} event "
             f"names, {iters} calls of {getattr(fn, '__name__', fn)})")
     return total_us / iters / 1e3
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean milliseconds per call of `fn` over `iters` calls back to back,
+    CUDA events around them: the host's work of a call counts wherever it
+    is longer than the device's."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def rel_l2(got, want) -> tuple[float, float]:

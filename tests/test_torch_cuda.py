@@ -616,3 +616,174 @@ def test_models_on_card_match_cpu(cuda):
             prompts.numpy(), 8)
         assert ops.launches()["flash_attention"] == 0
         assert (a == b).all(), arch
+
+
+# ---------------------------------------------------------------------------
+# frontier_scan and frontier_scan_sq8: one resident wave of (query,
+# 32-candidate) warp items, at the port's dataset widths
+# ---------------------------------------------------------------------------
+
+_FRONTIER_N = 3000
+
+
+def _frontier_store(cuda, d, seed):
+    """(f32 rows, norms, int8 rows, scale, mean, dequantized norms) of a
+    _FRONTIER_N-row store, from numpy."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    rows = torch.from_numpy(rs.randn(_FRONTIER_N, d).astype("float32"))
+    qrows = torch.from_numpy(rs.randint(-127, 128, (_FRONTIER_N, d))
+                             .astype("int8"))
+    scale = torch.from_numpy((rs.rand(d) * 0.02 + 1e-3).astype("float32"))
+    mean = torch.from_numpy((rs.randn(d) * 0.1).astype("float32"))
+    rows, qrows, scale, mean = (t.to(cuda) for t in (rows, qrows, scale,
+                                                     mean))
+    qnorms = ref.dequantize(qrows, scale, mean).square().sum(-1)
+    return rows, rows.square().sum(-1), qrows, scale, mean, qnorms
+
+
+def _frontier_ids(cuda, qn, c, seed):
+    """(Q, C) ids in [-1, n) with every third query all -1 and a few ids
+    >= n, the same ids with those as -1 (what the plain version takes),
+    and (Q, ceil(n / 32)) bitmaps."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(-1, _FRONTIER_N, (qn, c)).astype("int32")
+    ids[::3] = -1
+    big = rs.rand(qn, c) < 0.05
+    ids[big] = rs.choice([_FRONTIER_N, _FRONTIER_N + 31, 2 ** 31 - 1],
+                         int(big.sum()))
+    w = -(-_FRONTIER_N // 32)
+    bm = rs.randint(-2 ** 31, 2 ** 31 - 1, (qn, w)).astype("int32")
+    ids, bm = torch.from_numpy(ids).to(cuda), torch.from_numpy(bm).to(cuda)
+    return ids, torch.where(ids >= _FRONTIER_N, -1, ids), bm
+
+
+def _frontier_check(got, want):
+    (dk, pk), (dp, pp) = got, want
+    assert torch.equal(pk, pp)
+    _close(dk, dp)
+
+
+@pytest.mark.parametrize("qn", [1, 70, 1000])
+@pytest.mark.parametrize("c", [1, 31, 32, 33, 64, 100])
+@pytest.mark.parametrize("d", [100, 128, 200, 768, 1536])
+def test_frontier_scan_kernels_at_dataset_widths(cuda, d, c, qn):
+    """Both kernels against their plain versions, both metrics: padding,
+    queries of padding only, ids >= n (+inf, pass 0); one launch a call."""
+    from repro_torch.kernels.frontier_scan import (frontier_scan_cuda,
+                                                   frontier_scan_sq8_cuda)
+    rows, norms, qrows, scale, mean, qnorms = _frontier_store(cuda, d, d)
+    ids, plain_ids, bm = _frontier_ids(cuda, qn, c, qn * c + d)
+    g = torch.Generator(device=cuda).manual_seed(qn + c + d)
+    q = torch.randn(qn, d, device=cuda, generator=g) * 0.3
+    for metric in ("l2", "ip"):
+        ops.reset_launches()
+        got = frontier_scan_cuda(q, rows, norms, ids, bm, metric)
+        assert ops.launches()["frontier_scan"] == 1
+        _frontier_check(got, ref.frontier_scan_ref(q, rows, norms, plain_ids,
+                                                   bm, metric))
+        got = frontier_scan_sq8_cuda(q, qrows, scale, mean, qnorms, ids, bm,
+                                     metric)
+        assert ops.launches()["frontier_scan_sq8"] == 1
+        _frontier_check(got, ref.frontier_scan_sq8_ref(
+            q, qrows, scale, mean, qnorms, plain_ids, bm, metric))
+        assert bool(torch.isinf(got[0][::3]).all())
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", [128, 200])
+def test_frontier_scan_kernels_on_unaligned_views(cuda, metric, d):
+    """Rows (and queries) one element off their allocation's alignment take
+    the scalar route; so do SQ8 widths that are not a multiple of 16."""
+    from repro_torch.kernels.frontier_scan import (frontier_scan_cuda,
+                                                   frontier_scan_sq8_cuda)
+    rows, norms, qrows, scale, mean, qnorms = _frontier_store(cuda, d, 7)
+    ids, plain_ids, bm = _frontier_ids(cuda, 70, 33, 8)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(70, d, device=cuda, generator=g) * 0.3
+    rows_off = torch.empty(rows.numel() + 1, device=cuda)[1:].view_as(rows)
+    rows_off.copy_(rows)
+    qrows_off = torch.empty(qrows.numel() + 1, dtype=torch.int8,
+                            device=cuda)[1:].view_as(qrows)
+    qrows_off.copy_(qrows)
+    q_off = torch.empty(q.numel() + 1, device=cuda)[1:].view_as(q)
+    q_off.copy_(q)
+    assert rows_off.data_ptr() % 16 and qrows_off.data_ptr() % 4
+    for qq in (q, q_off):
+        _frontier_check(
+            frontier_scan_cuda(qq, rows_off, norms, ids, bm, metric),
+            ref.frontier_scan_ref(q, rows, norms, plain_ids, bm, metric))
+        _frontier_check(
+            frontier_scan_cuda(qq, rows, norms, ids, bm, metric),
+            ref.frontier_scan_ref(q, rows, norms, plain_ids, bm, metric))
+        for t in (qrows, qrows_off):
+            _frontier_check(
+                frontier_scan_sq8_cuda(qq, t, scale, mean, qnorms, ids, bm,
+                                       metric),
+                ref.frontier_scan_sq8_ref(q, qrows, scale, mean, qnorms,
+                                          plain_ids, bm, metric))
+
+
+def test_frontier_scan_kernels_refuse_what_they_cannot_take(cuda):
+    from repro_torch.kernels.frontier_scan import frontier_scan_cuda
+    rows, norms, *_ = _frontier_store(cuda, 128, 1)
+    ids, _, bm = _frontier_ids(cuda, 4, 32, 2)
+    q = torch.randn(4, 128, device=cuda)
+    with pytest.raises(ValueError, match="bitmaps"):
+        frontier_scan_cuda(q, rows, norms, ids, bm[:, :-1].contiguous())
+    with pytest.raises(ValueError, match="ids"):
+        frontier_scan_cuda(q, rows, norms, ids.long(), bm)
+    ops.reset_launches()
+    for qn, c in ((0, 32), (4, 0)):
+        dist, ok = frontier_scan_cuda(q[:qn], rows, norms,
+                                      ids[:qn, :c].contiguous(), bm[:qn])
+        assert dist.shape == (qn, c) and ok.shape == (qn, c)
+    assert ops.launches()["frontier_scan"] == 0
+
+
+# sha256 of the (dist, pass, keep) bytes both exclusion kernels write on
+# _excl_fixed_inputs, read on the card before the f32 and SQ8 scans of the
+# same source were redesigned: a guard that the shared source leaves them
+# as they were
+EXCL_DIGESTS = {
+    "frontier_scan_excl":
+        "f45545e7c7c620e17fe50093f9fed3f4620c1acadec9d14d57c734322358f731",
+    "frontier_scan_excl_sq8":
+        "500a7a8afa338135e072e4b1a0dd8000fdda62b08fd8a23e91d1ed01671d16d5"}
+
+
+def _excl_fixed_inputs(cuda):
+    import numpy as np
+    rows, norms, qrows, scale, mean, qnorms = _frontier_store(cuda, 100, 11)
+    ids, plain_ids, bm = _frontier_ids(cuda, 70, 33, 12)
+    rs = np.random.RandomState(13)
+    q = torch.from_numpy((rs.randn(70, 100) * 0.3).astype("float32"))
+    table = torch.from_numpy((rs.rand(3, _FRONTIER_N) * 400.0)
+                             .astype("float32"))
+    row = torch.from_numpy(rs.randint(0, 3, 70).astype("int32"))
+    tau = torch.from_numpy((rs.rand(70) * 20.0).astype("float32"))
+    q, table, row, tau = (t.to(cuda) for t in (q, table, row, tau))
+    return (q, rows, norms, qrows, scale, mean, qnorms, plain_ids, bm, table,
+            row, tau)
+
+
+def test_frontier_scan_exclusion_kernels_are_unchanged(cuda):
+    import hashlib
+    from repro_torch.kernels.frontier_scan import (
+        frontier_scan_excl_cuda, frontier_scan_excl_sq8_cuda)
+    (q, rows, norms, qrows, scale, mean, qnorms, ids, bm, table, row,
+     tau) = _excl_fixed_inputs(cuda)
+    outs = {
+        "frontier_scan_excl": frontier_scan_excl_cuda(
+            q, rows, norms, ids, bm, table, row, tau, margin=0.3),
+        "frontier_scan_excl_sq8": frontier_scan_excl_sq8_cuda(
+            q, qrows, scale, mean, qnorms, ids, bm, table, row, tau,
+            margin=0.3)}
+    digests = {}
+    for name, out in outs.items():
+        h = hashlib.sha256()
+        for t in out:
+            h.update(t.cpu().numpy().tobytes())
+        digests[name] = h.hexdigest()
+    assert digests == EXCL_DIGESTS, digests

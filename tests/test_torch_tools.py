@@ -61,12 +61,14 @@ def _timing_tool():
     (" topk , leaf_scan_batched,topk", ["topk", "leaf_scan_batched"]),
     ("flash_attention,distance_matrix", ["flash_attention",
                                          "distance_matrix"]),
+    ("frontier_scan,frontier_scan_sq8", ["frontier_scan",
+                                         "frontier_scan_sq8"]),
 ])
 def test_timing_tool_reads_its_kernel_names(text, want):
     tool = _timing_tool()
     assert tool.parse_kernels(text) == want
-    assert tool.parse_kernels(tool.DEFAULT_KERNELS) == ["leaf_scan_batched",
-                                                        "topk"]
+    assert tool.parse_kernels(tool.DEFAULT_KERNELS) == ["frontier_scan",
+                                                        "frontier_scan_sq8"]
 
 
 def test_timing_tool_names_the_parent_sources_each_kernel_needs():
@@ -77,6 +79,51 @@ def test_timing_tool_names_the_parent_sources_each_kernel_needs():
         "flash_attention", "distance")
     # every source is one the build knows
     assert set(tool.SOURCES.values()) <= set(build.SIGNATURES)
+
+
+@pytest.mark.parametrize("kernels", [["frontier_scan", "frontier_scan_sq8"],
+                                     ["frontier_scan_sq8"]])
+def test_timing_tool_times_both_frontier_scans_from_one_parent_source(
+        kernels):
+    tool = _timing_tool()
+    assert tool.parent_sources(kernels) == ("frontier_scan",)
+    assert set(kernels) <= set(tool.TIMERS)
+
+
+@pytest.mark.parametrize("qn,c,n", [(50, 32, 1000), (7, 64, 4000)])
+def test_timing_tool_frontier_inputs(qn, c, n):
+    """The id blocks cycle over FRONTIER_BLOCKS blocks of ids in [-1, n),
+    about FRONTIER_PAD of them -1, beside (Q, ceil(n / 32)) bitmaps of
+    selectivity about FRONTIER_SEL."""
+    from repro_torch.core.types import unpack_bitmap
+    tool = _timing_tool()
+    g = torch.Generator().manual_seed(0)
+    blocks, bitmaps = tool.frontier_inputs(g, qn, c, n, device="cpu")
+    assert len(blocks) == tool.FRONTIER_BLOCKS
+    ids = torch.stack(blocks)
+    assert ids.dtype == torch.int32 and ids.shape == (len(blocks), qn, c)
+    assert all(b.is_contiguous() for b in blocks)
+    assert int(ids.min()) == -1 and int(ids.max()) < n
+    pad = float((ids == -1).float().mean())
+    assert abs(pad - tool.FRONTIER_PAD) < 0.03
+    assert not torch.equal(blocks[0], blocks[1])
+    assert bitmaps.dtype == torch.int32 and bitmaps.shape == (qn, -(-n // 32))
+    sel = float(unpack_bitmap(bitmaps, n).float().mean())
+    assert abs(sel - tool.FRONTIER_SEL) < 0.02
+
+
+def test_timing_tool_sends_the_parent_wrapper_to_the_parent_library(
+        tmp_path):
+    tool = _timing_tool()
+    assert tool.parent_wrapper(str(tmp_path), object()) is None
+    src = build.CSRC.parent / "frontier_scan.py"
+    shutil.copy(src, tmp_path / "frontier_scan.py")
+    lib = object()
+    mod = tool.parent_wrapper(str(tmp_path), lib)
+    assert mod.build.load("frontier_scan") is lib
+    assert mod.build.require is build.require
+    assert callable(mod.frontier_scan_cuda)
+    assert callable(mod.frontier_scan_sq8_cuda)
 
 
 @pytest.mark.parametrize("text", ["leaf_scan_batched,bogus", "", "topk2"])

@@ -2,15 +2,16 @@
 process on one card.
 
     mkdir -p build/parent
-    for f in leaf_scan topk; do
-        git show <parent>:src/repro_torch/kernels/csrc/$f.cu \\
-            > build/parent/$f.cu
-    done
+    git show <parent>:src/repro_torch/kernels/csrc/frontier_scan.cu \\
+        > build/parent/frontier_scan.cu
+    git show <parent>:src/repro_torch/kernels/frontier_scan.py \\
+        > build/parent/frontier_scan.py          # optional: per-call times
     python3 tools_torch/time_kernel_redesign.py --parent build/parent \\
-        --kernels leaf_scan_batched,topk
+        --kernels frontier_scan,frontier_scan_sq8
 
-`--kernels` names the kernels to compare (default leaf_scan_batched,topk;
-flash_attention,distance_matrix is the earlier pair); each needs its
+`--kernels` names the kernels to compare (default
+frontier_scan,frontier_scan_sq8; leaf_scan_batched,topk and
+flash_attention,distance_matrix are the earlier pairs); each needs its
 parent's source in `--parent` (`parent_sources`).  The parent's sources
 build with the port's nvcc flags into `build/parent_kernels/` while this
 checkout's own build.  Each parent entry point is bound by the C
@@ -20,6 +21,14 @@ leaf_scan_batched entry with or without its mask scratch, topk's one
 `topk_f32` call or the older per-chunk `topk_chunk_f32` passes), and an
 interface the tool does not know is refused before any call.  Then each
 kernel is timed parent, new, new, parent at the main path's shapes:
+- frontier_scan, frontier_scan_sq8: (Q, C, d) = (1000, 32, 128) and
+  (1000, 64, 128), L2, over a 1M-row store (f32 rows, or int8 rows with
+  scale and mean); the ids cycle over 8 blocks of uniform ids with about
+  10 % -1 padding (8 x 16 MB of f32 rows against the 50 MB L2), bitmaps
+  (Q, 31,250) words of selectivity 0.1.  Device time through the parent's
+  entry point; with the parent's wrapper `frontier_scan.py` beside its
+  source, also the time per call with the host's work (CUDA events)
+  through the parent's wrapper and this checkout's;
 - flash_attention: q, k, v (2, 8192, 16, 80) bf16, non-causal, the
   hubert-xlarge encoder's prefill; parent and new agree within relative L2
   1e-2 (the new route rounds P to bf16);
@@ -32,13 +41,15 @@ kernel is timed parent, new, new, parent at the main path's shapes:
 - topk: n = 56,640, k = 40 (one query's per-query ScaNN scores, 96 %
   +inf) and n = 1M, k = 10 (one query's distances); `torch.topk` beside.
 Distances agree within allclose(1e-5, 1e-4) with the same +inf pattern;
-ids and top-k values exactly.  Device milliseconds per call from
-torch.profiler, as `chip_smoke.py` takes them.  Prints one JSON line with
-every time, the card's name and its power limit.
+ids, pass flags and top-k values exactly.  Device milliseconds per call
+from torch.profiler, as `chip_smoke.py` takes them (`call_parent` and
+`call_new`: milliseconds per call with the host's work).  Prints one JSON
+line with every time, the card's name and its power limit.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import re
@@ -53,10 +64,19 @@ FLASH_SHAPE = (2, 8192, 16, 80)
 LEAF_SHAPE = (64, 1345, 1416, 128)
 LEAF_N, LEAF_MEAN_ROWS, LEAF_SEL = 1_000_000, 500, 0.1
 TOPK_CASES = ((56_640, 40), (1_000_000, 10))
+# the graph engine's 1-hop and 2-hop (frontier_chunk2) candidate chunks at
+# the SIFT1M-shaped main path; ids over FRONTIER_N rows, cycling over
+# FRONTIER_BLOCKS blocks, a FRONTIER_PAD share of -1; bitmaps of
+# selectivity FRONTIER_SEL
+FRONTIER_SHAPES = ((1000, 32, 128), (1000, 64, 128))
+FRONTIER_N, FRONTIER_BLOCKS, FRONTIER_PAD, FRONTIER_SEL = (
+    1_000_000, 8, 0.1, 0.1)
 # each kernel's parent source under --parent
 SOURCES = {"flash_attention": "flash_attention", "distance_matrix": "distance",
-           "leaf_scan_batched": "leaf_scan", "topk": "topk"}
-DEFAULT_KERNELS = "leaf_scan_batched,topk"
+           "leaf_scan_batched": "leaf_scan", "topk": "topk",
+           "frontier_scan": "frontier_scan",
+           "frontier_scan_sq8": "frontier_scan"}
+DEFAULT_KERNELS = "frontier_scan,frontier_scan_sq8"
 # an entry point's C declaration in a kernel source
 _ENTRY = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
 
@@ -154,6 +174,122 @@ def leaf_scan_inputs(gen):
     xd = ref.dequantize(tiles, scale, mean)
     norms = (xd * xd).sum(-1).contiguous()
     return q, tiles, rowids, scale, mean, bitmaps, norms
+
+
+def frontier_inputs(gen, qn: int, c: int, n: int, device="cuda"):
+    """FRONTIER_BLOCKS (Q, C) int32 candidate blocks of uniform ids over n
+    rows, a FRONTIER_PAD share of them -1, and (Q, ceil(n / 32)) int32
+    bitmaps of selectivity FRONTIER_SEL."""
+    import torch
+    from repro_torch.core.types import pack_bool_bitmap
+    blocks = []
+    for _ in range(FRONTIER_BLOCKS):
+        ids = torch.randint(n, (qn, c), device=device, generator=gen,
+                            dtype=torch.int32)
+        pad = torch.rand(qn, c, device=device, generator=gen) < FRONTIER_PAD
+        blocks.append(torch.where(pad, -1, ids).to(torch.int32).contiguous())
+    bits = torch.rand(qn, n, device=device, generator=gen) < FRONTIER_SEL
+    return blocks, pack_bool_bitmap(bits).contiguous()
+
+
+def parent_wrapper(parent_dir: str, lib):
+    """The parent's wrapper module `<parent_dir>/frontier_scan.py` with its
+    library lookups sent to the parent's build `lib`, or None when the
+    directory holds no wrapper."""
+    import importlib.util
+    import types
+    from repro_torch.kernels import build
+    path = os.path.join(parent_dir, "frontier_scan.py")
+    if not os.path.exists(path):
+        return None
+    spec = importlib.util.spec_from_file_location("parent_frontier_scan",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    shim = {k: getattr(build, k) for k in dir(build) if not k.startswith("_")}
+    shim["load"] = lambda name: lib
+    mod.build = types.SimpleNamespace(**shim)
+    return mod
+
+
+def time_frontier(sq8: bool, parent, device_ms, gen, stream, times):
+    """Parent, new, new, parent at FRONTIER_SHAPES; with the parent's
+    wrapper, the time per call of both wrappers the same way."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.frontier_scan import (frontier_scan_cuda,
+                                                   frontier_scan_sq8_cuda)
+    from repro_torch.measure import cuda_ms
+    name = "frontier_scan_sq8" if sq8 else "frontier_scan"
+    d, n = FRONTIER_SHAPES[0][2], FRONTIER_N
+    if sq8:
+        rows = torch.randint(-127, 128, (n, d), device="cuda", generator=gen,
+                             dtype=torch.int8)
+        scale = torch.rand(d, device="cuda", generator=gen) * 0.02 + 1e-3
+        mean = torch.randn(d, device="cuda", generator=gen) * 0.1
+        norms = ref.dequantize(rows, scale, mean).square().sum(-1)
+        args, extra = (rows, scale, mean, norms), (scale, mean)
+        new_fn, plain_fn = frontier_scan_sq8_cuda, ref.frontier_scan_sq8_ref
+        entry = parent_entry(parent["frontier_scan"], "frontier_scan_sq8",
+                             "pppppppppiiiiiiip")
+    else:
+        rows = torch.randn(n, d, device="cuda", generator=gen)
+        norms = rows.square().sum(-1)
+        args, extra = (rows, norms), ()
+        new_fn, plain_fn = frontier_scan_cuda, ref.frontier_scan_ref
+        entry = parent_entry(parent["frontier_scan"], "frontier_scan_f32",
+                             "pppppppiiiiiiip")
+    wrapper = parent.get("frontier_scan.py")
+    old_fn = None if wrapper is None else getattr(wrapper, new_fn.__name__)
+    for qn, c, _ in FRONTIER_SHAPES:
+        q = torch.randn(qn, d, device="cuda", generator=gen)
+        blocks, bitmaps = frontier_inputs(gen, qn, c, n)
+        w = bitmaps.shape[1]
+        dist = torch.empty(qn, c, device="cuda")
+        ok = torch.empty(qn, c, dtype=torch.bool, device="cuda")
+        turn = itertools.count()
+
+        def pick():
+            return blocks[next(turn) % len(blocks)]
+
+        def old(ids=None):
+            ids = pick() if ids is None else ids
+            status = entry(q.data_ptr(), rows.data_ptr(),
+                           *(t.data_ptr() for t in extra), norms.data_ptr(),
+                           ids.data_ptr(), bitmaps.data_ptr(),
+                           dist.data_ptr(), ok.data_ptr(), qn, c, d, w, n, 0,
+                           1, stream())
+            if status:
+                raise RuntimeError(f"parent {name}: error {status}")
+            return dist, ok
+
+        def new(ids=None):
+            return new_fn(q, *args, pick() if ids is None else ids, bitmaps)
+
+        key = f"{name} Q={qn} C={c}"
+        for i, ids in enumerate(blocks):
+            want_d, want_p = (t.clone() for t in old(ids))
+            got_d, got_p = new(ids)
+            if not torch.equal(got_p, want_p):
+                raise RuntimeError(f"{key}: parent and new pass flags differ")
+            _close(f"{key} parent vs new", got_d, want_d)
+            if i == 0:
+                plain_d, plain_p = plain_fn(q, *args, ids, bitmaps)
+                if not torch.equal(got_p, plain_p):
+                    raise RuntimeError(f"{key}: pass flags differ from the "
+                                       "plain version")
+                _close(f"{key} new vs plain", got_d, plain_d)
+        _four(key, old, new, times,
+              lambda who, fn: device_ms(fn, iters=200))
+        if old_fn is not None:
+            calls = {"parent": lambda: old_fn(q, *args, pick(), bitmaps),
+                     "new": new}
+            times[key]["call_parent"], times[key]["call_new"] = [], []
+            for who in ("parent", "new", "new", "parent"):
+                times[key][f"call_{who}"].append(cuda_ms(calls[who],
+                                                         iters=200))
+                print(f"{key} per call {who}: "
+                      f"{times[key][f'call_{who}'][-1]} ms", flush=True)
 
 
 def time_flash(parent, device_ms, gen, stream, times):
@@ -314,7 +450,9 @@ def time_topk(parent, device_ms, gen, stream, times):
 
 # each takes (parent libraries, device_ms, generator, stream, times) and
 # adds its readings to times
-TIMERS = {"flash_attention": time_flash, "distance_matrix": time_distance,
+TIMERS = {"frontier_scan": lambda *a: time_frontier(False, *a),
+          "frontier_scan_sq8": lambda *a: time_frontier(True, *a),
+          "flash_attention": time_flash, "distance_matrix": time_distance,
           "leaf_scan_batched": time_leaf_scan, "topk": time_topk}
 
 
@@ -364,6 +502,9 @@ def main(argv=None) -> int:
         with open(os.path.join(parent_dir, f"{s}.cu")) as f:
             parent[s] = bind_parent(build.load_from(parent_dir, s, parent_out),
                                     f.read())
+    if "frontier_scan" in parent:
+        parent["frontier_scan.py"] = parent_wrapper(parent_dir,
+                                                    parent["frontier_scan"])
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     gen = torch.Generator(device="cuda").manual_seed(0)
     times: dict = {}
@@ -371,6 +512,7 @@ def main(argv=None) -> int:
         TIMERS[name](parent, device_ms, gen, stream, times)
         torch.cuda.empty_cache()
     print(json.dumps({"device_ms": times, "kernels": kernels,
+                      "frontier_shapes": FRONTIER_SHAPES,
                       "flash_shape": FLASH_SHAPE, "leaf_shape": LEAF_SHAPE,
                       "nvidia_smi": smi,
                       "device": torch.cuda.get_device_name(0)}))
