@@ -37,7 +37,9 @@ Phases:
             path's shapes, with its device time (torch.profiler), the plain
             version's, one PyTorch library call's, the least time the card
             could take, and the time per call with the host's work (CUDA
-            events around back-to-back calls); flash_attention at the
+            events around back-to-back calls); the exclusion pair's keep
+            exactly the rule on its own distances, and no padded id kept
+            at margin 0 (0 * inf is NaN); flash_attention at the
             encoder's shape, (2, 8192, 16, 80) bf16, through the tensor-core
             route under a relative-L2 limit that two broken kernels (the
             last 128 keys cut, the scale dropped) must fail, with SDPA as
@@ -1184,14 +1186,14 @@ def frontier_kernel_rows(ctx: dict, blocks, blocks2) -> list[dict]:
             lambda ids: ref.frontier_scan_sq8_ref(queries, *q8, ids, fbm),
             True, False),
         "frontier_scan_excl": (
-            lambda ids: frontier_scan_excl_cuda(queries, *f32, ids, fbm, *ex,
-                                                margin=EXCL_MARGIN),
+            lambda ids, m=EXCL_MARGIN: frontier_scan_excl_cuda(
+                queries, *f32, ids, fbm, *ex, margin=m),
             lambda ids: ref.frontier_scan_excl_ref(queries, *f32, ids, fbm,
                                                    *ex, margin=EXCL_MARGIN),
             False, True),
         "frontier_scan_excl_sq8": (
-            lambda ids: frontier_scan_excl_sq8_cuda(
-                queries, *q8, ids, fbm, *ex, margin=EXCL_MARGIN),
+            lambda ids, m=EXCL_MARGIN: frontier_scan_excl_sq8_cuda(
+                queries, *q8, ids, fbm, *ex, margin=m),
             lambda ids: ref.frontier_scan_excl_sq8_ref(
                 queries, *q8, ids, fbm, *ex, margin=EXCL_MARGIN),
             True, True),
@@ -1261,12 +1263,27 @@ def frontier_kernel_rows(ctx: dict, blocks, blocks2) -> list[dict]:
                "call_ms": call_ms,
                "shape": f"Q={qn} C={blocks[0].shape[1]} d={d} n={st.n}"}
         if has_keep:
+            # padding at margin 0: the rule's bound there is 0 * inf = NaN,
+            # so no padded id is kept (and the rest follow the rule)
+            pad = blocks[0].clone()
+            pad[::3] = -1
+            pad[:, ::5] = -1
+            got = kern(pad, 0.0)
+            e = ref.gather_radii(radii.table, radii.rows, pad)
+            check(bool(torch.equal(got[2], ref.excl_keep_mask(
+                got[0], e, tau[:, None], got[1], 0.0))),
+                f"{name}: keep at margin 0 differs from the rule")
+            pad_kept = int(got[2][pad < 0].sum())
+            check(pad_kept == 0, f"{name}: {pad_kept} padded ids kept at "
+                  "margin 0")
+            row["padding_kept_at_margin_0"] = pad_kept
             row["keep_vs_plain_flips"] = flips
             row["keep_pruned"] = pruned
             print(f"   {name}: keep exact against its own distances; "
                   f"{flips} of {len(blocks) * blocks[0].numel()} decisions "
-                  f"differ from the plain version's ({pruned} pruned)",
-                  flush=True)
+                  f"differ from the plain version's ({pruned} pruned); "
+                  f"{int((pad < 0).sum())} padded ids at margin 0, "
+                  f"{pad_kept} kept", flush=True)
         return row
 
     out = []

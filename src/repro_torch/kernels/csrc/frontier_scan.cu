@@ -12,10 +12,11 @@
 // SQ8 variants read int8 shadow rows and dequantize in the kernel
 // (x = t * scale + mean, ||x||^2 precomputed from the dequantized rows).
 // The exclusion variants add the FAVOR keep mask: keep = pass |
-// sqrt(e) <= margin * (sqrt(d) + sqrt(tau)) on the +inf-masked distance,
-// with e the candidate's squared exclusion radius, read from row
-// `radius_row[q]` of an (R + F, n) radius table, and tau the query's
-// current result-queue tail.  FP32 FMA arithmetic, no --use_fast_math:
+// sqrt(e) <= margin * (sqrt(d) + sqrt(tau)) on the +inf-masked distance
+// (each value clamped at 0 first), with e the candidate's squared
+// exclusion radius, read from row `radius_row[q]` of an (R + F, n) radius
+// table, and tau the query's current result-queue tail.  FP32 FMA
+// arithmetic, no --use_fast_math:
 // sqrtf stays correctly rounded; summation order differs from the plain
 // version, so distances agree within allclose(1e-5, 1e-4).
 //
@@ -28,7 +29,7 @@
 // enough rows in flight on every SM to hide ~0.7 us of device-memory
 // latency at 3.35 TB/s (~18 KB an SM).
 //
-// What the design does about it (frontier_scan_f32, frontier_scan_sq8):
+// What the design does about it (all four variants):
 // - One resident wave.  A warp scores one (query, 32-candidate slab) item;
 //   the grid holds no more one-warp blocks than fit on the card at once,
 //   and each warp walks items with a grid stride, so no block waits for
@@ -56,13 +57,26 @@
 // d > 1024) run a generic kernel with the same item loop and id-first
 // loads, scalar row loads four rows at a time, the query through L1.
 //
-// The exclusion variants keep the earlier design (one warp a candidate, the
-// query staged in shared memory); they are the next redesign.
+// The exclusion variants (frontier_scan_excl_f32, frontier_scan_excl_sq8)
+// are the same three kernels with a template flag, launched the same way.
+// What they add to the work is one 4-byte squared radius a candidate: a
+// third random 32-byte sector beside the norm and the bitmap word, out of a
+// (13, 1M) table on the main path (52 MB, a little over the 50 MB L2), and
+// one keep byte out.  So the same latency bounds them, and the design keeps
+// the chain as short as the plain scans': each warp reads its query's
+// table row and tau at the item's start, beside the ids, so each lane's
+// radius load table[row * n + id] issues with its norm and bitmap word
+// (id -> {row, norm, word, radius}: two dependent round trips, not four),
+// and lane j completes keep[q, j] from its own distance and stores it
+// beside dist and pass.  Padding's keep is the rule at d = +inf (with no
+// radius loaded): margin * inf bounds every radius only for margin > 0;
+// 0 * inf is NaN and a negative margin gives -inf, so keep is then false.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
 #include <utility>
 #include <vector>
 
@@ -70,11 +84,6 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBlock = 32;  // one warp a block
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
-  return v;
-}
 
 // The sum over a group of G lanes, in every lane of the group.
 template <int G>
@@ -129,8 +138,23 @@ struct Scan {
   int Q, C, d, W, n, metric;
 };
 
+// The exclusion variants' arguments, a struct of their own: with these
+// fields in Scan, ptxas scheduled the plain SQ8 kernel's row loads one
+// after another (on an H100, 0.0058 -> 0.0082 ms at (1000, 32, 128)).
+struct ExclScan : Scan {
+  const float* table;      // (R + F, n) squared exclusion radii
+  const int* radius_row;   // (Q,) the table row each query reads
+  const float* tau;        // (Q,) the query's result-queue tail
+  unsigned char* keep;     // (Q, C) out
+  float margin;
+};
+
+template <bool EX>
+using Args = std::conditional_t<EX, ExclScan, Scan>;
+
 // One warp's (query, 32-candidate slab) item: lane j holds candidate j's
-// id, whether it is a row of the store, its norm and its bitmap word.
+// id, whether it is a row of the store, its norm and its bitmap word; with
+// exclusion also its squared radius (0 for padding) and the query's tau.
 struct Slab {
   int qi, c, id;
   size_t o;
@@ -138,22 +162,44 @@ struct Slab {
   unsigned live;  // ballot of valid
   float norm;
   unsigned word;
+  float e, tau;
 };
 
-// Loads the slab's ids (one a lane), then each lane's norm and bitmap word.
-// Returns false, after writing +inf / 0, for a slab of padding only.
-__device__ __forceinline__ bool slab_head(const Scan& a, long long item,
+// The FAVOR keep rule on one candidate, in ref.excl_keep_mask's order:
+// pass | sqrt(e) <= margin * (sqrt(d) + sqrt(tau)), each clamped at 0.
+__device__ __forceinline__ unsigned char keep_rule(float dist, float e,
+                                                   float tau, float margin,
+                                                   unsigned char ok) {
+  const float bound =
+      margin * (sqrtf(fmaxf(dist, 0.f)) + sqrtf(fmaxf(tau, 0.f)));
+  return ok | (unsigned char)(sqrtf(fmaxf(e, 0.f)) <= bound);
+}
+
+// Loads the slab's ids (one a lane), with EX the query's table row and tau
+// beside them, then each lane's norm, bitmap word and (EX) radius.  Returns
+// false, after writing +inf / 0 (and keep by the rule), for a slab of
+// padding only.
+template <bool EX>
+__device__ __forceinline__ bool slab_head(const Args<EX>& a, long long item,
                                           int slabs, int lane, Slab& s) {
   s.qi = (int)(item / slabs);
   s.c = (int)(item - (long long)s.qi * slabs) * 32 + lane;
   s.o = (size_t)s.qi * a.C + s.c;
+  int row = 0;
+  if constexpr (EX) {
+    row = __ldg(a.radius_row + s.qi);
+    s.tau = __ldg(a.tau + s.qi);
+  }
   s.id = s.c < a.C ? __ldg(a.ids + s.o) : -1;
   s.valid = (unsigned)s.id < (unsigned)a.n;
   s.live = __ballot_sync(kFull, s.valid);
+  s.e = 0.f;
   if (s.live == 0u) {
     if (s.c < a.C) {
       a.dist[s.o] = INFINITY;
       a.pass[s.o] = 0;
+      if constexpr (EX)
+        a.keep[s.o] = keep_rule(INFINITY, s.e, s.tau, a.margin, 0);
     }
     return false;
   }
@@ -162,17 +208,24 @@ __device__ __forceinline__ bool slab_head(const Scan& a, long long item,
   if (s.valid) {
     if (a.metric == 0) s.norm = __ldg(a.norms + s.id);
     s.word = (unsigned)__ldg(a.bitmaps + (size_t)s.qi * a.W + (s.id >> 5));
+    if constexpr (EX) s.e = __ldg(a.table + (size_t)row * a.n + s.id);
   }
   return true;
 }
 
-// Lane j completes candidate j's distance from its dot product and stores it.
-__device__ __forceinline__ void slab_store(const Scan& a, const Slab& s,
+// Lane j completes candidate j's distance from its dot product and stores
+// it, its pass flag and (EX) its keep flag: coalesced stores.
+template <bool EX>
+__device__ __forceinline__ void slab_store(const Args<EX>& a, const Slab& s,
                                            float ip, float qq) {
   if (s.c >= a.C) return;
-  a.dist[s.o] = !s.valid ? INFINITY
-                         : (a.metric == 1 ? -ip : qq + s.norm - 2.f * ip);
-  a.pass[s.o] = s.valid ? (unsigned char)((s.word >> (s.id & 31)) & 1u) : 0;
+  const float dist = !s.valid ? INFINITY
+                              : (a.metric == 1 ? -ip : qq + s.norm - 2.f * ip);
+  const unsigned char ok =
+      s.valid ? (unsigned char)((s.word >> (s.id & 31)) & 1u) : 0;
+  a.dist[s.o] = dist;
+  a.pass[s.o] = ok;
+  if constexpr (EX) a.keep[s.o] = keep_rule(dist, s.e, s.tau, a.margin, ok);
 }
 
 __device__ __forceinline__ long long first_item() {
@@ -186,8 +239,8 @@ __device__ __forceinline__ long long item_stride() {
 // f32 rows, d % 4 == 0, 16-byte aligned: lane holds float4s lane + 32 k
 // (k < K) of the query and of each row; the source loads R rows a step
 // (how many stay in flight is ptxas's choice).
-template <int K, int R>
-__global__ void __launch_bounds__(kBlock) scan_f32_kernel(Scan a) {
+template <bool EX, int K, int R>
+__global__ void __launch_bounds__(kBlock) scan_f32_kernel(Args<EX> a) {
   const int lane = threadIdx.x & 31;
   const int slabs = (a.C + 31) >> 5;
   const long long items = (long long)a.Q * slabs;
@@ -203,7 +256,7 @@ __global__ void __launch_bounds__(kBlock) scan_f32_kernel(Scan a) {
     for (int k = 0; k < K; ++k)
       qv[k] = lane + 32 * k < nv ? __ldg(q4 + lane + 32 * k) : zero;
     Slab s;
-    if (!slab_head(a, it, slabs, lane, s)) continue;
+    if (!slab_head<EX>(a, it, slabs, lane, s)) continue;
     float p[32];
 #pragma unroll
     for (int r0 = 0; r0 < 32; r0 += R) {
@@ -239,7 +292,7 @@ __global__ void __launch_bounds__(kBlock) scan_f32_kernel(Scan a) {
               qv[k].w * qv[k].w;
       qq = group_allsum<32>(qq);
     }
-    slab_store(a, s, transpose_sum<32>(p, lane), qq);
+    slab_store<EX>(a, s, transpose_sum<32>(p, lane), qq);
   }
 }
 
@@ -260,8 +313,8 @@ __device__ __forceinline__ void load16(const float* p, float (&v)[16]) {
 // j + G k, k < K), so one warp instruction reads 32 / G rows.  Group g
 // scores rows g G .. g G + G - 1, one a step, R steps of loads at a time;
 // the lane's query, scale and mean slices live in registers.
-template <int G, int K, int R>
-__global__ void __launch_bounds__(kBlock) scan_sq8_kernel(Scan a) {
+template <bool EX, int G, int K, int R>
+__global__ void __launch_bounds__(kBlock) scan_sq8_kernel(Args<EX> a) {
   const int lane = threadIdx.x & 31;
   const int g = lane / G, j = lane % G;
   const int slabs = (a.C + 31) >> 5;
@@ -294,7 +347,7 @@ __global__ void __launch_bounds__(kBlock) scan_sq8_kernel(Scan a) {
       }
     }
     Slab s;
-    if (!slab_head(a, it, slabs, lane, s)) continue;
+    if (!slab_head<EX>(a, it, slabs, lane, s)) continue;
     // each lane asks L2 for its own candidate's row now; the products'
     // loads below then wait on L2, not on device memory
     if (s.valid)
@@ -339,21 +392,21 @@ __global__ void __launch_bounds__(kBlock) scan_sq8_kernel(Scan a) {
       qq = group_allsum<G>(qq);
     }
     // lane j of group g now holds row g G + j, which is its own lane
-    slab_store(a, s, transpose_sum<G>(p, lane), qq);
+    slab_store<EX>(a, s, transpose_sum<G>(p, lane), qq);
   }
 }
 
 // Any d, any alignment: scalar row loads, four rows at a time over the
 // slab's live rows, the query (and scale, mean) read through L1.
-template <bool SQ8>
-__global__ void __launch_bounds__(kBlock) scan_generic_kernel(Scan a) {
+template <bool EX, bool SQ8>
+__global__ void __launch_bounds__(kBlock) scan_generic_kernel(Args<EX> a) {
   const int lane = threadIdx.x & 31;
   const int slabs = (a.C + 31) >> 5;
   const long long items = (long long)a.Q * slabs;
   const int d = a.d;
   for (long long it = first_item(); it < items; it += item_stride()) {
     Slab s;
-    if (!slab_head(a, it, slabs, lane, s)) continue;
+    if (!slab_head<EX>(a, it, slabs, lane, s)) continue;
     const float* qrow = a.queries + (size_t)s.qi * d;
     float mine = 0.f;
     unsigned rem = s.live;
@@ -402,7 +455,7 @@ __global__ void __launch_bounds__(kBlock) scan_generic_kernel(Scan a) {
       }
       qq = group_allsum<32>(qq);
     }
-    slab_store(a, s, mine, qq);
+    slab_store<EX>(a, s, mine, qq);
   }
 }
 
@@ -431,7 +484,8 @@ int blocks_per_sm(const void* kernel) {
 
 // One resident wave: a one-warp block an item, at most as many blocks as
 // fit on the card at once (each warp then walks items by stride).
-int launch_items(void (*kernel)(Scan), const Scan& a, void* stream) {
+template <class A>
+int launch_items(void (*kernel)(A), const A& a, void* stream) {
   if (a.Q == 0 || a.C == 0) return 0;
   long long blocks = (long long)a.Q * ((a.C + 31) / 32);
   const long long wave = (long long)blocks_per_sm((const void*)kernel) *
@@ -443,149 +497,34 @@ int launch_items(void (*kernel)(Scan), const Scan& a, void* stream) {
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 
-// ---------------------------------------------------------------------------
-// The exclusion variants: one warp a candidate, the query (and for SQ8
-// scale and mean) staged in shared memory by a block of 8 warps that shares
-// one query.
-// ---------------------------------------------------------------------------
-
-constexpr int kWarps = 8;
-
-struct Excl {
-  const float* table;    // (R + F, n) squared exclusion radii
-  const int* row;        // (Q,) row of the table each query reads
-  const float* tau;      // (Q,) current result-queue tail
-  unsigned char* keep;   // (Q, C) out
-  float margin;
-};
-
-// SQ8: rows are int8 and the shared block holds query, scale and mean.
-template <bool SQ8>
-__global__ void frontier_scan_excl_kernel(const float* __restrict__ queries,
-                                          const void* __restrict__ rows_,
-                                          const float* __restrict__ scale,
-                                          const float* __restrict__ mean,
-                                          const float* __restrict__ norms,
-                                          const int* __restrict__ ids,
-                                          const int* __restrict__ bitmaps,
-                                          float* __restrict__ dist,
-                                          unsigned char* __restrict__ pass,
-                                          Excl ex, int C, int d, int W, int n,
-                                          int metric, int vec4) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  const int dpad = (d + 3) & ~3;
-  float* ss = qs + dpad;          // SQ8 only: scale, then mean
-  float* ms = ss + dpad;
-  const int qi = blockIdx.y;
-  const float* qrow = queries + (size_t)qi * d;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    qs[i] = qrow[i];
-    if (SQ8) {
-      ss[i] = scale[i];
-      ms[i] = mean[i];
-    }
+// The register-layout f32 kernel for d, else the generic one.
+template <bool EX>
+int launch_f32(const Args<EX>& a, int vec4, void* stream) {
+  const int nv = a.d / 4;
+  if (vec4 && aligned16(a.queries) && nv <= 384) {
+    if (nv <= 32) return launch_items(scan_f32_kernel<EX, 1, 8>, a, stream);
+    if (nv <= 64) return launch_items(scan_f32_kernel<EX, 2, 4>, a, stream);
+    if (nv <= 128) return launch_items(scan_f32_kernel<EX, 4, 2>, a, stream);
+    if (nv <= 256) return launch_items(scan_f32_kernel<EX, 8, 1>, a, stream);
+    return launch_items(scan_f32_kernel<EX, 12, 1>, a, stream);
   }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int c = blockIdx.x * kWarps + warp;
-  if (c >= C) return;
-  const size_t o = (size_t)qi * C + c;
-  const int id = ids[o];
-  if (id < 0 || id >= n) {
-    if (lane == 0) {
-      dist[o] = INFINITY;
-      pass[o] = 0;
-      // +inf distance: sqrt(e) <= margin * inf holds for any radius
-      ex.keep[o] = 1;
-    }
-    return;
-  }
-  float ip = 0.f, qq = 0.f;
-  if (SQ8) {
-    const int8_t* t = reinterpret_cast<const int8_t*>(rows_) + (size_t)id * d;
-    if (vec4) {
-      const char4* t4 = reinterpret_cast<const char4*>(t);
-      const float4* q4 = reinterpret_cast<const float4*>(qs);
-      const float4* s4 = reinterpret_cast<const float4*>(ss);
-      const float4* m4 = reinterpret_cast<const float4*>(ms);
-      for (int i = lane; i < (d >> 2); i += 32) {
-        const char4 a = __ldg(t4 + i);
-        const float4 b = q4[i], s = s4[i], m = m4[i];
-        const float x0 = (float)a.x * s.x + m.x, x1 = (float)a.y * s.y + m.y;
-        const float x2 = (float)a.z * s.z + m.z, x3 = (float)a.w * s.w + m.w;
-        ip += x0 * b.x + x1 * b.y + x2 * b.z + x3 * b.w;
-        qq += b.x * b.x + b.y * b.y + b.z * b.z + b.w * b.w;
-      }
-    } else {
-      for (int i = lane; i < d; i += 32) {
-        const float b = qs[i];
-        ip += ((float)__ldg(t + i) * ss[i] + ms[i]) * b;
-        qq += b * b;
-      }
-    }
-  } else {
-    const float* x = reinterpret_cast<const float*>(rows_) + (size_t)id * d;
-    if (vec4) {
-      const float4* x4 = reinterpret_cast<const float4*>(x);
-      const float4* q4 = reinterpret_cast<const float4*>(qs);
-      for (int i = lane; i < (d >> 2); i += 32) {
-        const float4 a = __ldg(x4 + i);
-        const float4 b = q4[i];
-        ip += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
-        qq += b.x * b.x + b.y * b.y + b.z * b.z + b.w * b.w;
-      }
-    } else {
-      for (int i = lane; i < d; i += 32) {
-        const float b = qs[i];
-        ip += __ldg(x + i) * b;
-        qq += b * b;
-      }
-    }
-  }
-  ip = warp_sum(ip);
-  qq = warp_sum(qq);
-  if (lane == 0) {
-    const float dd = metric == 1 ? -ip : qq + __ldg(norms + id) - 2.f * ip;
-    const unsigned word = (unsigned)__ldg(bitmaps + (size_t)qi * W + (id >> 5));
-    const unsigned char ok = (unsigned char)((word >> (id & 31)) & 1u);
-    dist[o] = dd;
-    pass[o] = ok;
-    const float e = __ldg(ex.table + (size_t)__ldg(ex.row + qi) * n + id);
-    const float tau = __ldg(ex.tau + qi);
-    const float er = sqrtf(fmaxf(e, 0.f));
-    const float bound = ex.margin * (sqrtf(fmaxf(dd, 0.f)) + sqrtf(fmaxf(tau, 0.f)));
-    ex.keep[o] = (unsigned char)(ok | (er <= bound ? 1 : 0));
-  }
+  return launch_items(scan_generic_kernel<EX, false>, a, stream);
 }
 
-template <bool SQ8>
-int launch_excl(const void* queries, const void* rows, const void* scale,
-                const void* mean, const void* norms, const void* ids,
-                const void* bitmaps, void* dist, void* pass, Excl ex, int Q,
-                int C, int d, int W, int n, int metric, int vec4,
-                void* stream) {
-  if (Q == 0 || C == 0) return 0;
-  dim3 grid((C + kWarps - 1) / kWarps, Q);
-  const size_t smem = (size_t)(SQ8 ? 3 : 1) * ((d + 3) / 4) * sizeof(float4);
-  frontier_scan_excl_kernel<SQ8><<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      (const float*)queries, rows, (const float*)scale, (const float*)mean,
-      (const float*)norms, (const int*)ids, (const int*)bitmaps,
-      (float*)dist, (unsigned char*)pass, ex, C, d, W, n, metric, vec4);
-  return (int)cudaGetLastError();
-}
-
-Excl make_excl(const void* table, const void* row, const void* tau,
-               void* keep, float margin) {
-  Excl ex;
-  ex.table = (const float*)table;
-  ex.row = (const int*)row;
-  ex.tau = (const float*)tau;
-  ex.keep = (unsigned char*)keep;
-  ex.margin = margin;
-  return ex;
+// The 16-byte SQ8 kernel for d, else the generic one.
+template <bool EX>
+int launch_sq8(const Args<EX>& a, int vec4, void* stream) {
+  const int nch = a.d / 16;
+  if (vec4 && a.d % 16 == 0 && nch <= 64 && aligned16(a.queries) &&
+      aligned16(a.rows) && aligned16(a.scale) && aligned16(a.mean)) {
+    if (nch <= 8) return launch_items(scan_sq8_kernel<EX, 8, 1, 8>, a, stream);
+    if (nch <= 16)
+      return launch_items(scan_sq8_kernel<EX, 16, 1, 8>, a, stream);
+    if (nch <= 32)
+      return launch_items(scan_sq8_kernel<EX, 32, 1, 8>, a, stream);
+    return launch_items(scan_sq8_kernel<EX, 32, 2, 4>, a, stream);
+  }
+  return launch_items(scan_generic_kernel<EX, true>, a, stream);
 }
 
 }  // namespace
@@ -599,15 +538,7 @@ extern "C" int frontier_scan_f32(const void* queries, const void* rows,
   const Scan a = {(const float*)queries, rows, nullptr, nullptr,
                   (const float*)norms, (const int*)ids, (const int*)bitmaps,
                   (float*)dist, (unsigned char*)pass, Q, C, d, W, n, metric};
-  const int nv = d / 4;
-  if (vec4 && aligned16(queries) && nv <= 384) {
-    if (nv <= 32) return launch_items(scan_f32_kernel<1, 8>, a, stream);
-    if (nv <= 64) return launch_items(scan_f32_kernel<2, 4>, a, stream);
-    if (nv <= 128) return launch_items(scan_f32_kernel<4, 2>, a, stream);
-    if (nv <= 256) return launch_items(scan_f32_kernel<8, 1>, a, stream);
-    return launch_items(scan_f32_kernel<12, 1>, a, stream);
-  }
-  return launch_items(scan_generic_kernel<false>, a, stream);
+  return launch_f32<false>(a, vec4, stream);
 }
 
 // vec4: d % 4 == 0 and the rows 4-byte aligned (the wrapper's flag); the
@@ -622,15 +553,7 @@ extern "C" int frontier_scan_sq8(const void* queries, const void* qrows,
                   (const float*)mean, (const float*)norms, (const int*)ids,
                   (const int*)bitmaps, (float*)dist, (unsigned char*)pass,
                   Q, C, d, W, n, metric};
-  const int nch = d / 16;
-  if (vec4 && d % 16 == 0 && nch <= 64 && aligned16(queries) &&
-      aligned16(qrows) && aligned16(scale) && aligned16(mean)) {
-    if (nch <= 8) return launch_items(scan_sq8_kernel<8, 1, 8>, a, stream);
-    if (nch <= 16) return launch_items(scan_sq8_kernel<16, 1, 8>, a, stream);
-    if (nch <= 32) return launch_items(scan_sq8_kernel<32, 1, 8>, a, stream);
-    return launch_items(scan_sq8_kernel<32, 2, 4>, a, stream);
-  }
-  return launch_items(scan_generic_kernel<true>, a, stream);
+  return launch_sq8<false>(a, vec4, stream);
 }
 
 extern "C" int frontier_scan_excl_f32(const void* queries, const void* rows,
@@ -641,10 +564,13 @@ extern "C" int frontier_scan_excl_f32(const void* queries, const void* rows,
                                       float margin, int Q, int C, int d,
                                       int W, int n, int metric, int vec4,
                                       void* stream) {
-  return launch_excl<false>(queries, rows, nullptr, nullptr, norms, ids,
-                            bitmaps, dist, pass,
-                            make_excl(table, radius_row, tau, keep, margin),
-                            Q, C, d, W, n, metric, vec4, stream);
+  const ExclScan a = {{(const float*)queries, rows, nullptr, nullptr,
+                       (const float*)norms, (const int*)ids,
+                       (const int*)bitmaps, (float*)dist, (unsigned char*)pass,
+                       Q, C, d, W, n, metric},
+                      (const float*)table, (const int*)radius_row,
+                      (const float*)tau, (unsigned char*)keep, margin};
+  return launch_f32<true>(a, vec4, stream);
 }
 
 extern "C" int frontier_scan_excl_sq8(const void* queries, const void* qrows,
@@ -656,8 +582,11 @@ extern "C" int frontier_scan_excl_sq8(const void* queries, const void* qrows,
                                       float margin, int Q, int C, int d,
                                       int W, int n, int metric, int vec4,
                                       void* stream) {
-  return launch_excl<true>(queries, qrows, scale, mean, norms, ids, bitmaps,
-                           dist, pass,
-                           make_excl(table, radius_row, tau, keep, margin),
-                           Q, C, d, W, n, metric, vec4, stream);
+  const ExclScan a = {{(const float*)queries, qrows, (const float*)scale,
+                       (const float*)mean, (const float*)norms,
+                       (const int*)ids, (const int*)bitmaps, (float*)dist,
+                       (unsigned char*)pass, Q, C, d, W, n, metric},
+                      (const float*)table, (const int*)radius_row,
+                      (const float*)tau, (unsigned char*)keep, margin};
+  return launch_sq8<true>(a, vec4, stream);
 }

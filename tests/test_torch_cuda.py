@@ -619,8 +619,8 @@ def test_models_on_card_match_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
-# frontier_scan and frontier_scan_sq8: one resident wave of (query,
-# 32-candidate) warp items, at the port's dataset widths
+# the four frontier scans: one resident wave of (query, 32-candidate) warp
+# items, at the port's dataset widths
 # ---------------------------------------------------------------------------
 
 _FRONTIER_N = 3000
@@ -660,24 +660,88 @@ def _frontier_ids(cuda, qn, c, seed):
 
 
 def _frontier_check(got, want):
-    (dk, pk), (dp, pp) = got, want
+    (dk, pk), (dp, pp) = got[:2], want[:2]
     assert torch.equal(pk, pp)
     _close(dk, dp)
+
+
+# the exclusion variants' margins: 0 keeps only what passes or has a zero
+# radius (and no padding: 0 * inf is NaN), 0.3 is the main path's, 1 keeps
+# nearly everything
+_MARGINS = (0.0, 0.3, 1.0)
+
+
+def _excl_radii(cuda, qn, d, seed):
+    """A (3, n) table of squared radii up to d (the squared distances'
+    scale), a few of them 0, (Q,) table rows and (Q,) tau, a fifth of it
+    +inf (a result queue not yet full), from numpy."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    table = (rs.rand(3, _FRONTIER_N) * d).astype("float32")
+    table[:, :50] = 0.0
+    row = rs.randint(0, 3, qn).astype("int32")
+    tau = (rs.rand(qn) * d).astype("float32")
+    tau[rs.rand(qn) < 0.2] = np.inf
+    return tuple(torch.from_numpy(t).to(cuda) for t in (table, row, tau))
+
+
+def _excl_check(got, want, radii, plain_ids, margin):
+    """dist and pass against the plain version; keep exactly the rule on
+    the kernel's own distances; padding and ids >= n never kept at a
+    margin <= 0."""
+    _frontier_check(got, want)
+    table, row, tau = radii
+    e = ref.gather_radii(table, row, plain_ids)
+    assert torch.equal(got[2], ref.excl_keep_mask(got[0], e, tau[:, None],
+                                                  got[1], margin))
+    if margin <= 0:
+        assert not bool(got[2][plain_ids < 0].any())
+
+
+def _excl_calls(q, store, bm, radii, metric, margin):
+    """{kernel name: (kernel's call, plain version's call)} of both
+    exclusion variants; the plain version takes ids >= n as -1."""
+    from repro_torch.kernels.frontier_scan import (
+        frontier_scan_excl_cuda, frontier_scan_excl_sq8_cuda)
+    rows, norms, qrows, scale, mean, qnorms = store
+    kw = dict(metric=metric, margin=margin)
+    return {
+        "frontier_scan_excl": (
+            lambda i: frontier_scan_excl_cuda(q, rows, norms, i, bm, *radii,
+                                              **kw),
+            lambda i: ref.frontier_scan_excl_ref(q, rows, norms, i, bm,
+                                                 *radii, **kw)),
+        "frontier_scan_excl_sq8": (
+            lambda i: frontier_scan_excl_sq8_cuda(
+                q, qrows, scale, mean, qnorms, i, bm, *radii, **kw),
+            lambda i: ref.frontier_scan_excl_sq8_ref(
+                q, qrows, scale, mean, qnorms, i, bm, *radii, **kw))}
 
 
 @pytest.mark.parametrize("qn", [1, 70, 1000])
 @pytest.mark.parametrize("c", [1, 31, 32, 33, 64, 100])
 @pytest.mark.parametrize("d", [100, 128, 200, 768, 1536])
 def test_frontier_scan_kernels_at_dataset_widths(cuda, d, c, qn):
-    """Both kernels against their plain versions, both metrics: padding,
-    queries of padding only, ids >= n (+inf, pass 0); one launch a call."""
+    """All four kernels against their plain versions, both metrics:
+    padding, queries of padding only, ids >= n (+inf, pass 0); the
+    exclusion pair at every margin of _MARGINS over a several-row radius
+    table; one launch a call."""
     from repro_torch.kernels.frontier_scan import (frontier_scan_cuda,
                                                    frontier_scan_sq8_cuda)
-    rows, norms, qrows, scale, mean, qnorms = _frontier_store(cuda, d, d)
+    store = _frontier_store(cuda, d, d)
+    rows, norms, qrows, scale, mean, qnorms = store
     ids, plain_ids, bm = _frontier_ids(cuda, qn, c, qn * c + d)
+    radii = _excl_radii(cuda, qn, d, qn + c)
     g = torch.Generator(device=cuda).manual_seed(qn + c + d)
     q = torch.randn(qn, d, device=cuda, generator=g) * 0.3
     for metric in ("l2", "ip"):
+        for margin in _MARGINS:
+            calls = _excl_calls(q, store, bm, radii, metric, margin)
+            for name, (kern, plain) in calls.items():
+                ops.reset_launches()
+                got = kern(ids)
+                assert ops.launches()[name] == 1
+                _excl_check(got, plain(plain_ids), radii, plain_ids, margin)
         ops.reset_launches()
         got = frontier_scan_cuda(q, rows, norms, ids, bm, metric)
         assert ops.launches()["frontier_scan"] == 1
@@ -698,8 +762,10 @@ def test_frontier_scan_kernels_on_unaligned_views(cuda, metric, d):
     the scalar route; so do SQ8 widths that are not a multiple of 16."""
     from repro_torch.kernels.frontier_scan import (frontier_scan_cuda,
                                                    frontier_scan_sq8_cuda)
-    rows, norms, qrows, scale, mean, qnorms = _frontier_store(cuda, d, 7)
+    store = _frontier_store(cuda, d, 7)
+    rows, norms, qrows, scale, mean, qnorms = store
     ids, plain_ids, bm = _frontier_ids(cuda, 70, 33, 8)
+    radii = _excl_radii(cuda, 70, d, 10)
     g = torch.Generator(device=cuda).manual_seed(9)
     q = torch.randn(70, d, device=cuda, generator=g) * 0.3
     rows_off = torch.empty(rows.numel() + 1, device=cuda)[1:].view_as(rows)
@@ -723,34 +789,79 @@ def test_frontier_scan_kernels_on_unaligned_views(cuda, metric, d):
                                        metric),
                 ref.frontier_scan_sq8_ref(q, qrows, scale, mean, qnorms,
                                           plain_ids, bm, metric))
+        plain = _excl_calls(q, store, bm, radii, metric, 0.3)
+        for rows_t, qrows_t in ((rows, qrows), (rows_off, qrows_off)):
+            views = (rows_t, norms, qrows_t, scale, mean, qnorms)
+            for name, (kern, _) in _excl_calls(qq, views, bm, radii, metric,
+                                               0.3).items():
+                _excl_check(kern(ids), plain[name][1](plain_ids), radii,
+                            plain_ids, 0.3)
 
 
 def test_frontier_scan_kernels_refuse_what_they_cannot_take(cuda):
-    from repro_torch.kernels.frontier_scan import frontier_scan_cuda
-    rows, norms, *_ = _frontier_store(cuda, 128, 1)
+    from repro_torch.kernels.frontier_scan import (
+        frontier_scan_cuda, frontier_scan_excl_cuda,
+        frontier_scan_excl_sq8_cuda)
+    store = _frontier_store(cuda, 128, 1)
+    rows, norms, qrows, scale, mean, qnorms = store
     ids, _, bm = _frontier_ids(cuda, 4, 32, 2)
+    table, row, tau = _excl_radii(cuda, 4, 128, 3)
     q = torch.randn(4, 128, device=cuda)
     with pytest.raises(ValueError, match="bitmaps"):
         frontier_scan_cuda(q, rows, norms, ids, bm[:, :-1].contiguous())
     with pytest.raises(ValueError, match="ids"):
         frontier_scan_cuda(q, rows, norms, ids.long(), bm)
+    with pytest.raises(ValueError, match="bitmaps"):
+        frontier_scan_excl_cuda(q, rows, norms, ids, bm[:, :-1].contiguous(),
+                                table, row, tau)
+    with pytest.raises(ValueError, match="radius_row"):
+        frontier_scan_excl_cuda(q, rows, norms, ids, bm, table, row.long(),
+                                tau)
+    with pytest.raises(ValueError, match="radius table"):
+        frontier_scan_excl_sq8_cuda(q, qrows, scale, mean, qnorms, ids, bm,
+                                    table[:, :-1], row, tau)
+    with pytest.raises(ValueError, match="tau"):
+        frontier_scan_excl_sq8_cuda(q, qrows, scale, mean, qnorms, ids, bm,
+                                    table, row, tau[:3])
     ops.reset_launches()
     for qn, c in ((0, 32), (4, 0)):
         dist, ok = frontier_scan_cuda(q[:qn], rows, norms,
                                       ids[:qn, :c].contiguous(), bm[:qn])
         assert dist.shape == (qn, c) and ok.shape == (qn, c)
-    assert ops.launches()["frontier_scan"] == 0
+        for kern, _ in _excl_calls(q[:qn], store, bm[:qn],
+                                   (table, row[:qn], tau[:qn]), "l2",
+                                   0.3).values():
+            out = kern(ids[:qn, :c].contiguous())
+            assert [tuple(t.shape) for t in out] == [(qn, c)] * 3
+    assert ops.launches() == {k: 0 for k in ops.KERNELS}
+
+
+def test_frontier_scan_exclusion_kernels_take_any_number_of_queries(cuda):
+    """70,000 queries of one candidate each: one launch a variant (the
+    earlier kernel's grid refused more than 65,535)."""
+    qn = 70_000
+    store = _frontier_store(cuda, 128, 5)
+    ids, plain_ids, bm = _frontier_ids(cuda, qn, 1, 6)
+    radii = _excl_radii(cuda, qn, 128, 7)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn(qn, 128, device=cuda, generator=g) * 0.3
+    for name, (kern, plain) in _excl_calls(q, store, bm, radii, "l2",
+                                           0.3).items():
+        ops.reset_launches()
+        got = kern(ids)
+        assert ops.launches()[name] == 1
+        _excl_check(got, plain(plain_ids), radii, plain_ids, 0.3)
 
 
 # sha256 of the (dist, pass, keep) bytes both exclusion kernels write on
-# _excl_fixed_inputs, read on the card before the f32 and SQ8 scans of the
-# same source were redesigned: a guard that the shared source leaves them
-# as they were
+# _excl_fixed_inputs, read on the card once they ran the item loop of the
+# plain scans (the distances' summation order is that loop's): a guard that
+# a change to the shared source leaves them as they are
 EXCL_DIGESTS = {
     "frontier_scan_excl":
-        "f45545e7c7c620e17fe50093f9fed3f4620c1acadec9d14d57c734322358f731",
+        "1613a7f911ff9be5f90bb4fcbf52e6b2cb3bd827781e5730b9ea59e1e175d50f",
     "frontier_scan_excl_sq8":
-        "500a7a8afa338135e072e4b1a0dd8000fdda62b08fd8a23e91d1ed01671d16d5"}
+        "67b9a0b8a42bc7f61e020880bc4a7dc533888c445e0421be23bca1e33a497d25"}
 
 
 def _excl_fixed_inputs(cuda):

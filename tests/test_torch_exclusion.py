@@ -98,6 +98,61 @@ def test_frontier_scan_excl_plain_vs_oracle_and_pallas(sq8):
     assert not gk.all()                               # something is pruned
 
 
+@pytest.mark.parametrize("margin", [0.0, MARGIN, 1.0])
+@pytest.mark.parametrize("sq8", [False, True])
+def test_frontier_scan_excl_plain_vs_reference_at_each_margin(sq8, margin):
+    """The port's plain exclusion scans against the reference's on the
+    integer fixture (integer queries and rows, SQ8 scale 1 and mean 0, so
+    every product and sum is exact): dist, pass and keep equal, with -1
+    padding, a zero radius a row and a fifth of tau +inf.  At margin 0 the
+    rule's bound for padding is 0 * inf = NaN: no padded id is kept."""
+    rng = np.random.RandomState(int(margin * 10) + 2 * sq8)
+    q, c, n, d = 9, 40, 300, 32
+    queries = rng.randint(-127, 128, (q, d)).astype(np.float32)
+    ints = rng.randint(-127, 128, (n, d))
+    rows = ints.astype(np.int8) if sq8 else ints.astype(np.float32)
+    x = ints.astype(np.float32)
+    norms = (x * x).sum(-1)
+    ids = rng.randint(-1, n, (q, c)).astype(np.int32)
+    ids[:, -3:] = -1
+    ids[1] = -1
+    bm = rng.randint(0, 2 ** 32, size=(q, (n + 31) // 32),
+                     dtype=np.uint64).astype(np.uint32)
+    table = rng.randint(0, 4 * d * 127 ** 2, (3, n)).astype(np.float32)
+    table[:, ::7] = 0.0
+    row = rng.randint(0, 3, q).astype(np.int32)
+    tau = rng.randint(0, 2 * d * 127 ** 2, q).astype(np.float32)
+    tau[rng.rand(q) < 0.2] = np.inf
+    safe = np.maximum(ids, 0)
+    e = table[row[:, None], safe]                     # the reference's gather
+    j = lambda a: jnp.asarray(a)                      # noqa: E731
+    t = lambda a: torch.as_tensor(a)                  # noqa: E731
+    bmw = words_from_uint32(bm, "cpu")
+    if sq8:
+        scale, mean = np.ones(d, np.float32), np.zeros(d, np.float32)
+        want = jref.frontier_scan_excl_sq8_ref(
+            j(queries), j(rows[safe]), j(scale), j(mean), j(norms[safe]),
+            j(ids), j(bm), j(e), j(tau[:, None]), margin=margin)
+        got = ref.frontier_scan_excl_sq8_ref(
+            t(queries), t(rows), t(scale), t(mean), t(norms), t(ids), bmw,
+            t(table), t(row), t(tau), margin=margin)
+    else:
+        want = jref.frontier_scan_excl_ref(
+            j(queries), j(rows[safe]), j(norms[safe]), j(ids), j(bm), j(e),
+            j(tau[:, None]), margin=margin)
+        got = ref.frontier_scan_excl_ref(
+            t(queries), t(rows), t(norms), t(ids), bmw, t(table), t(row),
+            t(tau), margin=margin)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    keep = got[2].numpy()
+    if margin == 0.0:
+        assert not keep[ids < 0].any()
+    else:
+        assert keep[ids < 0].all()
+    assert keep.any() and not keep.all()
+
+
 def _close_d(got, want):
     want = np.asarray(want)
     np.testing.assert_array_equal(np.isinf(got), np.isinf(want))

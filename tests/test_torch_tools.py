@@ -63,12 +63,14 @@ def _timing_tool():
                                          "distance_matrix"]),
     ("frontier_scan,frontier_scan_sq8", ["frontier_scan",
                                          "frontier_scan_sq8"]),
+    ("frontier_scan_excl,frontier_scan_excl_sq8",
+     ["frontier_scan_excl", "frontier_scan_excl_sq8"]),
 ])
 def test_timing_tool_reads_its_kernel_names(text, want):
     tool = _timing_tool()
     assert tool.parse_kernels(text) == want
-    assert tool.parse_kernels(tool.DEFAULT_KERNELS) == ["frontier_scan",
-                                                        "frontier_scan_sq8"]
+    assert tool.parse_kernels(tool.DEFAULT_KERNELS) == [
+        "frontier_scan_excl", "frontier_scan_excl_sq8"]
 
 
 def test_timing_tool_names_the_parent_sources_each_kernel_needs():
@@ -81,13 +83,65 @@ def test_timing_tool_names_the_parent_sources_each_kernel_needs():
     assert set(tool.SOURCES.values()) <= set(build.SIGNATURES)
 
 
-@pytest.mark.parametrize("kernels", [["frontier_scan", "frontier_scan_sq8"],
-                                     ["frontier_scan_sq8"]])
+@pytest.mark.parametrize("kernels", [
+    ["frontier_scan", "frontier_scan_sq8"], ["frontier_scan_sq8"],
+    ["frontier_scan_excl", "frontier_scan_excl_sq8"],
+    ["frontier_scan_excl_sq8", "frontier_scan"]])
 def test_timing_tool_times_both_frontier_scans_from_one_parent_source(
         kernels):
     tool = _timing_tool()
     assert tool.parent_sources(kernels) == ("frontier_scan",)
     assert set(kernels) <= set(tool.TIMERS)
+
+
+@pytest.mark.parametrize("kernel", ["frontier_scan", "frontier_scan_sq8",
+                                    "frontier_scan_excl",
+                                    "frontier_scan_excl_sq8"])
+def test_timing_tool_calls_each_frontier_parent_as_the_source_declares(
+        kernel):
+    """The entry point and argument list the tool calls a frontier
+    parent through are the ones the checkout's source declares and the
+    build binds."""
+    tool = _timing_tool()
+    entry, sig = tool.FRONTIER_ENTRIES[kernel]
+    text = (build.CSRC / "frontier_scan.cu").read_text()
+    assert tool.entry_signatures(text)[entry] == sig
+    assert build.SIGNATURES["frontier_scan"][entry] == sig
+
+
+@pytest.mark.parametrize("qn,n", [(50, 1000), (7, 4000)])
+def test_timing_tool_exclusion_inputs(qn, n):
+    """A contiguous (EXCL_ROWS, n) f32 radius table, (Q,) int32 rows in
+    [0, EXCL_ROWS) and (Q,) f32 tau, +inf for about 1 - EXCL_FULL of the
+    queries: what the exclusion wrappers take, and a rule that keeps some
+    candidates and prunes others at EXCL_MARGIN."""
+    from repro_torch.kernels import ops
+    tool = _timing_tool()
+    g = torch.Generator().manual_seed(1)
+    blocks, bitmaps = tool.frontier_inputs(g, qn, 32, n, device="cpu")
+    q = torch.randn(qn, 16, generator=g)
+    rows = torch.randn(n, 16, generator=g)
+    norms = rows.square().sum(-1)
+    scale = float(ops.frontier_scan(q, rows, norms, blocks[0], bitmaps)[0]
+                  .nan_to_num(posinf=0.0).max())
+    table, rrow, tau = tool.excl_inputs(g, 2000, n, scale, device="cpu")
+    assert table.dtype == torch.float32 and table.shape == (tool.EXCL_ROWS,
+                                                            n)
+    assert rrow.dtype == torch.int32 and rrow.shape == (2000,)
+    assert tau.dtype == torch.float32 and tau.shape == (2000,)
+    assert all(t.is_contiguous() for t in (table, rrow, tau))
+    assert int(rrow.min()) == 0 and int(rrow.max()) == tool.EXCL_ROWS - 1
+    assert 0.0 <= float(table.min()) and float(table.max()) < (
+        4 * tool.EXCL_MARGIN ** 2 * scale)
+    inf = float(torch.isinf(tau).float().mean())
+    assert abs(inf - (1 - tool.EXCL_FULL)) < 0.03
+    fin = tau[tau.isfinite()]
+    assert scale / 4 <= float(fin.min()) and float(fin.max()) < scale
+    table, rrow, tau = tool.excl_inputs(g, qn, n, scale, device="cpu")
+    _, ok, keep = ops.frontier_scan_excl(q, rows, norms, blocks[0], bitmaps,
+                                         table, rrow, tau,
+                                         margin=tool.EXCL_MARGIN)
+    assert bool((keep & ~ok).any()) and not bool(keep.all())
 
 
 @pytest.mark.parametrize("qn,c,n", [(50, 32, 1000), (7, 64, 4000)])

@@ -7,14 +7,14 @@ process on one card.
     git show <parent>:src/repro_torch/kernels/frontier_scan.py \\
         > build/parent/frontier_scan.py          # optional: per-call times
     python3 tools_torch/time_kernel_redesign.py --parent build/parent \\
-        --kernels frontier_scan,frontier_scan_sq8
+        --kernels frontier_scan_excl,frontier_scan_excl_sq8
 
 `--kernels` names the kernels to compare (default
-frontier_scan,frontier_scan_sq8; leaf_scan_batched,topk and
-flash_attention,distance_matrix are the earlier pairs); each needs its
-parent's source in `--parent` (`parent_sources`).  The parent's sources
-build with the port's nvcc flags into `build/parent_kernels/` while this
-checkout's own build.  Each parent entry point is bound by the C
+frontier_scan_excl,frontier_scan_excl_sq8; frontier_scan,frontier_scan_sq8,
+leaf_scan_batched,topk and flash_attention,distance_matrix are the earlier
+pairs); each needs its parent's source in `--parent` (`parent_sources`).
+The parent's sources build with the port's nvcc flags into
+`build/parent_kernels/` while this checkout's own build.  Each parent entry point is bound by the C
 declaration in its own source (`entry_signatures`), so a parent whose
 interface differs from this checkout's is called as it was written (the
 leaf_scan_batched entry with or without its mask scratch, topk's one
@@ -29,6 +29,12 @@ kernel is timed parent, new, new, parent at the main path's shapes:
   entry point; with the parent's wrapper `frontier_scan.py` beside its
   source, also the time per call with the host's work (CUDA events)
   through the parent's wrapper and this checkout's;
+- frontier_scan_excl, frontier_scan_excl_sq8: as the two above at
+  (1000, 32, 128), the exclusion path's 1-hop chunk, with a (13, 1M)
+  radius table, each query's row drawn from [0, 13), tau finite for 90 %
+  of the queries and +inf for the rest, margin 0.3 (EXCL_*); keep exact
+  against the rule on each side's own distances, and the parent-vs-new
+  keep flips reported (`keep_flips`);
 - flash_attention: q, k, v (2, 8192, 16, 80) bf16, non-causal, the
   hubert-xlarge encoder's prefill; parent and new agree within relative L2
   1e-2 (the new route rounds P to bf16);
@@ -71,12 +77,26 @@ TOPK_CASES = ((56_640, 40), (1_000_000, 10))
 FRONTIER_SHAPES = ((1000, 32, 128), (1000, 64, 128))
 FRONTIER_N, FRONTIER_BLOCKS, FRONTIER_PAD, FRONTIER_SEL = (
     1_000_000, 8, 0.1, 0.1)
+# the exclusion variants: radius-table rows (the main path's ladder and
+# families), the share of queries whose result queue is full (finite tau),
+# and the main path's margin
+EXCL_ROWS, EXCL_FULL, EXCL_MARGIN = 13, 0.9, 0.3
 # each kernel's parent source under --parent
 SOURCES = {"flash_attention": "flash_attention", "distance_matrix": "distance",
            "leaf_scan_batched": "leaf_scan", "topk": "topk",
            "frontier_scan": "frontier_scan",
-           "frontier_scan_sq8": "frontier_scan"}
-DEFAULT_KERNELS = "frontier_scan,frontier_scan_sq8"
+           "frontier_scan_sq8": "frontier_scan",
+           "frontier_scan_excl": "frontier_scan",
+           "frontier_scan_excl_sq8": "frontier_scan"}
+DEFAULT_KERNELS = "frontier_scan_excl,frontier_scan_excl_sq8"
+# the C entry point each frontier kernel's parent is called through, and
+# the argument list the tool passes it
+FRONTIER_ENTRIES = {
+    "frontier_scan": ("frontier_scan_f32", "pppppppiiiiiiip"),
+    "frontier_scan_sq8": ("frontier_scan_sq8", "pppppppppiiiiiiip"),
+    "frontier_scan_excl": ("frontier_scan_excl_f32", "pppppppppppfiiiiiiip"),
+    "frontier_scan_excl_sq8": ("frontier_scan_excl_sq8",
+                               "pppppppppppppfiiiiiiip")}
 # an entry point's C declaration in a kernel source
 _ENTRY = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
 
@@ -192,6 +212,24 @@ def frontier_inputs(gen, qn: int, c: int, n: int, device="cuda"):
     return blocks, pack_bool_bitmap(bits).contiguous()
 
 
+def excl_inputs(gen, qn: int, n: int, scale: float, device="cuda"):
+    """The exclusion variants' (EXCL_ROWS, n) f32 table of squared radii,
+    uniform in [0, 4 m^2 scale) with m = EXCL_MARGIN, (Q,) int32 table rows
+    in [0, EXCL_ROWS), and (Q,) f32 tau, uniform in [scale / 4, scale) for
+    an EXCL_FULL share of the queries and +inf for the rest.  With `scale`
+    a typical squared distance the rule's bound m (sqrt(d) + sqrt(tau)) is
+    about 2 m sqrt(scale): it keeps some radii and prunes others."""
+    import torch
+    table = torch.rand(EXCL_ROWS, n, device=device, generator=gen) * (
+        4 * EXCL_MARGIN ** 2 * scale)
+    rows = torch.randint(EXCL_ROWS, (qn,), device=device, generator=gen,
+                         dtype=torch.int32)
+    tau = (torch.rand(qn, device=device, generator=gen) * 0.75 + 0.25) * scale
+    full = torch.rand(qn, device=device, generator=gen) < EXCL_FULL
+    tau = torch.where(full, tau, torch.full_like(tau, float("inf")))
+    return table.contiguous(), rows.contiguous(), tau.contiguous()
+
+
 def parent_wrapper(parent_dir: str, lib):
     """The parent's wrapper module `<parent_dir>/frontier_scan.py` with its
     library lookups sent to the parent's build `lib`, or None when the
@@ -212,15 +250,17 @@ def parent_wrapper(parent_dir: str, lib):
     return mod
 
 
-def time_frontier(sq8: bool, parent, device_ms, gen, stream, times):
-    """Parent, new, new, parent at FRONTIER_SHAPES; with the parent's
-    wrapper, the time per call of both wrappers the same way."""
+def time_frontier(sq8: bool, excl: bool, parent, device_ms, gen, stream,
+                  times):
+    """Parent, new, new, parent at FRONTIER_SHAPES (the exclusion variants
+    at the first only); with the parent's wrapper, the time per call of
+    both wrappers the same way."""
     import torch
+    from repro_torch.kernels import frontier_scan as fs
     from repro_torch.kernels import ref
-    from repro_torch.kernels.frontier_scan import (frontier_scan_cuda,
-                                                   frontier_scan_sq8_cuda)
     from repro_torch.measure import cuda_ms
-    name = "frontier_scan_sq8" if sq8 else "frontier_scan"
+    name = ("frontier_scan_excl" if excl else "frontier_scan") + (
+        "_sq8" if sq8 else "")
     d, n = FRONTIER_SHAPES[0][2], FRONTIER_N
     if sq8:
         rows = torch.randint(-127, 128, (n, d), device="cuda", generator=gen,
@@ -229,24 +269,28 @@ def time_frontier(sq8: bool, parent, device_ms, gen, stream, times):
         mean = torch.randn(d, device="cuda", generator=gen) * 0.1
         norms = ref.dequantize(rows, scale, mean).square().sum(-1)
         args, extra = (rows, scale, mean, norms), (scale, mean)
-        new_fn, plain_fn = frontier_scan_sq8_cuda, ref.frontier_scan_sq8_ref
-        entry = parent_entry(parent["frontier_scan"], "frontier_scan_sq8",
-                             "pppppppppiiiiiiip")
     else:
         rows = torch.randn(n, d, device="cuda", generator=gen)
         norms = rows.square().sum(-1)
         args, extra = (rows, norms), ()
-        new_fn, plain_fn = frontier_scan_cuda, ref.frontier_scan_ref
-        entry = parent_entry(parent["frontier_scan"], "frontier_scan_f32",
-                             "pppppppiiiiiiip")
+    new_fn = getattr(fs, f"{name}_cuda")
+    plain_fn = getattr(ref, f"{name}_ref")
+    entry = parent_entry(parent["frontier_scan"], *FRONTIER_ENTRIES[name])
     wrapper = parent.get("frontier_scan.py")
     old_fn = None if wrapper is None else getattr(wrapper, new_fn.__name__)
-    for qn, c, _ in FRONTIER_SHAPES:
+    for qn, c, _ in FRONTIER_SHAPES[:1] if excl else FRONTIER_SHAPES:
         q = torch.randn(qn, d, device="cuda", generator=gen)
         blocks, bitmaps = frontier_inputs(gen, qn, c, n)
         w = bitmaps.shape[1]
         dist = torch.empty(qn, c, device="cuda")
         ok = torch.empty(qn, c, dtype=torch.bool, device="cuda")
+        keep = torch.empty(qn, c, dtype=torch.bool, device="cuda")
+        kw, radii, outs, tail = {}, (), (dist, ok), ()
+        if excl:
+            radii = excl_inputs(gen, qn, n, _typical_distance(
+                sq8, q, args, blocks[0], bitmaps))
+            kw = {"margin": EXCL_MARGIN}
+            outs, tail = (dist, ok, keep), (EXCL_MARGIN,)
         turn = itertools.count()
 
         def pick():
@@ -257,32 +301,46 @@ def time_frontier(sq8: bool, parent, device_ms, gen, stream, times):
             status = entry(q.data_ptr(), rows.data_ptr(),
                            *(t.data_ptr() for t in extra), norms.data_ptr(),
                            ids.data_ptr(), bitmaps.data_ptr(),
-                           dist.data_ptr(), ok.data_ptr(), qn, c, d, w, n, 0,
-                           1, stream())
+                           *(t.data_ptr() for t in radii),
+                           *(t.data_ptr() for t in outs), *tail, qn, c, d, w,
+                           n, 0, 1, stream())
             if status:
                 raise RuntimeError(f"parent {name}: error {status}")
-            return dist, ok
+            return outs
 
         def new(ids=None):
-            return new_fn(q, *args, pick() if ids is None else ids, bitmaps)
+            return new_fn(q, *args, pick() if ids is None else ids, bitmaps,
+                          *radii, **kw)
 
         key = f"{name} Q={qn} C={c}"
+        flips = 0
         for i, ids in enumerate(blocks):
-            want_d, want_p = (t.clone() for t in old(ids))
-            got_d, got_p = new(ids)
-            if not torch.equal(got_p, want_p):
+            want = [t.clone() for t in old(ids)]
+            got = new(ids)
+            if not torch.equal(got[1], want[1]):
                 raise RuntimeError(f"{key}: parent and new pass flags differ")
-            _close(f"{key} parent vs new", got_d, want_d)
+            _close(f"{key} parent vs new", got[0], want[0])
+            if excl:
+                for who, out in (("parent", want), ("new", got)):
+                    _keep_by_rule(f"{key} {who}", out, radii, ids)
+                flips += int((got[2] != want[2]).sum())
             if i == 0:
-                plain_d, plain_p = plain_fn(q, *args, ids, bitmaps)
-                if not torch.equal(got_p, plain_p):
+                plain = plain_fn(q, *args, ids, bitmaps, *radii, **kw)
+                if not torch.equal(got[1], plain[1]):
                     raise RuntimeError(f"{key}: pass flags differ from the "
                                        "plain version")
-                _close(f"{key} new vs plain", got_d, plain_d)
+                _close(f"{key} new vs plain", got[0], plain[0])
         _four(key, old, new, times,
               lambda who, fn: device_ms(fn, iters=200))
+        if excl:
+            times[key]["keep_flips"] = flips
+            times[key]["keep_decisions"] = len(blocks) * qn * c
+            print(f"{key}: keep exact against the rule on each side's own "
+                  f"distances; {flips} of {len(blocks) * qn * c} decisions "
+                  "differ between parent and new", flush=True)
         if old_fn is not None:
-            calls = {"parent": lambda: old_fn(q, *args, pick(), bitmaps),
+            calls = {"parent": lambda: old_fn(q, *args, pick(), bitmaps,
+                                              *radii, **kw),
                      "new": new}
             times[key]["call_parent"], times[key]["call_new"] = [], []
             for who in ("parent", "new", "new", "parent"):
@@ -290,6 +348,27 @@ def time_frontier(sq8: bool, parent, device_ms, gen, stream, times):
                                                          iters=200))
                 print(f"{key} per call {who}: "
                       f"{times[key][f'call_{who}'][-1]} ms", flush=True)
+
+
+def _typical_distance(sq8: bool, q, args, ids, bitmaps) -> float:
+    """The median finite distance of one block, by the plain version."""
+    from repro_torch.kernels import ref
+    fn = ref.frontier_scan_sq8_ref if sq8 else ref.frontier_scan_ref
+    dist = fn(q, *args, ids, bitmaps)[0]
+    return float(dist[dist.isfinite()].median())
+
+
+def _keep_by_rule(name, out, radii, ids):
+    """keep must be the rule on the kernel's own distances; a padded id
+    reads the radius of column 0, as the plain version's gather does."""
+    import torch
+    from repro_torch.kernels import ref
+    table, rows, tau = radii
+    e = ref.gather_radii(table, rows, ids)
+    want = ref.excl_keep_mask(out[0], e, tau[:, None], out[1], EXCL_MARGIN)
+    if not torch.equal(out[2], want):
+        raise RuntimeError(f"{name}: keep differs from the rule on its own "
+                           "distances")
 
 
 def time_flash(parent, device_ms, gen, stream, times):
@@ -450,8 +529,11 @@ def time_topk(parent, device_ms, gen, stream, times):
 
 # each takes (parent libraries, device_ms, generator, stream, times) and
 # adds its readings to times
-TIMERS = {"frontier_scan": lambda *a: time_frontier(False, *a),
-          "frontier_scan_sq8": lambda *a: time_frontier(True, *a),
+TIMERS = {"frontier_scan": lambda *a: time_frontier(False, False, *a),
+          "frontier_scan_sq8": lambda *a: time_frontier(True, False, *a),
+          "frontier_scan_excl": lambda *a: time_frontier(False, True, *a),
+          "frontier_scan_excl_sq8": lambda *a: time_frontier(True, True,
+                                                             *a),
           "flash_attention": time_flash, "distance_matrix": time_distance,
           "leaf_scan_batched": time_leaf_scan, "topk": time_topk}
 
