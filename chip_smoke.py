@@ -32,12 +32,20 @@ Phases:
             executors, each method cold and then warm, and the legacy
             engines (scann_vmapped through the leaf_scan kernel, the vmapped
             graph engine) beside the batched ones.  Kernel launch counts are
-            reset just before each of the three paths and read just after
+            reset just before each of the three paths and read just after.
+            Then the paper step (no kernel): Table 2's row (LID, LRC, the
+            distance-versus-filter cost), the modeled QPS of every search
+            on A and B, the measured miss penalty of every storage run and
+            the 9 x 5 workload grid, every cell's bitmaps holding
+            max(1, round(sel * n)) rows each
   kernels   each kernel against its plain version on the card at the main
             path's shapes, with its device time (torch.profiler), the plain
             version's, one PyTorch library call's, the least time the card
             could take, and the time per call with the host's work (CUDA
-            events around back-to-back calls); the exclusion pair's keep
+            events around back-to-back calls); leaf_scan on the main
+            path's (Q, nl) opened-leaf block with its group sizes, bit-equal
+            from run to run and under a permutation of the queries; the
+            exclusion pair's keep
             exactly the rule on its own distances, and no padded id kept
             at margin 0 (0 * inf is NaN); flash_attention at the
             encoder's shape, (2, 8192, 16, 80) bf16, through the tensor-core
@@ -372,7 +380,8 @@ def _search_row(ex, method: str, label: str, queries, bm, truth, p,
     appends its row (recall, the seven counters, Mcycles, wall, QPS and the
     kernel launches it caused)."""
     import torch
-    from repro_torch.core import SYSTEM, cycle_breakdown, recall_at_k
+    from repro_torch.core import (SYSTEM, cycle_breakdown, modeled_qps,
+                                  recall_at_k)
     from repro_torch.kernels import ops
     before = ops.launches()
     sync(dev)
@@ -405,7 +414,8 @@ def _search_row(ex, method: str, label: str, queries, bm, truth, p,
              if res.plan.predicted_cycles else ""), flush=True)
     out = {"workload": label, "method": method, "recall": rec,
            "counters": row, "mcycles": cyc, "wall_s": wall,
-           "qps": nq / wall, "launches": delta, "plan": plan}
+           "qps": nq / wall, "launches": delta, "plan": plan,
+           "modeled_qps": modeled_qps(res.stats, ex.store.dim, SYSTEM)}
     if res.plan.predicted_cycles:
         out["predicted_cycles"] = dict(res.plan.predicted_cycles)
     results.append(out)
@@ -506,6 +516,7 @@ def phase_main(n: int, nq: int, report: dict, dev="cuda") -> dict:
     report["main"]["launches"] = counts
     ctx["launches"] = counts
     family_witness(ctx, report, dev)
+    paper_step(ctx, report, dev)
     return ctx
 
 
@@ -694,17 +705,19 @@ def storage_path(ctx: dict, report: dict, dev="cuda") -> None:
              ("partitioned", wf, p), ("adaptive", wa, p)]
     kw = dict(graph=graph, index=scann, partitions=ctx["parts"], device=dev)
     rows = []
+    kept = ctx.setdefault("storage_stats", [])
     with _timed_accounting(engine, dev) as spent:
         for case in cases:
             rows += _storage_case(engine, case, spent, qstore, queries, kw,
-                                  p, dev)
+                                  p, dev, kept)
     report["main"]["storage"] = {"segments": segs,
                                  "capacity": engine.pool.capacity,
                                  "rows": rows}
 
 
-def _storage_case(engine, case, spent, qstore, queries, kw, p, dev):
-    """One method with storage, cold and then warm: its two report rows.
+def _storage_case(engine, case, spent, qstore, queries, kw, p, dev, kept):
+    """One method with storage, cold and then warm: its two report rows;
+    each run's (label, mode, StorageStats) goes onto `kept`.
     A row splits the wall into the search ("search_s"), the ordering of
     the traces on the card with the copy to the host ("order_s"), the
     page streams built from the ids ("streams_s") and the pool replay
@@ -751,6 +764,7 @@ def _storage_case(engine, case, spent, qstore, queries, kw, p, dev):
             check(bool((st.heap_pages <= heap_a).all()
                        and (st.index_pages <= idx_a).all()),
                   f"storage {label}: measured pages > analytic")
+        kept.append((label, mode, st))
         per_seg = {seg: (st.logical[seg], st.hits[seg], st.misses[seg])
                    for seg in st.logical}
         row = {"method": label, "workload": wl, "mode": mode,
@@ -925,6 +939,87 @@ def family_witness(ctx: dict, report: dict, dev="cuda") -> None:
     report["main"]["family_witness"] = out
 
 
+def paper_step(ctx: dict, report: dict, dev="cuda") -> None:
+    """The library half of the paper's tables on the main path's store and
+    queries: Table 2's row (LID, LRC, the distance-versus-filter cost), the
+    modeled QPS (SYSTEM, 16 threads) of every search on A and B, the
+    measured miss penalty of every storage run, and the 9 x 5 workload grid
+    with its seconds; every grid cell's bitmaps hold max(1, round(sel * n))
+    rows each."""
+    import torch
+    from repro_torch.core import (SYSTEM, bitmap_popcount, generate_grid,
+                                  measured_miss_penalty)
+    from repro_torch.core.hardness import (dist_filter_relative_cost,
+                                           lid_mle, lrc)
+
+    store, queries = ctx["store"], ctx["queries"]
+    nq = queries.shape[0]
+    out = report["main"]["paper"] = {}
+    secs = out["seconds"] = {}
+
+    def timed(key, fn, *a, **kw):
+        sync(dev)
+        t0 = time.perf_counter()
+        v = fn(*a, **kw)
+        sync(dev)
+        secs[key] = time.perf_counter() - t0
+        return v
+
+    row = out["table2"] = {
+        "n": store.n, "dim": store.dim,
+        "lid": timed("lid", lid_mle, store, queries, device=dev),
+        "lrc": timed("lrc", lrc, store, queries, device=dev),
+        "dist_filter_rel_cost": timed("dist_filter_rel_cost",
+                                      dist_filter_relative_cost, store.dim,
+                                      device=dev)}
+    print(f"   paper: Table 2 row n={store.n} d={store.dim}: LID "
+          f"{row['lid']:.4f} ({secs['lid']:.2f} s), LRC {row['lrc']:.4f} "
+          f"({secs['lrc']:.2f} s), dist-filter relative cost "
+          f"{row['dist_filter_rel_cost']:.4f} "
+          f"({secs['dist_filter_rel_cost']:.2f} s)", flush=True)
+    check(math.isfinite(row["lid"]) and row["lid"] > 0,
+          f"paper: LID {row['lid']}")
+    check(0.0 <= row["lrc"] <= 1.0, f"paper: LRC {row['lrc']}")
+    check(math.isfinite(row["dist_filter_rel_cost"])
+          and row["dist_filter_rel_cost"] > 0,
+          f"paper: dist-filter cost {row['dist_filter_rel_cost']}")
+
+    labels = [label for label, _, _ in ctx["inputs"]]
+    qps = out["modeled_qps"] = {}
+    for r in report["main"]["results"]:
+        if r["workload"] in labels:
+            v = qps[f"{r['method']} {r['workload']}"] = r["modeled_qps"]
+            check(math.isfinite(v) and v > 0,
+                  f"paper: modeled QPS of {r['method']} on {r['workload']}"
+                  f" is {v}")
+    print("   paper: modeled QPS (SYSTEM, 16 threads) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in qps.items()), flush=True)
+
+    pen = out["miss_penalty"] = {}
+    for label, mode, st in ctx["storage_stats"]:
+        v = pen[f"{label} {mode}"] = measured_miss_penalty(st, nq, SYSTEM)
+        check(math.isfinite(v) and v >= 0,
+              f"paper: miss penalty of {label} {mode} is {v}")
+    print("   paper: measured miss penalty, cycles a query (SYSTEM) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in pen.items()), flush=True)
+
+    grid = timed("grid", generate_grid, store, queries, device=dev)
+    out["grid"] = {"queries": nq, "cells": len(grid)}
+    check(len(grid) == 45, f"paper: the grid has {len(grid)} cells")
+    for (sel, corr), bm in grid.items():
+        pop = bitmap_popcount(bm)
+        want = max(1, round(sel * store.n))
+        check(tuple(bm.shape) == (nq, (store.n + 31) // 32)
+              and bool((pop == want).all()),
+              f"paper: grid cell ({sel}, {corr}) popcounts "
+              f"{int(pop.min())}..{int(pop.max())}, want {want}")
+    del grid
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    print(f"   paper: generate_grid 9 x 5 cells on {nq} queries: "
+          f"{secs['grid']:.2f} s, every row of every cell exact", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # kernels against their plain versions, with times and bounds
 # ---------------------------------------------------------------------------
@@ -1055,6 +1150,21 @@ def print_kernel_row(k: dict) -> None:
           flush=True)
 
 
+def _leaf_groups(leaves, n_leaves: int) -> dict:
+    """How the (Q, nl) opened-leaf block groups by leaf: the leaf_scan
+    kernel scores each leaf once against its group, 32 queries a chunk."""
+    import torch
+    counts = torch.bincount(leaves.reshape(-1).long(), minlength=n_leaves)
+    g = counts[counts > 0]
+    slots = int(g.sum())
+    chunks = int(((g + 31) // 32).sum())
+    return {"leaves": int(g.numel()), "mean": float(g.double().mean()),
+            "median": int(g.median()), "max": int(g.max()),
+            "share_ge_32": float(g[g >= 32].sum()) / slots,
+            "share_ge_64": float(g[g >= 64].sum()) / slots,
+            "chunks": chunks, "lane_fill": slots / (32 * chunks)}
+
+
 def slice3_kernel_rows(ctx: dict) -> list[dict]:
     """leaf_scan on the whole batch's (Q, nl) opened-leaf block, as the
     scann_vmapped path launches it, and topk on one query's flattened
@@ -1081,6 +1191,28 @@ def slice3_kernel_rows(ctx: dict) -> list[dict]:
     got = leaf_scan_cuda(*args)
     want = ref.leaf_scan_ids_ref(*args)
     err = _compare("leaf_scan", got, want)
+    groups = _leaf_groups(leaves, L)
+    print(f"   leaf_scan groups (slots a leaf): {groups['leaves']} leaves, "
+          f"mean {groups['mean']:.2f}, median {groups['median']}, max "
+          f"{groups['max']}; share of slots in groups >= 32: "
+          f"{groups['share_ge_32']:.4f}, >= 64: {groups['share_ge_64']:.4f};"
+          f" {groups['chunks']} chunks of <= 32 queries, query lanes "
+          f"filled {groups['lane_fill']:.4f}", flush=True)
+    # each score's arithmetic depends on (query, slot, row) alone: the same
+    # bits from run to run and for the queries in another order
+    check(bool(torch.equal(leaf_scan_cuda(*args), got)),
+          "leaf_scan: two runs differ")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    perm = torch.randperm(qn, device="cuda", generator=gen)
+    back = torch.empty_like(got)
+    back[perm] = leaf_scan_cuda(qp[perm].contiguous(),
+                                leaves[perm].contiguous(), *args[2:6],
+                                bitmaps[perm].contiguous(), scann.metric)
+    check(bool(torch.equal(back, got)),
+          "leaf_scan: scores for a shuffled query order differ")
+    print("   leaf_scan: bit-equal from run to run and under a permutation "
+          "of the queries", flush=True)
     kern = lambda: leaf_scan_cuda(*args)  # noqa: E731
     ms, call_ms = device_ms(kern, iters=10), cuda_ms(kern, iters=10)
     plain_ms = device_ms(lambda: ref.leaf_scan_ids_ref(*args), iters=2,
@@ -1115,7 +1247,8 @@ def slice3_kernel_rows(ctx: dict) -> list[dict]:
             "bound_by": b_by, "library_ms": lib_ms, "call_ms": call_ms,
             "shape": f"Q={qn} nl={nl} C={C} d={dp} L={L} "
                      f"({int(uniq.numel())} distinct leaves)",
-            "bytes_rereading_tiles": qn * nl * C * dp}]
+            "bytes_rereading_tiles": qn * nl * C * dp, "groups": groups,
+            "valid_pairs": n_valid}]
 
     # topk: values and indices exact against the plain version
     cases = {"per_query": (got[0].reshape(-1).contiguous(),

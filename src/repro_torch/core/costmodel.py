@@ -190,6 +190,30 @@ def cycle_breakdown(stats: SearchStats, dim: int,
     return component_cycles(s, dim, constants, scale, graph_quant)
 
 
+def measured_miss_penalty(storage_stats, batch_q: int,
+                          constants: CostConstants = SYSTEM) -> float:
+    """Per-query extra cycles of the MEASURED pool misses of one executor
+    call (a `storage.StorageStats`): the post-hoc currency of
+    `cache_miss_penalty`'s predictions."""
+    extra = constants.page_access * (constants.page_miss_extra - 1.0)
+    return storage_stats.miss_total * extra / max(batch_q, 1)
+
+
+def modeled_qps(stats: SearchStats, dim: int,
+                constants: CostConstants = SYSTEM,
+                clock_hz: float = 3.0e9, threads: int = 16,
+                thread_overhead: Mapping[int, float] | None = None) -> float:
+    """Modeled queries per second at a given concurrency: `threads` over
+    the modeled seconds of one query, whose cycles `thread_overhead`
+    inflates for contention (the paper's Table 7; default +50 % at any
+    concurrency above one)."""
+    cycles = cycle_breakdown(stats, dim, constants)["total"]
+    amp = 1.0
+    if threads > 1:
+        amp = (thread_overhead or {16: 1.5}).get(threads, 1.5)
+    return threads / (cycles * amp / clock_hz)
+
+
 def stats_table_row(stats: SearchStats) -> dict[str, float]:
     """Mean counters over a query batch — one row of the paper's Table 6."""
     return {k: float(np.asarray(v, np.float64).mean())

@@ -414,6 +414,135 @@ def build_graph_blocked(store: VectorStore, m: int = 16,
 
 
 # ---------------------------------------------------------------------------
+# Incremental reference builder (classic HNSW inserts) — small N only.
+# ---------------------------------------------------------------------------
+
+def _pairwise_dists_np(x: np.ndarray, y: np.ndarray,
+                       metric: str) -> np.ndarray:
+    """`_pairwise_dists` in numpy, for the insert-at-a-time builder."""
+    if metric == "ip":
+        return -x @ y.T
+    if metric == "cos":
+        xn = x / (np.linalg.norm(x, axis=1, keepdims=True) + 1e-12)
+        yn = y / (np.linalg.norm(y, axis=1, keepdims=True) + 1e-12)
+        return 1.0 - xn @ yn.T
+    d = (x * x).sum(1)[:, None] + (y * y).sum(1)[None, :] - 2.0 * (x @ y.T)
+    return np.maximum(d, 0.0)
+
+
+def build_incremental(store: VectorStore, m: int = 16,
+                      ef_construction: int = 64, seed: int = 0,
+                      device="cuda") -> HNSWGraph:
+    """Classic HNSW construction, one insert at a time (greedy descent,
+    ef-bounded layer search, the diversity heuristic, neighbour re-pruning
+    when a list is full), in numpy on the host: the reference's builder,
+    draw for draw and distance for distance, for small stores.  Returns
+    the graph on the store's device."""
+    dev = check_store_device(store, device)
+    vectors = store.vectors.cpu().numpy()
+    n = vectors.shape[0]
+    rng = np.random.RandomState(seed)
+    ml = 1.0 / np.log(max(m, 2))
+    levels = np.minimum(
+        np.floor(-np.log(rng.uniform(1e-12, 1.0, n)) * ml).astype(np.int64),
+        12)
+    top = int(levels.max())
+    mmax0 = 2 * m
+    nbrs = np.full((top + 1, n, mmax0), -1, np.int64)
+    metric = store.metric
+
+    def dist(a, b_ids):
+        return _pairwise_dists_np(vectors[a][None], vectors[b_ids], metric)[0]
+
+    def pair(a, b):
+        return float(_pairwise_dists_np(vectors[a][None],
+                                        vectors[np.array([b])], metric)[0, 0])
+
+    def greedy(q, entry, lvl):
+        cur, cur_d = entry, dist(q, np.array([entry]))[0]
+        while True:
+            nb = nbrs[lvl, cur]
+            nb = nb[nb >= 0]
+            if len(nb) == 0:
+                return cur
+            ds = dist(q, nb)
+            j = int(np.argmin(ds))
+            if ds[j] < cur_d:
+                cur, cur_d = int(nb[j]), float(ds[j])
+            else:
+                return cur
+
+    def search_layer(q, entry, lvl, ef):
+        visited = {entry}
+        ds0 = float(dist(q, np.array([entry]))[0])
+        cand = [(ds0, entry)]
+        result = [(ds0, entry)]
+        while cand:
+            cand.sort()
+            d_c, c = cand.pop(0)
+            result.sort()
+            if d_c > result[min(len(result), ef) - 1][0] and len(result) >= ef:
+                break
+            nb = nbrs[lvl, c]
+            nb = [int(x) for x in nb[nb >= 0] if int(x) not in visited]
+            if not nb:
+                continue
+            visited.update(nb)
+            ds = dist(q, np.array(nb))
+            worst = result[min(len(result), ef) - 1][0]
+            for dd, node in zip(ds, nb):
+                if len(result) < ef or dd < worst:
+                    cand.append((float(dd), node))
+                    result.append((float(dd), node))
+                    result.sort()
+                    result = result[:ef]
+                    worst = result[-1][0]
+        return result
+
+    def select(cand_pairs, m_l):
+        kept: list[int] = []
+        for d_c, c in sorted(cand_pairs):
+            if len(kept) >= m_l:
+                break
+            if all(pair(c, k) > d_c for k in kept):
+                kept.append(c)
+        return kept
+
+    entry = 0
+    entry_level = int(levels[0])
+    for i in range(1, n):
+        lvl_i = int(levels[i])
+        ep = entry
+        for lvl in range(entry_level, lvl_i, -1):
+            ep = greedy(i, ep, min(lvl, entry_level))
+        for lvl in range(min(lvl_i, entry_level), -1, -1):
+            res = search_layer(i, ep, lvl, ef_construction)
+            m_l = mmax0 if lvl == 0 else m
+            sel = select(res, m_l)
+            nbrs[lvl, i, : len(sel)] = sel
+            for s in sel:
+                cur = nbrs[lvl, s]
+                free = np.where(cur < 0)[0]
+                if len(free):
+                    cur[free[0]] = i
+                else:
+                    # re-prune the neighbour's full list with i included
+                    cand = [(pair(s, int(c)), int(c)) for c in cur]
+                    sel2 = select(cand + [(pair(s, i), i)], m_l)
+                    cur[:] = -1
+                    cur[: len(sel2)] = sel2
+            ep = res[0][1]
+        if lvl_i > entry_level:
+            entry, entry_level = i, lvl_i
+
+    return HNSWGraph(neighbors=torch.as_tensor(nbrs, dtype=torch.int32,
+                                               device=dev),
+                     node_level=torch.as_tensor(levels, dtype=torch.int32,
+                                                device=dev),
+                     entry_point=int(entry), m=m)
+
+
+# ---------------------------------------------------------------------------
 # JAG-style attribute-partitioned graphs.  For a hot predicate family (a
 # filter bitmap shared by many queries) a dedicated subgraph over exactly
 # the family's passing rows is traversed UNFILTERED: every row passes by

@@ -20,6 +20,7 @@ correlation ordering are the same.
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -28,6 +29,8 @@ from repro_torch.core.types import (VectorStore, check_store_device,
                                     pack_bool_bitmap)
 
 CORRELATIONS = ("high_pos", "med_pos", "low_pos", "negative", "none")
+# The paper's nine selectivities (§5 Workloads): 0.01 .. 0.9.
+PAPER_SELECTIVITIES = (0.01, 0.02, 0.05, 0.1, 0.2, 0.3, 0.5, 0.8, 0.9)
 
 _POOL_FRAC = {"high_pos": 1.0 / 3.0, "med_pos": 0.5, "low_pos": 1.0,
               "negative": 1.0, "none": 1.0}
@@ -57,6 +60,14 @@ def full_distances(store: VectorStore, queries: torch.Tensor) -> torch.Tensor:
     if store.metric != "l2":
         raise ValueError(f"unknown metric {store.metric!r}")
     return (q * q).sum(-1, keepdim=True) + store.norms_sq[None, :] - 2.0 * ip
+
+
+def query_distance_order(store: VectorStore,
+                         queries: torch.Tensor) -> torch.Tensor:
+    """(Q, N) int64 row ids sorted by increasing distance from each query
+    (a stable sort: equal distances keep row order)."""
+    return torch.sort(full_distances(store, queries), dim=1,
+                      stable=True).indices
 
 
 def _sample_chunk(order: torch.Tensor, n_sel: int, pool: int, negate: bool,
@@ -142,6 +153,23 @@ def generate_bitmaps(store: VectorStore, queries: torch.Tensor,
         bits.scatter_(1, rows, True)
         out[sl] = pack_bool_bitmap(bits)
     return out
+
+
+def generate_grid(store: VectorStore, queries: torch.Tensor,
+                  selectivities: Sequence[float] = PAPER_SELECTIVITIES,
+                  correlations: Sequence[str] = CORRELATIONS,
+                  seed: int = 0, device="cuda"
+                  ) -> dict[tuple[float, str], torch.Tensor]:
+    """The paper's full workload grid: {(selectivity, correlation): (Q, W)
+    bitmaps}, correlation-major; each cell takes the next seed, as in the
+    reference."""
+    grid = {}
+    for corr in correlations:
+        for sel in selectivities:
+            grid[(sel, corr)] = generate_bitmaps(
+                store, queries, WorkloadSpec(sel, corr), seed, device=device)
+            seed += 1
+    return grid
 
 
 def generate_families(store: VectorStore, selectivity: float,

@@ -24,7 +24,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # C entry points of each source and their argument types: "p" a pointer or
 # the stream (c_void_p), "i" an int (c_int), "f" a float (c_float).  Every
-# entry returns the cudaError_t of its launch.
+# entry returns the cudaError_t of its launch, but for
+# `leaf_scan_scratch_ints`, which returns the scratch its launch needs.
 SIGNATURES = {
     "frontier_scan": {"frontier_scan_f32": "pppppppiiiiiiip",
                       "frontier_scan_sq8": "pppppppppiiiiiiip",
@@ -32,7 +33,8 @@ SIGNATURES = {
                       "frontier_scan_excl_sq8": "pppppppppppppfiiiiiiip"},
     "distance": {"distance_matrix_f32": "pppiiiip"},
     "leaf_scan": {"leaf_scan_batched_f32": "pppppppppiiiiiip",
-                  "leaf_scan_f32": "ppppppppiiiiiiiip"},
+                  "leaf_scan_f32": "ppppppppppiiiiiiiip",
+                  "leaf_scan_scratch_ints": "iiii"},
     "topk": {"topk_f32": "ppppiiip"},
     "flash_attention": {"flash_attention": "ppppiiiiiiiip",
                         "flash_attention_wgmma": "ppppiiiiiiip"},

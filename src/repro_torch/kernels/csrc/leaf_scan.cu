@@ -54,26 +54,67 @@
 // ||q||^2 + ||x||^2 - 2 q.x with ||x||^2 summed in the kernel from the
 // dequantized row (or -q.x for the inner product; every other metric is
 // scored as L2, as the reference's kernel and oracle do), and +inf where
-// the row is -1 padding or fails the query's bitmap.  Output (Q, nl, C).
+// the row id is -1, the leaf id lies outside [0, L), or the row fails the
+// query's bitmap.  Output (Q, nl, C).
 //
-// What bounds it on an H100: every (query, leaf) pair re-reads its C x d
-// int8 tile, which is what the per-query path is (1,000 queries x 40
-// leaves x 1,416 x 128 bytes = 7.3 GB at the SIFT1M shape), but the
-// distinct tiles are at most the index (0.36 GB) and a tile is re-read
-// from L2 while it stays there.  The work is 6 FP32 flops per tile byte
-// (dequantize, x.q, x.x), so the least time is set by the FP32 rate, with
-// the (Q, nl, C) float output second.
+// What bounds it on an H100: the bytes.  The queries of one batch open far
+// fewer distinct leaves than (query, leaf) pairs (about 2,000 leaves for
+// 40,000 slots at the SIFT1M-shaped main path), so read once per distinct
+// leaf the tiles are about 0.37 GB, and the (Q, nl, C) score output is
+// 0.23 GB.  On top of that each (query, valid row) probes one bitmap bit,
+// about 20 M probes at random row ids: as 4-byte gathers from the (Q, W)
+// bitmaps each costs its own 32-byte sector (up to about 0.19 ms at HBM
+// rate; gathered so inside this kernel they took 0.6 ms on an H100).
+// The work, 2 d flops per (query, valid row), is about 5 GFLOP (0.08 ms of
+// FP32 at 67 TFLOP/s).  Scanned per (query, leaf) pair, as the TPU
+// kernel's grid does, every pair re-reads its tile (7.3 GB) and redoes the
+// dequantization and ||x||^2 about 20 times per distinct row.
 //
-// What the design does about it: the whole batch is one launch over the
-// (Q, nl) leaf-id block and the kernel reads each tile by id from the
-// (L, C, d) table, so the (Q, nl, C, d) gather the vmapped reference
-// implies is never built.  One block per (query, leaf slot) stages the
-// query, scale and mean in shared memory once and sums ||q||^2 there; one
-// warp per row reads the row with coalesced loads (a char4 a lane: a
-// d = 128 row is one 128-byte transaction), dequantizes with fmaf,
-// accumulates x.q and x.x, reduces with shuffles, and lane 0 probes
-// bitmaps[q, id >> 5].  Tails of d (not a multiple of 4) and of C are
-// masked.
+// What the design does about it: the slots are grouped by leaf, each leaf
+// is scored once against all the queries that opened it, and the probes
+// read a row's bits for every query from one place.
+// - Grouping, on the card with no host sync: a counting sort of the
+//   (Q, nl) slots by leaf id (counts, one block's exclusive scan, a
+//   scatter by atomic cursor).  Slots whose leaf id is outside [0, L) form
+//   a bucket of their own that gets no work.  The scan cuts each leaf's
+//   group into chunks of up to kG = 32 queries (the main path's groups
+//   average 20, median 18, at most ~120) and lists one unit per (chunk,
+//   run of kR = 256 rows that holds a row id >= 0): a run of -1 padding
+//   gets no product.
+// - The bitmaps are turned by row id first ((32 W, 4 ceil(Q / 128))
+//   words: a row's bits for 1,024 queries in one 128-byte line; 32 x 32
+//   bit blocks transposed in registers), so a unit stages each of its
+//   rows' bits with eight 16-byte copies instead of one sector a query.
+// - A fill pass writes +inf over the whole output first (float4 streaming
+//   stores); the units then overwrite their live runs.  Padding runs,
+//   invalid leaves and rows past C need no other work.
+// - The scan runs persistent blocks (one per SM) over the units, with
+//   leaf_scan_batched's machinery: the next unit's int8 rows are staged by
+//   16-byte cp.async pieces (swizzled) while the current one is computed;
+//   each unit is dequantized once into a k-major f32 tile (two rows and
+//   half of K a thread, the code turned to float by a byte permute rather
+//   than the quarter-rate int-to-float, the product and the sum rounded
+//   separately: no fused multiply-add), ||x||^2 summed over each K half
+//   and the two halves added in order; the unit's queries are gathered by
+//   id into shared memory; the product is a register-blocked FP32 tile (4
+//   queries x 8 rows a thread, 32 x 256 a block, no TF32), and a warp whose
+//   16 queries are all past the chunk's end skips it.  The pass bits are
+//   staged at the start of the unit and read in the epilogue.  The unit
+//   list, row ids and query slots are loaded one unit ahead.  The product
+//   reads three 16-byte shared-memory vectors for 32 FMAs a k, so shared
+//   memory, not the FMA rate, bounds it (about two thirds of the FMA rate
+//   at best); a larger tile a thread needs more queries a unit than the
+//   groups hold or more rows than shared memory does.
+// - The epilogue writes each query's scores along C as float4 streaming
+//   stores into out[q, j, :].
+// Each output's arithmetic depends on (q, j, c) alone (one thread, the same
+// K order and rounding whatever else shares its unit), so the result is
+// bit-identical under any order of the queries and from run to run, though
+// the atomic scatter orders a group's slots differently each time.
+// d need not be a multiple of 16 (rows then staged by plain loads) or of 4
+// (queries then staged 4 bytes at a time); d <= 13 * 128 (the shared
+// memory of one block).  Past 1,024 queries a unit gathers one 4-byte word
+// of its row's bits a query.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -81,84 +122,10 @@
 
 namespace {
 
-constexpr int kLeafWarps = 8;
-
 __device__ __forceinline__ float warp_sum(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_down_sync(0xffffffffu, v, off);
   return v;
-}
-
-__global__ void leaf_scan_kernel(
-    const float* __restrict__ queries, const int* __restrict__ leaf_ids,
-    const signed char* __restrict__ tiles, const int* __restrict__ rowids,
-    const float* __restrict__ scale, const float* __restrict__ mean,
-    const int* __restrict__ bitmaps, float* __restrict__ out, int nl, int L,
-    int C, int d, int W, int metric, int vec4) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  const int dpad = (d + 3) & ~3;
-  float* ss = qs + dpad;
-  float* ms = ss + dpad;
-  __shared__ float qn_s;
-  const int j = blockIdx.x, qi = blockIdx.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < d; i += blockDim.x) {
-    qs[i] = queries[(size_t)qi * d + i];
-    ss[i] = scale[i];
-    ms[i] = mean[i];
-  }
-  __syncthreads();
-  if (warp == 0) {
-    float qq = 0.f;
-    for (int i = lane; i < d; i += 32) qq += qs[i] * qs[i];
-    qq = warp_sum(qq);
-    if (lane == 0) qn_s = qq;
-  }
-  __syncthreads();
-  const float qn = qn_s;
-  const int leaf = leaf_ids[(size_t)qi * nl + j];
-  float* orow = out + ((size_t)qi * nl + j) * C;
-  for (int c = warp; c < C; c += kLeafWarps) {
-    const int rid = (leaf >= 0 && leaf < L) ? __ldg(rowids + (size_t)leaf * C + c)
-                                            : -1;
-    if (rid < 0) {
-      if (lane == 0) orow[c] = INFINITY;
-      continue;
-    }
-    const signed char* t = tiles + ((size_t)leaf * C + c) * d;
-    float ip = 0.f, xx = 0.f;
-    if (vec4) {
-      const char4* t4 = reinterpret_cast<const char4*>(t);
-      const float4* q4 = reinterpret_cast<const float4*>(qs);
-      const float4* s4 = reinterpret_cast<const float4*>(ss);
-      const float4* m4 = reinterpret_cast<const float4*>(ms);
-      for (int i = lane; i < (d >> 2); i += 32) {
-        const char4 a = __ldg(t4 + i);
-        const float4 b = q4[i], s = s4[i], m = m4[i];
-        const float x0 = fmaf((float)a.x, s.x, m.x);
-        const float x1 = fmaf((float)a.y, s.y, m.y);
-        const float x2 = fmaf((float)a.z, s.z, m.z);
-        const float x3 = fmaf((float)a.w, s.w, m.w);
-        ip += x0 * b.x + x1 * b.y + x2 * b.z + x3 * b.w;
-        xx += x0 * x0 + x1 * x1 + x2 * x2 + x3 * x3;
-      }
-    } else {
-      for (int i = lane; i < d; i += 32) {
-        const float x = fmaf((float)__ldg(t + i), ss[i], ms[i]);
-        ip += x * qs[i];
-        xx += x * x;
-      }
-    }
-    ip = warp_sum(ip);
-    xx = warp_sum(xx);
-    if (lane == 0) {
-      const unsigned word =
-          (unsigned)__ldg(bitmaps + (size_t)qi * W + (rid >> 5));
-      const bool ok = (word >> (rid & 31)) & 1u;
-      orow[c] = ok ? (metric == 1 ? -ip : qn + xx - 2.f * ip) : INFINITY;
-    }
-  }
 }
 
 typedef unsigned long long u64;
@@ -506,21 +473,727 @@ size_t batched_smem_bytes(int nslices) {
          2 * (size_t)nslices * kKS * sizeof(float);
 }
 
+// ---------------------------------------------------------------------------
+// leaf_scan: the (Q, nl) slots grouped by leaf, each leaf scored once
+// against the queries that opened it
+// ---------------------------------------------------------------------------
+
+// queries a unit, rows a unit (one per thread), a block's threads
+constexpr int kG = 32, kR = 256;
+static_assert(kR == kThreads, "a thread owns one row of a unit");
+constexpr int kScanThreads = 1024;
+
+// A unit: `rows` [r0, r0 + kR) of leaf `leaf` against the `nq` queries whose
+// flat slots (q * nl + j) are slots[start, start + nq).
+struct Unit {
+  int leaf, r0, start, nq;
+};
+
+// the bucket of a slot's leaf id: the leaf, or L for an id outside [0, L)
+__device__ __forceinline__ int bucket(int leaf, int L) {
+  return (leaf >= 0 && leaf < L) ? leaf : L;
+}
+
+// One warp a query: ||q||^2 and the query's slots counted into their
+// buckets.
+__global__ void group_count_kernel(const float* __restrict__ queries,
+                                   const int* __restrict__ leaf_ids,
+                                   int* __restrict__ counts,
+                                   float* __restrict__ qnorm, int Q, int nl,
+                                   int L, int d) {
+  const int lane = threadIdx.x & 31;
+  const int nwarps = gridDim.x * (blockDim.x >> 5);
+  for (int q = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5); q < Q;
+       q += nwarps) {
+    float s = 0.f;
+    for (int k = lane; k < d; k += 32) {
+      const float v = queries[(size_t)q * d + k];
+      s += v * v;
+    }
+    s = warp_sum(s);
+    if (lane == 0) qnorm[q] = s;
+    for (int j = lane; j < nl; j += 32)
+      atomicAdd(counts + bucket(leaf_ids[(size_t)q * nl + j], L), 1);
+  }
+}
+
+// One warp a (leaf, run of kR rows) of the opened leaves: live = some row
+// id >= 0.
+__global__ void live_runs_kernel(const int* __restrict__ rowids,
+                                 const int* __restrict__ counts,
+                                 int* __restrict__ live, int L, int C,
+                                 int nruns) {
+  const int lane = threadIdx.x & 31;
+  const long long ntasks = (long long)L * nruns;
+  const long long nwarps = (long long)gridDim.x * (blockDim.x >> 5);
+  for (long long t = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+       t < ntasks; t += nwarps) {
+    const int b = (int)(t / nruns), r0 = (int)(t % nruns) * kR;
+    if (counts[b] == 0) continue;
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < kR / 32; ++i) {
+      const int c = r0 + i * 32 + lane;
+      any |= c < C && rowids[(size_t)b * C + c] >= 0;
+    }
+    any = __any_sync(0xffffffffu, any);
+    if (lane == 0) live[t] = any;
+  }
+}
+
+// Block-wide exclusive sum of one value a thread; `total` gets the sum.
+__device__ __forceinline__ int block_exclusive_sum(int v, int* warp_tot,
+                                                   int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += y;
+  }
+  if (lane == 31) warp_tot[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kScanThreads / 32 ? warp_tot[lane] : 0;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, off);
+      if (lane >= off) w += y;
+    }
+    warp_tot[lane] = w;               // inclusive over warps
+  }
+  __syncthreads();
+  total = warp_tot[kScanThreads / 32 - 1];
+  const int before = warp ? warp_tot[warp - 1] : 0;
+  __syncthreads();                    // warp_tot is reused by the next call
+  return before + x - v;
+}
+
+// One block: the buckets' slot offsets (the scatter's cursors) and the unit
+// list, bucket by bucket, each bucket's chunks of kG slots in order, each
+// chunk's live runs in order.  The bucket of invalid leaf ids gets no unit.
+__global__ void __launch_bounds__(kScanThreads)
+    group_scan_kernel(const int* __restrict__ counts,
+                      const int* __restrict__ live, int* __restrict__ cursor,
+                      Unit* __restrict__ units, int* __restrict__ n_units,
+                      int L, int nruns) {
+  __shared__ int warp_tot[kScanThreads / 32];
+  int slot_base = 0, unit_base = 0;
+  for (int b0 = 0; b0 <= L; b0 += kScanThreads) {
+    const int b = b0 + threadIdx.x;
+    const int cnt = b <= L ? counts[b] : 0;
+    int nlive = 0;
+    if (b < L && cnt > 0)
+      for (int r = 0; r < nruns; ++r) nlive += live[(size_t)b * nruns + r];
+    const int nchunks = (cnt + kG - 1) / kG;
+    int slots_total, units_total;
+    const int slot_off =
+        slot_base + block_exclusive_sum(cnt, warp_tot, slots_total);
+    int u = unit_base +
+            block_exclusive_sum(nchunks * nlive, warp_tot, units_total);
+    if (b <= L) cursor[b] = slot_off;
+    if (nlive > 0)
+      for (int ch = 0; ch < nchunks; ++ch)
+        for (int r = 0; r < nruns; ++r)
+          if (live[(size_t)b * nruns + r])
+            units[u++] = Unit{b, r * kR, slot_off + ch * kG,
+                              min(kG, cnt - ch * kG)};
+    slot_base += slots_total;
+    unit_base += units_total;
+  }
+  if (threadIdx.x == 0) *n_units = unit_base;
+}
+
+// One thread a slot: its flat index into its bucket's next free place.
+__global__ void group_scatter_kernel(const int* __restrict__ leaf_ids,
+                                     int* __restrict__ cursor,
+                                     int* __restrict__ slots, int n, int L) {
+  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < n;
+       s += gridDim.x * blockDim.x)
+    slots[atomicAdd(cursor + bucket(leaf_ids[s], L), 1)] = s;
+}
+
+// The 32 x 32 bit matrix x[0..31] transposed in place: bit b of x[q]
+// becomes bit q of x[b].
+__device__ __forceinline__ void transpose32(unsigned (&x)[32]) {
+  unsigned m = 0x0000ffffu;
+#pragma unroll
+  for (int j = 16; j != 0; j >>= 1, m ^= m << j) {
+#pragma unroll
+    for (int b = 0; b < 32; b += 2 * j) {
+#pragma unroll
+      for (int i = 0; i < j; ++i) {
+        const unsigned t = ((x[b + i] >> j) ^ x[b + i + j]) & m;
+        x[b + i] ^= t << j;
+        x[b + i + j] ^= t;
+      }
+    }
+  }
+}
+
+// (Q, W) bitmap words -> (32 W, WQ) words by row id, WQ >= ceil(Q / 32):
+// bit l of by_row[id][g] is query 32 g + l's bit for row id, so the bits
+// of one row for every query lie together (128 bytes for Q <= 1,024).  A
+// block turns 32 words (1,024 ids) for 8 groups of 32 queries: a warp reads
+// its group's 32 rows of 32 words (128-byte loads), each lane transposes
+// its word's 32 x 32 bits in registers, and the block writes 32 bytes of
+// each of the 1,024 rows, 16 bytes a store (by_row 16-byte aligned, WQ a
+// multiple of 4).
+__global__ void bits_by_row_kernel(const unsigned* __restrict__ bitmaps,
+                                   unsigned* __restrict__ by_row, int Q,
+                                   int W, int WQ) {
+  __shared__ unsigned res[32 * 32 * 9];   // [bit][word][group], padded
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // the blocks of one set of rows run together, so each 128-byte row is
+  // written whole while it is in L2
+  const int ny = (WQ + 7) / 8;
+  const int w0 = blockIdx.x / ny * 32, g0 = blockIdx.x % ny * 8;
+  const int g = g0 + warp, w = w0 + lane;
+  unsigned x[32];
+#pragma unroll
+  for (int l = 0; l < 32; ++l) {
+    const int q = g * 32 + l;
+    x[l] = (g < WQ && q < Q && w < W) ? __ldg(bitmaps + (size_t)q * W + w)
+                                      : 0u;
+  }
+  transpose32(x);   // x[b]: bit l = query 32 g + l's bit for id 32 w + b
+#pragma unroll
+  for (int b = 0; b < 32; ++b) res[(b * 32 + lane) * 9 + warp] = x[b];
+  __syncthreads();
+  for (int e = threadIdx.x; e < 1024 * 2; e += 256) {
+    const int r = e >> 1, gl = (e & 1) * 4;      // row id 32 w0 + r
+    const unsigned* src = res + ((r & 31) * 32 + (r >> 5)) * 9 + gl;
+    if (w0 + (r >> 5) < W && g0 + gl < WQ)
+      *reinterpret_cast<uint4*>(by_row + (size_t)(32 * w0 + r) * WQ + g0 +
+                                gl) = make_uint4(src[0], src[1], src[2],
+                                                 src[3]);
+  }
+}
+
+// +inf over n floats.
+__global__ void fill_inf_kernel(float* __restrict__ out, long long n,
+                                int vec) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  long long done = 0;
+  if (vec) {
+    const float4 inf4 = make_float4(INFINITY, INFINITY, INFINITY, INFINITY);
+    float4* o4 = reinterpret_cast<float4*>(out);
+    for (long long i = i0; i < n / 4; i += stride) __stcs(o4 + i, inf4);
+    done = n / 4 * 4;
+  }
+  for (long long i = done + i0; i < n; i += stride) out[i] = INFINITY;
+}
+
+struct ScanArgs {
+  const float* queries;      // (Q, d)
+  const signed char* tiles;  // (L, C, d)
+  const int* rowids;         // (L, C)
+  const float* scale;        // (d,)
+  const float* mean;         // (d,)
+  const unsigned* by_row;    // (32 W, WQ) bits by row id, WQ % 4 == 0
+  const Unit* units;         // (*n_units,)
+  const int* n_units;
+  const int* slots;          // (Q * nl,) flat slots, grouped by bucket
+  const float* qnorm;        // (Q,)
+  float* out;                // (Q, nl, C)
+  int nl, C, d, W, WQ, nslices, metric, tiles16, q16, vec_out, whole_rows;
+};
+
+__device__ __forceinline__ Unit load_unit(const ScanArgs& a, int u, int n) {
+  if (u >= n) return Unit{-1, 0, 0, 0};
+  const int4 v = __ldg(reinterpret_cast<const int4*>(a.units) + u);
+  return Unit{v.x, v.y, v.z, v.w};
+}
+
+// this thread's row id of unit e (-1 past C or for no unit)
+__device__ __forceinline__ int unit_rowid(const ScanArgs& a, const Unit& e) {
+  const int c = e.r0 + threadIdx.x;
+  return (e.leaf >= 0 && c < a.C) ? __ldg(a.rowids + (size_t)e.leaf * a.C + c)
+                                  : -1;
+}
+
+// the flat slot of query `ql` of unit e, or -1
+__device__ __forceinline__ int unit_slot(const ScanArgs& a, const Unit& e,
+                                         int ql) {
+  return (e.leaf >= 0 && ql < e.nq) ? __ldg(a.slots + e.start + ql) : -1;
+}
+
+// Stage one K slice of a unit's rows: 16-byte pieces, piece j of row r at
+// column (j ^ ((r >> 1) & 7)) of the row's 128 bytes, zero past d and
+// past C.
+__device__ __forceinline__ void stage_unit_rows(const ScanArgs& a,
+                                                signed char* stage,
+                                                const Unit& e, int s) {
+  for (int p = threadIdx.x; p < kR * 8; p += kThreads) {
+    const int r = p >> 3, j = p & 7;
+    const int c = e.r0 + r, k0 = s * kKS + j * 16;
+    const long long g = (long long)e.leaf * a.C + c;
+    signed char* dst = stage + r * kKS + ((j ^ ((r >> 1) & 7)) << 4);
+    const bool ok = c < a.C && k0 < a.d;
+    if (a.tiles16) {
+      cp_async16(dst, ok ? a.tiles + g * a.d + k0 : a.tiles, ok ? 16 : 0);
+    } else {
+      unsigned w[4] = {0u, 0u, 0u, 0u};
+      if (ok)
+        for (int el = 0; el < 16 && k0 + el < a.d; ++el)
+          w[el >> 2] |= (unsigned)(unsigned char)a.tiles[g * a.d + k0 + el]
+                        << (8 * (el & 3));
+      *reinterpret_cast<int4*>(dst) =
+          make_int4((int)w[0], (int)w[1], (int)w[2], (int)w[3]);
+    }
+  }
+}
+
+// Stage one K slice of the unit's queries: thread t copies 16 floats of
+// query t >> 3 (q = -1 past the chunk: zeros), zero past d.
+__device__ __forceinline__ void stage_unit_queries(const ScanArgs& a,
+                                                   float* As, int q, int s) {
+  const int ql = threadIdx.x >> 3, part = threadIdx.x & 7;
+  float* dst = As + ql * kAStride + part * 16;
+  const int k0 = s * kKS + part * 16;
+  const float* src = a.queries + (size_t)(q < 0 ? 0 : q) * a.d;
+  if (a.q16) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const bool ok = q >= 0 && k0 + 4 * i < a.d;
+      cp_async16(dst + 4 * i, ok ? src + k0 + 4 * i : a.queries, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = 0; i < 16; ++i) {
+      const bool ok = q >= 0 && k0 + i < a.d;
+      cp_async4(dst + i, ok ? src + k0 + i : a.queries, ok ? 4 : 0);
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_group2() {
+  asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    leaf_scan_kernel(const ScanArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Bs = reinterpret_cast<float*>(smem);                // [kKS][kR]
+  float* As = Bs + kKS * kR;                                 // [kG][kAStride]
+  // the pass bits: [kR][32] whole bit rows, or [kG][kR] words past 1,024
+  // queries
+  unsigned* words = reinterpret_cast<unsigned*>(As + kG * kAStride);
+  signed char* stage = reinterpret_cast<signed char*>(words + kG * kR);
+  //                                                            [kR][kKS]
+  int* srid = reinterpret_cast<int*>(stage + kR * kKS);      // [kR]
+  float* xn = reinterpret_cast<float*>(srid + kR);           // [kR]
+  float* xpart = xn + kR;                                    // [2][kR]
+  int* sslot = reinterpret_cast<int*>(xpart + 2 * kR);       // [2][kG]
+  int* sq = sslot + 2 * kG;                                  // [2][kG]
+  float* sqn = reinterpret_cast<float*>(sq + 2 * kG);        // [2][kG]
+  float* sc = sqn + 2 * kG;                                  // [nslices*kKS]
+  float* mn = sc + a.nslices * kKS;
+
+  const int n = *a.n_units;
+  int u = blockIdx.x;
+  if (u >= n) return;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // the thread's 4 x 8 tile: queries wq + qg + 4 i, rows wr + rg * 4 + j
+  // and wr + 32 + rg * 4 + j
+  const int wq = (warp >> 2) * 16, wr = (warp & 3) * 64;
+  const int qg = lane >> 3, rg = lane & 7;
+  const int myql = tid >> 3;         // the query this thread stages
+
+  // a unit's queries into buffer nb: slot, query and ||q||^2 of query myql
+  auto publish = [&](int nb, int slot) {
+    if ((tid & 7) == 0) {
+      const int q = slot < 0 ? -1 : slot / a.nl;
+      sslot[nb * kG + myql] = slot;
+      sq[nb * kG + myql] = q;
+      cp_async4(sqn + nb * kG + myql, q < 0 ? a.qnorm : a.qnorm + q,
+                q < 0 ? 0 : 4);
+    }
+  };
+
+  for (int i = tid; i < a.nslices * kKS; i += kThreads) {
+    sc[i] = i < a.d ? a.scale[i] : 0.f;
+    mn[i] = i < a.d ? a.mean[i] : 0.f;
+  }
+  Unit e = load_unit(a, u, n);
+  int rid = unit_rowid(a, e);
+  int slot = unit_slot(a, e, myql);
+  int buf = 0;
+  publish(buf, slot);
+  stage_unit_rows(a, stage, e, 0);
+  stage_unit_queries(a, As, slot < 0 ? -1 : slot / a.nl, 0);
+  cp_async_commit();
+  Unit e1 = load_unit(a, u + gridDim.x, n);
+  int rid1 = -1, slot1 = -1;
+
+  float acc[4][8];
+  for (;;) {
+    const int nq = e.nq;
+    float xx[2] = {0.f, 0.f};
+    for (int s = 0; s < a.nslices; ++s) {
+      cp_async_wait_all();
+      __syncthreads();
+      if (s == 0) {
+        // the unit's pass bits, staged while the unit is computed: each
+        // row's bits for every query (one 128-byte row of by_row, 16-byte
+        // pieces swizzled by row) where Q <= 1,024, else the word of each
+        // of the unit's queries
+        srid[tid] = rid;
+        if (a.whole_rows) {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            const int src = 4 * k + (lane >> 3), c = lane & 7;
+            const int id = __shfl_sync(0xffffffffu, rid, src);
+            const int r = warp * 32 + src;
+            if (id >= 0 && (id >> 5) < a.W && 4 * c < a.WQ)
+              cp_async16(words + r * 32 + ((c ^ ((r >> 2) & 7)) << 2),
+                         a.by_row + (size_t)id * a.WQ + 4 * c, 16);
+          }
+        } else if (rid >= 0 && (rid >> 5) < a.W) {
+          const unsigned* row = a.by_row + (size_t)rid * a.WQ;
+          for (int ql = 0; ql < nq; ++ql)
+            cp_async4(words + ql * kR + tid, row + (sq[buf * kG + ql] >> 5),
+                      4);
+        }
+        cp_async_commit();
+      }
+      {  // dequantize: thread t turns rows 2 rp, 2 rp + 1, K half kh
+        const int rp = ((warp & 3) << 5) | lane, kh = warp >> 2;
+        const float4* sc4 =
+            reinterpret_cast<const float4*>(sc + s * kKS + 64 * kh);
+        const float4* mn4 =
+            reinterpret_cast<const float4*>(mn + s * kKS + 64 * kh);
+#pragma unroll 2
+        for (int p = 0; p < 4; ++p) {
+          const int j = 4 * kh + p;
+          // each code c + 128 as the low byte of the float 2^23 + (c + 128),
+          // less 2^23 + 128: c exactly, at full rate (no int-to-float)
+          unsigned w[2][4];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int r = 2 * rp + i;
+            const int4 v = *reinterpret_cast<const int4*>(
+                stage + r * kKS + ((j ^ ((r >> 1) & 7)) << 4));
+            w[i][0] = (unsigned)v.x ^ 0x80808080u;
+            w[i][1] = (unsigned)v.y ^ 0x80808080u;
+            w[i][2] = (unsigned)v.z ^ 0x80808080u;
+            w[i][3] = (unsigned)v.w ^ 0x80808080u;
+          }
+#pragma unroll
+          for (int e4 = 0; e4 < 4; ++e4) {
+            const float4 s4 = sc4[p * 4 + e4], m4 = mn4[p * 4 + e4];
+            const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+            const float mv[4] = {m4.x, m4.y, m4.z, m4.w};
+#pragma unroll
+            for (int el = 0; el < 4; ++el) {
+              float x[2];
+#pragma unroll
+              for (int i = 0; i < 2; ++i) {
+                const float c = __int_as_float(__byte_perm(
+                                    w[i][e4], 0x4b00u, 0x5440 + el)) -
+                                8388736.f;
+                x[i] = __fadd_rn(__fmul_rn(c, sv[el]), mv[el]);
+                xx[i] = fmaf(x[i], x[i], xx[i]);
+              }
+              *reinterpret_cast<float2*>(
+                  Bs + (64 * kh + 16 * p + 4 * e4 + el) * kR + 2 * rp) =
+                  make_float2(x[0], x[1]);
+            }
+          }
+        }
+        if (s + 1 == a.nslices)
+          *reinterpret_cast<float2*>(xpart + kh * kR + 2 * rp) =
+              make_float2(xx[0], xx[1]);
+      }
+      __syncthreads();
+      const bool last = s + 1 == a.nslices;
+      // the next step's rows go out while this one is computed
+      if (!last) {
+        stage_unit_rows(a, stage, e, s + 1);
+      } else if (e1.leaf >= 0) {
+        stage_unit_rows(a, stage, e1, 0);
+      }
+      cp_async_commit();
+      if (last) {  // the next unit's row id and slot, the unit after it
+        rid1 = unit_rowid(a, e1);
+        slot1 = unit_slot(a, e1, myql);
+      }
+      const Unit e2 = last ? load_unit(a, u + 2 * gridDim.x, n) : e1;
+
+      if (wq < nq) {
+        if (s == 0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+        }
+        const float* Ap = As + (wq + qg) * kAStride;
+        const float* Bp = Bs + wr + rg * 4;
+        const int kmax = min(kKS, (a.d - s * kKS + 3) & ~3);
+#pragma unroll 2
+        for (int k = 0; k < kmax; k += 4) {
+          float4 av[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            av[i] =
+                *reinterpret_cast<const float4*>(Ap + 4 * i * kAStride + k);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float4 b0 =
+                *reinterpret_cast<const float4*>(Bp + (k + kk) * kR);
+            const float4 b1 =
+                *reinterpret_cast<const float4*>(Bp + (k + kk) * kR + 32);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float x = kk == 0   ? av[i].x
+                              : kk == 1 ? av[i].y
+                              : kk == 2 ? av[i].z
+                                        : av[i].w;
+              acc[i][0] += x * b0.x;
+              acc[i][1] += x * b0.y;
+              acc[i][2] += x * b0.z;
+              acc[i][3] += x * b0.w;
+              acc[i][4] += x * b1.x;
+              acc[i][5] += x * b1.y;
+              acc[i][6] += x * b1.z;
+              acc[i][7] += x * b1.w;
+            }
+          }
+        }
+      }
+      if (last)   // each row's ||x||^2: its two K halves, in order
+        xn[tid] = xpart[tid] + xpart[kR + tid];
+      __syncthreads();  // As is free
+      if (!last) {
+        stage_unit_queries(a, As, slot < 0 ? -1 : slot / a.nl, s + 1);
+      } else if (e1.leaf >= 0) {
+        publish(buf ^ 1, slot1);
+        stage_unit_queries(a, As, slot1 < 0 ? -1 : slot1 / a.nl, 0);
+      }
+      cp_async_commit();
+      if (last) {
+        // epilogue: this unit's scores, each query's along C
+        cp_async_wait_group2();     // the words (older than the two above)
+        __syncthreads();
+        if (wq < nq) {
+          float xv[8];
+          int rv[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int r = wr + (j >> 2) * 32 + rg * 4 + (j & 3);
+            xv[j] = xn[r];
+            rv[j] = srid[r];
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int ql = wq + qg + 4 * i;
+            if (ql >= nq) continue;
+            const float qv = sqn[buf * kG + ql];
+            const int qw = sq[buf * kG + ql] >> 5, qbit = sq[buf * kG + ql] & 31;
+            float* orow =
+                a.out + (size_t)sslot[buf * kG + ql] * a.C + e.r0;
+            const unsigned* wrow = words + ql * kR;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int c = wr + h * 32 + rg * 4;
+              unsigned wv[4];
+              if (a.whole_rows) {
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+                  const int r = c + j;
+                  wv[j] = words[r * 32 + (((qw >> 2) ^ ((r >> 2) & 7)) << 2) +
+                                (qw & 3)];
+                }
+              } else {
+                const uint4 w4 = *reinterpret_cast<const uint4*>(wrow + c);
+                wv[0] = w4.x;
+                wv[1] = w4.y;
+                wv[2] = w4.z;
+                wv[3] = w4.w;
+              }
+              float v[4];
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const int jj = h * 4 + j, id = rv[jj];
+                const bool ok =
+                    id >= 0 && (id >> 5) < a.W && ((wv[j] >> qbit) & 1u);
+                v[j] = ok ? (a.metric == 1 ? -acc[i][jj]
+                                           : qv + xv[jj] - 2.f * acc[i][jj])
+                          : INFINITY;
+              }
+              if (a.vec_out && e.r0 + c + 3 < a.C) {
+                __stcs(reinterpret_cast<float4*>(orow + c),
+                       make_float4(v[0], v[1], v[2], v[3]));
+              } else {
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                  if (e.r0 + c + j < a.C) orow[c + j] = v[j];
+              }
+            }
+          }
+        }
+        if (e1.leaf < 0) return;
+        u += gridDim.x;
+        e = e1;
+        e1 = e2;
+        rid = rid1;
+        slot = slot1;
+        buf ^= 1;
+      }
+    }
+  }
+}
+
+size_t scan_smem_bytes(int nslices) {
+  return (size_t)kKS * kR * sizeof(float) +
+         (size_t)kG * kAStride * sizeof(float) + (size_t)kG * kR * 4 +
+         (size_t)kR * kKS + 4 * kR * 4 + 6 * kG * 4 +
+         2 * (size_t)nslices * kKS * sizeof(float);
+}
+
+// The scratch of one call, in 4-byte words: per bucket a count and a
+// cursor, a live flag per (leaf, run), the unit count, ||q||^2 per query,
+// the slots, then (16-byte aligned) the units.  -1 when it does not fit an
+// int or the slots an int index.
+long long scratch_layout(int Q, int nl, int L, int C, long long* off) {
+  const long long nslot = (long long)Q * nl;
+  const long long nruns = ((long long)C + kR - 1) / kR;
+  const long long nchunks = std::min(nslot, (nslot + kG - 1) / kG + L + 1);
+  off[0] = 0;                                  // counts [L + 1]
+  off[1] = off[0] + L + 1;                     // cursor [L + 1]
+  off[2] = off[1] + L + 1;                     // live [L * nruns]
+  off[3] = off[2] + (long long)L * nruns;      // n_units [1]
+  off[4] = off[3] + 1;                         // qnorm [Q]
+  off[5] = off[4] + Q;                         // slots [Q * nl]
+  off[6] = (off[5] + nslot + 3) & ~3LL;        // units [4 * nchunks * nruns]
+  const long long total = off[6] + 4 * nchunks * nruns;
+  return (nslot >= (1LL << 31) || total >= (1LL << 31)) ? -1 : total;
+}
+
+// The card's opt-in shared memory per block and SM count, read once: the
+// process drives one card.
+cudaError_t device_limits(int& max_smem, int& n_sm) {
+  static int smem_cached = -1, sm_cached = 0;
+  if (smem_cached < 0) {
+    int dev = 0, s = 0, m = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&s, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&m, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    smem_cached = s;
+    sm_cached = m;
+  }
+  max_smem = smem_cached;
+  n_sm = sm_cached;
+  return cudaSuccess;
+}
+
 }  // namespace
 
+// The 4-byte words of scratch leaf_scan_f32 needs, or -1 when the batch is
+// too large for one call.
+extern "C" int leaf_scan_scratch_ints(int Q, int nl, int L, int C) {
+  long long off[7];
+  const long long total = scratch_layout(Q, nl, L, C, off);
+  return total < 0 ? -1 : (int)total;
+}
+
+// The grouping (counts, live runs, scan, scatter), the bitmaps by row id
+// into `by_row` ((32 W, 4 ceil(Q / 128)) words), the +inf fill, then the scan
+// over the units; `scratch` holds leaf_scan_scratch_ints(Q, nl, L, C)
+// words.  Refuses (cudaErrorInvalidValue) a smaller scratch, a by_row
+// that is not 16-byte aligned and a d whose K slices and scale/mean do
+// not fit the shared memory of one block.
 extern "C" int leaf_scan_f32(const void* queries, const void* leaf_ids,
                              const void* tiles, const void* rowids,
                              const void* scale, const void* mean,
-                             const void* bitmaps, void* out, int Q, int nl,
-                             int L, int C, int d, int W, int metric, int vec4,
-                             void* stream) {
+                             const void* bitmaps, void* scratch,
+                             void* by_row, void* out, int Q, int nl, int L,
+                             int C, int d, int W, int metric,
+                             int scratch_ints, void* stream) {
   if (Q == 0 || nl == 0 || C == 0) return 0;
-  dim3 grid(nl, Q);
-  const size_t smem = (size_t)3 * ((d + 3) / 4) * sizeof(float4);
-  leaf_scan_kernel<<<grid, kLeafWarps * 32, smem, (cudaStream_t)stream>>>(
-      (const float*)queries, (const int*)leaf_ids, (const signed char*)tiles,
-      (const int*)rowids, (const float*)scale, (const float*)mean,
-      (const int*)bitmaps, (float*)out, nl, L, C, d, W, metric, vec4);
+  long long off[7];
+  const long long need = scratch_layout(Q, nl, L, C, off);
+  if (need < 0 || need > scratch_ints || (size_t)by_row % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  int max_smem = 0, n_sm = 0;
+  cudaError_t e = device_limits(max_smem, n_sm);
+  if (e != cudaSuccess) return (int)e;
+  const int nslices = (d + kKS - 1) / kKS;
+  const size_t smem = scan_smem_bytes(nslices);
+  if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
+  e = cudaFuncSetAttribute(leaf_scan_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const cudaStream_t st = (cudaStream_t)stream;
+  int* base = static_cast<int*>(scratch);
+  int* counts = base + off[0];
+  int* cursor = base + off[1];
+  int* live = base + off[2];
+  int* n_units = base + off[3];
+  float* qnorm = reinterpret_cast<float*>(base + off[4]);
+  int* slots = base + off[5];
+  Unit* units = reinterpret_cast<Unit*>(base + off[6]);
+  const int nruns = (C + kR - 1) / kR;
+  const long long nslot = (long long)Q * nl;
+  const int cap = n_sm * 16;   // blocks of the grid-stride passes
+
+  e = cudaMemsetAsync(counts, 0, (size_t)(L + 1) * sizeof(int), st);
+  if (e != cudaSuccess) return (int)e;
+  group_count_kernel<<<std::min((Q + 7) / 8, cap), 256, 0, st>>>(
+      (const float*)queries, (const int*)leaf_ids, counts, qnorm, Q, nl, L,
+      d);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if ((long long)L * nruns > 0) {
+    live_runs_kernel<<<(int)std::min(((long long)L * nruns + 7) / 8,
+                                     (long long)cap),
+                       256, 0, st>>>((const int*)rowids, counts, live, L, C,
+                                     nruns);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  group_scan_kernel<<<1, kScanThreads, 0, st>>>(counts, live, cursor, units,
+                                                n_units, L, nruns);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  group_scatter_kernel<<<(int)std::min((nslot + 255) / 256, (long long)cap),
+                         256, 0, st>>>((const int*)leaf_ids, cursor, slots,
+                                       (int)nslot, L);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int WQ = (Q + 127) / 128 * 4;   // whole 16-byte pieces a row
+  bits_by_row_kernel<<<(W + 31) / 32 * ((WQ + 7) / 8), 256, 0, st>>>(
+      (const unsigned*)bitmaps, (unsigned*)by_row, Q, W, WQ);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  fill_inf_kernel<<<n_sm * 8, 256, 0, st>>>(
+      (float*)out, nslot * C, (size_t)out % 16 == 0);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+
+  ScanArgs a;
+  a.queries = (const float*)queries;
+  a.tiles = (const signed char*)tiles;
+  a.rowids = (const int*)rowids;
+  a.scale = (const float*)scale;
+  a.mean = (const float*)mean;
+  a.by_row = (const unsigned*)by_row;
+  a.units = units;
+  a.n_units = n_units;
+  a.slots = slots;
+  a.qnorm = qnorm;
+  a.out = (float*)out;
+  a.nl = nl;
+  a.C = C;
+  a.d = d;
+  a.W = W;
+  a.WQ = WQ;
+  a.whole_rows = WQ <= 32;
+  a.nslices = nslices;
+  a.metric = metric;
+  a.tiles16 = d % 16 == 0 && (size_t)tiles % 16 == 0;
+  a.q16 = d % 4 == 0 && (size_t)queries % 16 == 0;
+  a.vec_out = C % 4 == 0 && (size_t)out % 16 == 0;
+  leaf_scan_kernel<<<n_sm, kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -534,25 +1207,13 @@ extern "C" int leaf_scan_batched_f32(const void* queries, const void* tiles,
                                      void* out, int Q, int U, int C, int d,
                                      int W, int metric, void* stream) {
   if (Q == 0 || U == 0 || C == 0) return 0;
-  // read once from the current card: the process drives one card
-  static int max_smem = -1, n_sm = 0;
-  if (max_smem < 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&max_smem,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) {
-      max_smem = -1;
-      return (int)e;
-    }
-  }
+  int max_smem = 0, n_sm = 0;
+  cudaError_t e = device_limits(max_smem, n_sm);
+  if (e != cudaSuccess) return (int)e;
   const int nslices = (d + kKS - 1) / kKS;
   const size_t smem = batched_smem_bytes(nslices);
   if (smem > (size_t)max_smem) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
+  e = cudaFuncSetAttribute(
       leaf_scan_batched_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;

@@ -4,7 +4,10 @@ the opened int8 leaf tiles, in persistent blocks that own a tile of 64
 queries; the bitmaps are first turned into one 64-bit pass mask per (query
 tile, row id), so a row is probed once for the whole tile.  `leaf_scan`:
 the legacy per-query scan, every query against its own opened leaves, read
-by leaf id from the index's tile table."""
+by leaf id from the index's tile table; the card groups the (query, slot)
+pairs by leaf, so each opened leaf is read, dequantized and scored once
+against all the queries that opened it, in persistent blocks that walk
+(leaf, up to 32 queries, 256 rows) units."""
 from __future__ import annotations
 
 import torch
@@ -21,8 +24,11 @@ def leaf_scan_cuda(queries: torch.Tensor, leaf_ids: torch.Tensor,
     """queries (Q, d) f32, leaf_ids (Q, nl) int32 into tiles (L, C, d) int8
     and rowids (L, C) int32, scale/mean (d,) f32, bitmaps (Q, W) int32, all
     contiguous on one CUDA device -> (Q, nl, C) f32 scores, +inf where a
-    row is padded or filtered out.  "ip" scores the negated inner product,
-    every other metric L2."""
+    row is padded or filtered out or the leaf id lies outside [0, L).
+    "ip" scores the negated inner product, every other metric L2.  Seven
+    launches (the grouping's four, the bitmaps turned by row id, the +inf
+    fill, the scan), counted as one call; none for an empty batch.
+    d <= 1664."""
     qn, d = queries.shape
     nl = leaf_ids.shape[1]
     n_leaves, c, _ = tiles.shape
@@ -38,17 +44,26 @@ def leaf_scan_cuda(queries: torch.Tensor, leaf_ids: torch.Tensor,
     for t in (leaf_ids, tiles, rowids, scale, mean, bitmaps):
         if t.device != dev:
             raise ValueError("leaf_scan: tensors on different devices")
-    if qn > 65535:
-        raise ValueError(f"leaf_scan kernel: Q={qn} too large for one launch")
     out = torch.empty((qn, nl, c), dtype=torch.float32, device=dev)
-    # char4 loads need 4-byte aligned rows
-    vec4 = int(d % 4 == 0 and tiles.data_ptr() % 4 == 0)
+    if out.numel() == 0:
+        return out
     lib = build.load("leaf_scan")
+    # the grouping's scratch: bucket counts, live runs, slots, units
+    n_scratch = lib.leaf_scan_scratch_ints(qn, nl, n_leaves, c)
+    if n_scratch < 0:
+        raise ValueError(f"leaf_scan kernel: Q={qn}, nl={nl}, L={n_leaves}, "
+                         f"C={c} too large for one launch")
+    scratch = torch.empty(n_scratch, dtype=torch.int32, device=dev)
+    # the bitmaps by row id: one bit a query, a row's bits together in
+    # whole 16-byte pieces
+    by_row = torch.empty((32 * w, 4 * -(-qn // 128)), dtype=torch.int32,
+                         device=dev)
     status = lib.leaf_scan_f32(
         queries.data_ptr(), leaf_ids.data_ptr(), tiles.data_ptr(),
         rowids.data_ptr(), scale.data_ptr(), mean.data_ptr(),
-        bitmaps.data_ptr(), out.data_ptr(), qn, nl, n_leaves, c, d, w,
-        1 if metric == "ip" else 0, vec4,
+        bitmaps.data_ptr(), scratch.data_ptr(), by_row.data_ptr(),
+        out.data_ptr(), qn, nl, n_leaves, c, d, w,
+        1 if metric == "ip" else 0, n_scratch,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(status, "leaf_scan")
     return out

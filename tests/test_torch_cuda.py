@@ -223,6 +223,113 @@ def test_leaf_scan_kernel_matches_plain_version(cuda, metric, d):
                                   bm[0], metric))
 
 
+def _leaf_ids_inputs(cuda, qn, nl, n_leaves, c, d, seed=5):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(qn, d, device=cuda, generator=g)
+    tiles = torch.randint(-127, 128, (n_leaves, c, d), device=cuda,
+                          generator=g, dtype=torch.int8)
+    rowids = torch.randint(-1, 5000, (n_leaves, c), device=cuda, generator=g,
+                           dtype=torch.int32)
+    scale = torch.rand(d, device=cuda, generator=g) * 0.02 + 1e-3
+    mean = torch.randn(d, device=cuda, generator=g) * 0.1
+    bm = torch.randint(-2 ** 31, 2 ** 31 - 1, (qn, 157), device=cuda,
+                       generator=g, dtype=torch.int32)
+    leaf_ids = torch.randint(0, n_leaves, (qn, nl), device=cuda, generator=g,
+                             dtype=torch.int32)
+    return [q, leaf_ids, tiles, rowids, scale, mean, bm]
+
+
+def _leaf_ids_want(args, metric):
+    """The plain version, with the rows of a leaf id outside [0, L) +inf
+    (the plain version gathers by id and cannot take one)."""
+    q, leaf_ids, tiles = args[:3]
+    bad = (leaf_ids < 0) | (leaf_ids >= tiles.shape[0])
+    safe = torch.where(bad, 0, leaf_ids).to(torch.int32)
+    want = ref.leaf_scan_ids_ref(q, safe, *args[2:], metric)
+    return want.masked_fill(bad[:, :, None], float("inf"))
+
+
+def _leaf_ids_check(args, metric):
+    ops.reset_launches()
+    got = ops.leaf_scan_ids(*args, metric)
+    assert ops.launches()["leaf_scan"] == 1
+    _close(got, _leaf_ids_want(args, metric))
+    return got
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("d", [37, 128])
+@pytest.mark.parametrize("case", ["every_query", "repeated", "invalid_ids",
+                                  "holes", "padding_tile"])
+def test_leaf_scan_kernel_grouped_by_leaf(cuda, case, d, metric):
+    """The grouping's edge cases: a leaf opened by every query (100, more
+    than a 32-query chunk), one leaf twice in a query's slots, leaf ids of
+    -1 and >= L (+inf rows), rowids with -1 in the middle of a tile, a
+    tile of padding only; C = 600 (three 256-row runs, the last ragged)."""
+    args = _leaf_ids_inputs(cuda, 100, 6, 20, 600, d)
+    q, leaf_ids, tiles, rowids = args[:4]
+    if case == "every_query":
+        leaf_ids[:, 2] = 7
+        leaf_ids[:40, 4] = 3
+    elif case == "repeated":
+        leaf_ids[:, 1] = leaf_ids[:, 0]
+        leaf_ids[5, :] = 11
+    elif case == "invalid_ids":
+        leaf_ids[::3, 0] = -1
+        leaf_ids[1::4, 3] = 20
+        leaf_ids[7, :] = 2 ** 31 - 1
+    elif case == "holes":
+        sizes = torch.arange(20, device=cuda)[:, None] * 30
+        live = torch.arange(600, device=cuda)[None] < sizes
+        hole = (torch.arange(600, device=cuda) // 50) % 2 == 1
+        args[3] = torch.where(live & ~hole[None], rowids.clamp(min=0),
+                              -1).to(torch.int32)
+        assert bool((args[3][19, 300:450] >= 0).any())
+    else:
+        args[3][4] = -1
+        args[3][9, 256:512] = -1
+        leaf_ids[:, 0] = 4
+    got = _leaf_ids_check(args, metric)
+    if case == "invalid_ids":
+        assert bool(torch.isinf(got[::3, 0]).all())
+        assert bool(torch.isinf(got[7]).all())
+    if case == "padding_tile":
+        assert bool(torch.isinf(got[:, 0]).all())
+
+
+def test_leaf_scan_kernel_takes_any_number_of_queries(cuda):
+    """Q = 70,000 at nl = 1: persistent blocks have no grid.y limit."""
+    _leaf_ids_check(_leaf_ids_inputs(cuda, 70_000, 1, 50, 40, 128), "l2")
+
+
+@pytest.mark.parametrize("d", [37, 128])
+def test_leaf_scan_kernel_is_bit_equal_under_a_permutation(cuda, d):
+    """Each score's arithmetic is fixed by (query, slot, row) alone: the
+    same bits for the queries in any order and from run to run, though
+    the grouping's atomic scatter orders each leaf's queries anew."""
+    args = _leaf_ids_inputs(cuda, 300, 8, 12, 700, d)
+    got = _leaf_ids_check(args, "l2")
+    assert torch.equal(ops.leaf_scan_ids(*args), got)
+    perm = torch.randperm(300, device=cuda,
+                          generator=torch.Generator(device=cuda).manual_seed(1))
+    shuffled = list(args)
+    for i in (0, 1, 6):
+        shuffled[i] = args[i][perm].contiguous()
+    back = torch.empty_like(got)
+    back[perm] = ops.leaf_scan_ids(*shuffled)
+    assert torch.equal(back, got)
+
+
+@pytest.mark.parametrize("qn,nl,c", [(0, 4, 45), (5, 0, 45), (5, 4, 0)])
+def test_leaf_scan_kernel_launches_nothing_for_an_empty_batch(cuda, qn, nl,
+                                                              c):
+    args = _leaf_ids_inputs(cuda, qn, nl, 6, c, 32)
+    ops.reset_launches()
+    got = ops.leaf_scan_ids(*args)
+    assert got.shape == (qn, nl, c)
+    assert ops.launches()["leaf_scan"] == 0
+
+
 @pytest.mark.parametrize("n,k", [(1, 1), (7, 12), (1000, 10), (1025, 40),
                                  (3001, 40), (56_640, 40), (1_000_000, 10),
                                  (5000, 1500)])

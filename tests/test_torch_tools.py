@@ -65,12 +65,13 @@ def _timing_tool():
                                          "frontier_scan_sq8"]),
     ("frontier_scan_excl,frontier_scan_excl_sq8",
      ["frontier_scan_excl", "frontier_scan_excl_sq8"]),
+    ("leaf_scan", ["leaf_scan"]),
+    ("leaf_scan_batched, leaf_scan", ["leaf_scan_batched", "leaf_scan"]),
 ])
 def test_timing_tool_reads_its_kernel_names(text, want):
     tool = _timing_tool()
     assert tool.parse_kernels(text) == want
-    assert tool.parse_kernels(tool.DEFAULT_KERNELS) == [
-        "frontier_scan_excl", "frontier_scan_excl_sq8"]
+    assert tool.parse_kernels(tool.DEFAULT_KERNELS) == ["leaf_scan"]
 
 
 def test_timing_tool_names_the_parent_sources_each_kernel_needs():
@@ -79,6 +80,9 @@ def test_timing_tool_names_the_parent_sources_each_kernel_needs():
         "leaf_scan", "topk")
     assert tool.parent_sources(["flash_attention", "distance_matrix"]) == (
         "flash_attention", "distance")
+    assert tool.parent_sources(["leaf_scan", "leaf_scan_batched"]) == (
+        "leaf_scan",)
+    assert "leaf_scan" in tool.TIMERS
     # every source is one the build knows
     assert set(tool.SOURCES.values()) <= set(build.SIGNATURES)
 
@@ -219,6 +223,17 @@ extern "C" int topk_chunk_f32(const void* vals, const void* idx,
     assert tool.entry_signatures(older) == {
         "leaf_scan_batched_f32": "ppppppppiiiiiip",
         "topk_chunk_f32": "ppppiiip"}
+    # the per-query leaf scan's first design, with its vec4 flag
+    first = """
+extern "C" int leaf_scan_f32(const void* queries, const void* leaf_ids,
+                             const void* tiles, const void* rowids,
+                             const void* scale, const void* mean,
+                             const void* bitmaps, void* out, int Q, int nl,
+                             int L, int C, int d, int W, int metric, int vec4,
+                             void* stream) {
+"""
+    assert tool.entry_signatures(first) == {
+        "leaf_scan_f32": "ppppppppiiiiiiiip"}
     with pytest.raises(ValueError, match="cannot bind parameter"):
         tool.entry_signatures('extern "C" int f(double x, void* s) {')
     f = types.SimpleNamespace(argtypes=[ctypes.c_void_p, ctypes.c_int])
@@ -228,3 +243,47 @@ extern "C" int topk_chunk_f32(const void* vals, const void* idx,
         tool.parent_entry(lib, "f", "ppi")
     with pytest.raises(RuntimeError, match="parent's g is missing"):
         tool.parent_entry(lib, "g", "pi")
+
+
+@pytest.mark.parametrize("shape,n", [((7, 5, 12, 37, 16), 3000),
+                                     ((64, 3, 4, 100, 40), 200)])
+def test_timing_tool_leaf_ids_inputs(shape, n):
+    """What leaf_scan_cuda takes at LEAF_IDS_SHAPE, small: contiguous
+    (Q, d) f32 queries, (Q, nl) int32 leaf ids distinct within a query in
+    [0, L), (L, C, d) int8 tiles, (L, C) int32 rowids of 1 .. 2 x
+    LEAF_MEAN_ROWS valid rows (capped at C) then -1, (d,) f32 scale and
+    mean, (Q, ceil(n / 32)) int32 bitmaps of selectivity about LEAF_SEL;
+    the plain version scores them."""
+    from repro_torch.core.types import unpack_bitmap
+    from repro_torch.kernels import ops, ref
+    tool = _timing_tool()
+    assert tool.LEAF_IDS_SHAPE == (1000, 40, 2000, 1416, 128)
+    qn, nl, n_leaves, c, d = shape
+    g = torch.Generator().manual_seed(2)
+    args = tool.leaf_ids_inputs(g, shape, n, device="cpu")
+    q, leaf_ids, tiles, rowids, scale, mean, bitmaps = args
+    want = {"queries": (q, torch.float32, (qn, d)),
+            "leaf_ids": (leaf_ids, torch.int32, (qn, nl)),
+            "tiles": (tiles, torch.int8, (n_leaves, c, d)),
+            "rowids": (rowids, torch.int32, (n_leaves, c)),
+            "scale": (scale, torch.float32, (d,)),
+            "mean": (mean, torch.float32, (d,)),
+            "bitmaps": (bitmaps, torch.int32, (qn, -(-n // 32)))}
+    for name, (t, dtype, sh) in want.items():
+        assert t.dtype == dtype and t.shape == sh, name
+        assert t.is_contiguous(), name
+    assert int(leaf_ids.min()) >= 0 and int(leaf_ids.max()) < n_leaves
+    assert all(len(set(row.tolist())) == nl for row in leaf_ids)
+    valid = rowids >= 0
+    sizes = valid.sum(1)
+    assert int(sizes.min()) >= 1
+    assert int(sizes.max()) <= min(c, 2 * tool.LEAF_MEAN_ROWS - 1)
+    # leaves filled from the head: valid rows, then -1 to C
+    assert torch.equal(valid, torch.arange(c)[None] < sizes[:, None])
+    assert int(rowids.max()) < n
+    sel = float(unpack_bitmap(bitmaps, n).float().mean())
+    assert abs(sel - tool.LEAF_SEL) < 0.02
+    got = ops.leaf_scan_ids(*args)
+    assert got.shape == (qn, nl, c)
+    assert torch.equal(got, ref.leaf_scan_ids_ref(*args))
+    assert bool(torch.isinf(got[~valid[leaf_ids.long()]]).all())

@@ -2,25 +2,36 @@
 process on one card.
 
     mkdir -p build/parent
-    git show <parent>:src/repro_torch/kernels/csrc/frontier_scan.cu \\
-        > build/parent/frontier_scan.cu
-    git show <parent>:src/repro_torch/kernels/frontier_scan.py \\
-        > build/parent/frontier_scan.py          # optional: per-call times
+    git show <parent>:src/repro_torch/kernels/csrc/leaf_scan.cu \\
+        > build/parent/leaf_scan.cu
     python3 tools_torch/time_kernel_redesign.py --parent build/parent \\
-        --kernels frontier_scan_excl,frontier_scan_excl_sq8
+        --kernels leaf_scan
 
-`--kernels` names the kernels to compare (default
-frontier_scan_excl,frontier_scan_excl_sq8; frontier_scan,frontier_scan_sq8,
+`--kernels` names the kernels to compare (default leaf_scan;
+frontier_scan_excl,frontier_scan_excl_sq8, frontier_scan,frontier_scan_sq8,
 leaf_scan_batched,topk and flash_attention,distance_matrix are the earlier
-pairs); each needs its parent's source in `--parent` (`parent_sources`).
+pairs); each needs its parent's source in `--parent` (`parent_sources`);
+for the frontier kernels, the parent's wrapper `frontier_scan.py` beside
+its source adds per-call times.
 The parent's sources build with the port's nvcc flags into
-`build/parent_kernels/` while this checkout's own build.  Each parent entry point is bound by the C
-declaration in its own source (`entry_signatures`), so a parent whose
-interface differs from this checkout's is called as it was written (the
-leaf_scan_batched entry with or without its mask scratch, topk's one
-`topk_f32` call or the older per-chunk `topk_chunk_f32` passes), and an
-interface the tool does not know is refused before any call.  Then each
-kernel is timed parent, new, new, parent at the main path's shapes:
+`build/parent_kernels/` while this checkout's own build.  Each parent
+entry point is bound by the C declaration in its own source
+(`entry_signatures`), so a parent whose interface differs from this
+checkout's is called as it was written (leaf_scan's first entry with its
+`vec4` flag, the leaf_scan_batched entry with or
+without its mask scratch, topk's one `topk_f32` call or the older
+per-chunk `topk_chunk_f32` passes), and an interface the tool does not
+know is refused before any call.  Then each kernel is timed parent, new,
+new, parent at the main path's shapes:
+- leaf_scan: the per-query scan of `scann_vmapped`, (Q, nl, L, C, d) =
+  (1000, 40, 2000, 1416, 128), L2: 40 distinct leaf ids a query drawn
+  uniformly from [0, L) (so about 1,965 distinct leaves, groups of about
+  20 queries with little spread; `chip_smoke.py`'s kernels phase gives
+  the main path's real, skewed grouping), leaves of 1 .. 2 x
+  LEAF_MEAN_ROWS valid rows then -1 padding, bitmaps of selectivity
+  LEAF_SEL over LEAF_N rows; the library call (dequantize + `torch.bmm`,
+  64 queries at a time) and the time per call of both (CUDA events) are
+  taken beside it;
 - frontier_scan, frontier_scan_sq8: (Q, C, d) = (1000, 32, 128) and
   (1000, 64, 128), L2, over a 1M-row store (f32 rows, or int8 rows with
   scale and mean); the ids cycle over 8 blocks of uniform ids with about
@@ -69,6 +80,8 @@ FLASH_SHAPE = (2, 8192, 16, 80)
 # one ScaNN query block's union scan at the SIFT1M-shaped main path
 LEAF_SHAPE = (64, 1345, 1416, 128)
 LEAF_N, LEAF_MEAN_ROWS, LEAF_SEL = 1_000_000, 500, 0.1
+# the per-query scan of scann_vmapped at the main path: (Q, nl, L, C, d)
+LEAF_IDS_SHAPE = (1000, 40, 2000, 1416, 128)
 TOPK_CASES = ((56_640, 40), (1_000_000, 10))
 # the graph engine's 1-hop and 2-hop (frontier_chunk2) candidate chunks at
 # the SIFT1M-shaped main path; ids over FRONTIER_N rows, cycling over
@@ -87,8 +100,8 @@ SOURCES = {"flash_attention": "flash_attention", "distance_matrix": "distance",
            "frontier_scan": "frontier_scan",
            "frontier_scan_sq8": "frontier_scan",
            "frontier_scan_excl": "frontier_scan",
-           "frontier_scan_excl_sq8": "frontier_scan"}
-DEFAULT_KERNELS = "frontier_scan_excl,frontier_scan_excl_sq8"
+           "frontier_scan_excl_sq8": "frontier_scan", "leaf_scan": "leaf_scan"}
+DEFAULT_KERNELS = "leaf_scan"
 # the C entry point each frontier kernel's parent is called through, and
 # the argument list the tool passes it
 FRONTIER_ENTRIES = {
@@ -194,6 +207,39 @@ def leaf_scan_inputs(gen):
     xd = ref.dequantize(tiles, scale, mean)
     norms = (xd * xd).sum(-1).contiguous()
     return q, tiles, rowids, scale, mean, bitmaps, norms
+
+
+def leaf_ids_inputs(gen, shape=LEAF_IDS_SHAPE, n: int = LEAF_N,
+                    device="cuda"):
+    """Inputs of one per-query scan at `shape` = (Q, nl, L, C, d): (Q, d)
+    f32 queries, (Q, nl) int32 leaf ids, nl distinct a query, uniform in
+    [0, L), (L, C, d) int8 tiles whose (L, C) int32 rowids hold 1 .. 2 x
+    LEAF_MEAN_ROWS valid rows (ids from one permutation of n) then -1
+    padding, (d,) f32 scale and mean, (Q, ceil(n / 32)) int32 bitmaps of
+    selectivity LEAF_SEL."""
+    import torch
+    from repro_torch.core.types import pack_bool_bitmap
+    qn, nl, n_leaves, c, d = shape
+    q = torch.randn(qn, d, device=device, generator=gen)
+    leaf_ids = torch.rand(qn, n_leaves, device=device, generator=gen).topk(
+        nl, dim=1).indices.to(torch.int32).contiguous()
+    tiles = torch.randint(-127, 128, (n_leaves, c, d), device=device,
+                          generator=gen, dtype=torch.int8)
+    sizes = torch.randint(1, 2 * LEAF_MEAN_ROWS, (n_leaves, 1),
+                          device=device, generator=gen)
+    ids = torch.randperm(n, device=device, generator=gen).repeat(
+        -(-n_leaves * c // n))[:n_leaves * c]
+    rowids = torch.where(torch.arange(c, device=device)[None] < sizes,
+                         ids.reshape(n_leaves, c), -1).to(torch.int32)
+    scale = torch.rand(d, device=device, generator=gen) * 0.02 + 1e-3
+    mean = torch.randn(d, device=device, generator=gen) * 0.1
+    bitmaps = torch.empty((qn, -(-n // 32)), dtype=torch.int32,
+                          device=device)
+    for s in range(0, qn, 64):   # (64, n) random draws at a time
+        bits = torch.rand(min(64, qn - s), n, device=device,
+                          generator=gen) < LEAF_SEL
+        bitmaps[s:s + 64] = pack_bool_bitmap(bits)
+    return (q, leaf_ids, tiles, rowids.contiguous(), scale, mean, bitmaps)
 
 
 def frontier_inputs(gen, qn: int, c: int, n: int, device="cuda"):
@@ -479,6 +525,59 @@ def time_leaf_scan(parent, device_ms, gen, stream, times):
         q, (tiles.to(torch.float32) * scale + mean).reshape(u * c, d).T))
 
 
+def time_leaf_scan_ids(parent, device_ms, gen, stream, times):
+    """Parent, new, new, parent at LEAF_IDS_SHAPE, the library call, and
+    the time per call of both."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.leaf_scan import leaf_scan_cuda
+    from repro_torch.measure import cuda_ms
+    args = leaf_ids_inputs(gen)
+    q, leaf_ids, tiles, rowids, scale, mean, bitmaps = args
+    qn, nl, n_leaves, c, d = LEAF_IDS_SHAPE
+    w = bitmaps.shape[1]
+    out = torch.empty(qn, nl, c, device="cuda")
+    # the parent's first design, one block a (query, slot), its char4
+    # loads behind a vec4 flag
+    entry = parent_entry(parent["leaf_scan"], "leaf_scan_f32",
+                         "ppppppppiiiiiiiip")
+    vec4 = int(d % 4 == 0 and tiles.data_ptr() % 4 == 0)
+
+    def old():
+        status = entry(q.data_ptr(), leaf_ids.data_ptr(), tiles.data_ptr(),
+                       rowids.data_ptr(), scale.data_ptr(), mean.data_ptr(),
+                       bitmaps.data_ptr(), out.data_ptr(), qn, nl, n_leaves,
+                       c, d, w, 0, vec4, stream())
+        if status:
+            raise RuntimeError(f"parent leaf_scan: error {status}")
+        return out
+
+    def new():
+        return leaf_scan_cuda(*args, "l2")
+
+    want = old().clone()
+    _close("leaf_scan parent vs new", new(), want)
+    ms = lambda who, fn: device_ms(fn, iters=10, warmup=2)  # noqa: E731
+    _four("leaf_scan", old, new, times, ms)
+    t = times["leaf_scan"]
+    t["call_parent"], t["call_new"] = [], []
+    for who, fn in (("parent", old), ("new", new), ("new", new),
+                    ("parent", old)):
+        t[f"call_{who}"].append(cuda_ms(fn, iters=10))
+
+    def library():
+        # dequantize + torch.bmm, 64 queries at a time
+        for s in range(0, qn, 64):
+            x = ref.dequantize(tiles[leaf_ids[s:s + 64].long()], scale, mean)
+            b = x.shape[0]
+            torch.bmm(x.reshape(b, nl * c, d), q[s:s + 64, :, None])
+    t["library"] = device_ms(library, iters=2, warmup=1)
+    t["distinct_leaves"] = int(torch.unique(leaf_ids).numel())
+    print(f"leaf_scan: per call parent {t['call_parent']} new "
+          f"{t['call_new']} ms, library {t['library']} ms, "
+          f"{t['distinct_leaves']} distinct leaves", flush=True)
+
+
 def parent_topk(lib, values, k, stream):
     """The parent's top-k: this checkout's wrapper around the parent's
     `topk_f32`, or, for an older parent, passes of its `topk_chunk_f32`
@@ -529,7 +628,8 @@ def time_topk(parent, device_ms, gen, stream, times):
 
 # each takes (parent libraries, device_ms, generator, stream, times) and
 # adds its readings to times
-TIMERS = {"frontier_scan": lambda *a: time_frontier(False, False, *a),
+TIMERS = {"leaf_scan": time_leaf_scan_ids,
+          "frontier_scan": lambda *a: time_frontier(False, False, *a),
           "frontier_scan_sq8": lambda *a: time_frontier(True, False, *a),
           "frontier_scan_excl": lambda *a: time_frontier(False, True, *a),
           "frontier_scan_excl_sq8": lambda *a: time_frontier(True, True,
@@ -596,6 +696,7 @@ def main(argv=None) -> int:
     print(json.dumps({"device_ms": times, "kernels": kernels,
                       "frontier_shapes": FRONTIER_SHAPES,
                       "flash_shape": FLASH_SHAPE, "leaf_shape": LEAF_SHAPE,
+                      "leaf_ids_shape": LEAF_IDS_SHAPE,
                       "nvidia_smi": smi,
                       "device": torch.cuda.get_device_name(0)}))
     return 0
