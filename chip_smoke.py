@@ -5,6 +5,7 @@ check it, end to end.
     python3 chip_smoke.py                 # the full run, one card
     python3 chip_smoke.py --n 100000 --queries 200 --phases main,kernels
     python3 chip_smoke.py --phases lm --lm-frames 2048   # model serving
+    python3 chip_smoke.py --phases main,serve            # the serving path
 
 Phases:
   device    the card's name and power limit; the kernels' build time
@@ -38,6 +39,22 @@ Phases:
             on A and B, the measured miss penalty of every storage run and
             the 9 x 5 workload grid, every cell's bitmaps holding
             max(1, round(sel * n)) rows each
+  serve     (after main, on its store, SQ8 shadow, graph, index and
+            workload A; kernel launches counted from 0) the stepped
+            frontier driver against main's one-shot searches bit for bit
+            (five strategies, chunks of 8; per-lane deadlines against the
+            static one); 1,000 requests at t=0 through serve_queue(fifo, 64)
+            and ContinuousServer(64, 8) in both modes, bit-equal, with wall,
+            QPS, ticks, slot utilization and the queries a frontier launch
+            serves; benchmarks/bench_serving.py's open-loop trace (1,000
+            requests at 0.7 x capacity) in both modes: p50 / p99 ticks,
+            goodput; the degradation ladder under tests/test_robustness.py's
+            fault plan, served twice, deterministic, every serving rung's
+            kernels launched (128 requests: the Python pool replay);
+            deadline admission (a 0.4 x floor request
+            rejected) and the dispatch shapes over many deadline buckets;
+            retrieval-augmented generation with granite-8b's smoke LM and
+            the adaptive planner over the 1M store
   kernels   each kernel against its plain version on the card at the main
             path's shapes, with its device time (torch.profiler), the plain
             version's, one PyTorch library call's, the least time the card
@@ -375,10 +392,11 @@ def cos_graph_parity(n: int, nq: int, report: dict, dev="cuda") -> None:
 # ---------------------------------------------------------------------------
 
 def _search_row(ex, method: str, label: str, queries, bm, truth, p,
-                dev, results: list) -> dict:
+                dev, results: list, kept: dict | None = None) -> dict:
     """One search through an executor, timed and checked; prints and
     appends its row (recall, the seven counters, Mcycles, wall, QPS and the
-    kernel launches it caused)."""
+    kernel launches it caused).  `kept` receives the SearchResult under
+    (label, method)."""
     import torch
     from repro_torch.core import (SYSTEM, cycle_breakdown, modeled_qps,
                                   recall_at_k)
@@ -419,6 +437,8 @@ def _search_row(ex, method: str, label: str, queries, bm, truth, p,
     if res.plan.predicted_cycles:
         out["predicted_cycles"] = dict(res.plan.predicted_cycles)
     results.append(out)
+    if kept is not None:
+        kept[(label, method)] = res
     return out
 
 
@@ -482,12 +502,13 @@ def phase_main(n: int, nq: int, report: dict, dev="cuda") -> dict:
     # the first slice's path: the quickstart's six methods
     ops.reset_launches()
     results = []
+    oneshot = {}
     for label, bm, truth in inputs:
         for method in METHODS:
             ex = make_executor(method, store, graph=graph, index=scann,
                                device=dev)
             r = _search_row(ex, method, label, queries, bm, truth, p, dev,
-                            results)
+                            results, oneshot)
             if method in GRAPH_METHODS:
                 check(r["launches"].get("frontier_scan", 0) > 0,
                       f"{method} never launched frontier_scan")
@@ -506,7 +527,8 @@ def phase_main(n: int, nq: int, report: dict, dev="cuda") -> dict:
                       "sizes": sizes, "results": results,
                       "launches_slice1": counts1}
     ctx = {"store": store, "graph": graph, "scann": scann,
-           "queries": queries, "bitmaps": inputs[0][1], "inputs": inputs}
+           "queries": queries, "bitmaps": inputs[0][1], "inputs": inputs,
+           "oneshot": oneshot}
     counts2 = main_slice2(ctx, report, dev)
     counts3 = main_slice3(ctx, report, dev)
     counts = {k: counts1[k] + counts2[k] + counts3[k] for k in counts1}
@@ -583,7 +605,7 @@ def main_slice2(ctx: dict, report: dict, dev="cuda") -> dict:
         ex = make_executor(name, qstore, **kw, **(
             {"planner_candidates": menu} if menu else {}))
         r = _search_row(ex, method, label, queries, bm, truth, p, dev,
-                        results)
+                        results, ctx["oneshot"])
         if name.endswith("_sq8"):
             key = "frontier_scan_excl_sq8" if "excl" in name \
                 else "frontier_scan_sq8"
@@ -1018,6 +1040,535 @@ def paper_step(ctx: dict, report: dict, dev="cuda") -> None:
         torch.cuda.empty_cache()
     print(f"   paper: generate_grid 9 x 5 cells on {nq} queries: "
           f"{secs['grid']:.2f} s, every row of every cell exact", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# serve: the stepped frontier driver, continuous batching and the
+# retrieval-augmented server on the main path's 1M store
+# ---------------------------------------------------------------------------
+
+# the slot pool: 64 lanes stepped 8 supersteps a tick
+SERVE_WIDTH, SERVE_HOP_CHUNK = 64, 8
+SERVE_STEPPED = ("sweeping", "acorn", "navix", "iterative_scan",
+                 "sweeping_sq8")
+# the open-loop mix of benchmarks/bench_serving.py: 80 % background
+# requests at selectivity 0.5 (uncorrelated), 20 % in hot-topic bursts of
+# 4 at selectivity 0.02 (positively correlated), Poisson arrivals (seed 7)
+# at 0.7 x the pool's capacity, SLO 1.5 x the straggler's service ticks
+STRAGGLER_FRAC, BURST_LEN, SEL_FAST, SEL_SLOW = 0.2, 4, 0.5, 0.02
+TRACE_LOAD, TRACE_SEED, TRACE_REQUESTS = 0.7, 7, 1000
+# tests/test_robustness.py's chaos plan, on a pool of a quarter of the
+# pages.  128 requests, not 1,000: at 1M nearly every request faults down
+# the ladder, ~0.3 s a request, 629 s for two runs of 1,000 on an H100
+# (PERF.md, PR 20)
+LADDER_FAULTS = dict(seed=13, read_fail_prob=0.12, max_retries=1,
+                     latency_spike_prob=0.05)
+LADDER_REQUESTS = 128
+ADMISSION_REQUESTS = 256
+
+
+@contextlib.contextmanager
+def _expanded_lanes():
+    """Count each base superstep and the lanes it expanded (the lanes whose
+    candidates reach its frontier launch: the step of `hops`), kept on
+    the card and summed once at the end."""
+    from repro_torch.core import graph_search as G
+    acc = {"supersteps": 0, "lanes": []}
+    orig = G._base_superstep
+
+    def counted(graph, store, queries, bitmaps, params, ef_result, s, *a,
+                **kw):
+        out = orig(graph, store, queries, bitmaps, params, ef_result, s,
+                   *a, **kw)
+        acc["supersteps"] += 1
+        acc["lanes"].append((out.st.hops - s.st.hops).sum())
+        return out
+
+    G._base_superstep = counted
+    try:
+        yield acc
+    finally:
+        G._base_superstep = orig
+
+
+def _lanes_per_step(acc) -> float:
+    import torch
+    if not acc["lanes"]:
+        return 0.0
+    return float(torch.stack(acc["lanes"]).sum()) / acc["supersteps"]
+
+
+def _query_server(ex, p, queries):
+    """A server whose prompt i embeds to query i (token row [i])."""
+    import numpy as np
+    from repro_torch.serving import RetrievalAugmentedServer
+    return RetrievalAugmentedServer(
+        None, None, ex, p, doc_tokens=np.zeros((ex.store.n, 1), np.int32),
+        chunk_len=1, embed_fn=lambda pr, tok: queries[tok[:, 0]])
+
+
+def _same_search(a, b) -> bool:
+    """(dists, ids, stats) of two searches equal bit for bit."""
+    import torch
+    return bool(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                and all(torch.equal(getattr(a[2], k), getattr(b[2], k))
+                        for k in COUNTERS))
+
+
+def _stepped(graph, store, queries, bm, p, deadlines=None):
+    from repro_torch.core import graph_search as G
+    state = G.frontier_init(graph, store, queries, bm, p,
+                            deadlines=deadlines)
+    while not bool(state.done.all()):
+        state = G.step_supersteps(graph, store, state, p, SERVE_HOP_CHUNK,
+                                  dynamic_deadline=deadlines is not None)
+    return G.frontier_finalize(graph, store, state, p)[:3]
+
+
+def serve_stepped(ctx: dict, out: dict, dev="cuda") -> None:
+    """frontier_init + step_supersteps(8) to done + frontier_finalize over
+    workload A's 1,000 queries equals main's one-shot search bit for bit,
+    for five strategies; a sweeping run with per-lane dynamic deadlines
+    equals the static deadline_cycles."""
+    import dataclasses as dc
+    import numpy as np
+    from repro_torch.core import (linear_cycles, make_executor,
+                                  search_batch)
+    graph, queries = ctx["graph"], ctx["queries"]
+    label, bm, _ = ctx["inputs"][0]
+    p = main_params()
+    rows = out["stepped"] = {}
+    for method in SERVE_STEPPED:
+        store = ctx["qstore"] if method.endswith("_sq8") else ctx["store"]
+        ex = make_executor(method, store, graph=graph, device=dev)
+        want = ctx["oneshot"][(label, method)]
+        sync(dev)
+        t0 = time.perf_counter()
+        got = _stepped(graph, store, queries, bm, ex.resolve_params(p))
+        sync(dev)
+        wall = time.perf_counter() - t0
+        same = _same_search(got, (want.dists, want.ids, want.stats))
+        rows[method] = {"wall_s": wall, "one_shot_wall_s": next(
+            r["wall_s"] for r in ctx["results"]
+            if r["workload"] == label and r["method"] == method),
+            "bit_equal": same}
+        print(f"   serve: stepped {method:15s} A, {queries.shape[0]} "
+              f"queries, chunks of {SERVE_HOP_CHUNK}: {wall:.3f} s (one-shot "
+              f"{rows[method]['one_shot_wall_s']:.3f} s), ids, dists and "
+              f"7 counters bit-equal: {same}", flush=True)
+        check(same, f"serve: stepped {method} differs from the one-shot "
+              "search")
+    ex = make_executor("sweeping", ctx["store"], graph=graph, device=dev)
+    rp = ex.resolve_params(p)
+    cyc = linear_cycles(ctx["oneshot"][(label, "sweeping")].stats,
+                        ctx["store"].dim)
+    dl = float(np.float32(np.median(cyc)))
+    want = search_batch(graph, ctx["store"], queries, bm,
+                        dc.replace(rp, deadline_cycles=dl))
+    got = _stepped(graph, ctx["store"], queries, bm, rp,
+                   deadlines=np.full(queries.shape[0], dl, np.float32))
+    stopped = int((linear_cycles(want[2], ctx["store"].dim) >= dl).sum())
+    same = _same_search(got, want)
+    rows["sweeping_dynamic_deadline"] = {"deadline_cycles": dl,
+                                         "lanes_at_deadline": stopped,
+                                         "bit_equal": same}
+    print(f"   serve: stepped sweeping with per-lane deadlines {dl:.1f} "
+          f"cycles ({stopped} of {queries.shape[0]} lanes reach it) equals "
+          f"the static deadline_cycles: {same}", flush=True)
+    check(same and 0 < stopped < queries.shape[0],
+          "serve: dynamic deadlines differ from the static deadline")
+
+
+def serve_fifo(ctx: dict, out: dict, dev="cuda") -> None:
+    """1,000 sweeping requests at t=0: serve_queue(fifo, 64) against
+    ContinuousServer(64, 8) in both modes, ids and dists bit-equal."""
+    import numpy as np
+    from repro_torch.core import GraphExecutor
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ContinuousServer, Request, \
+        results_in_order
+    store, graph, queries = ctx["store"], ctx["graph"], ctx["queries"]
+    bm = ctx["inputs"][0][1]
+    p = main_params()
+    nq = queries.shape[0]
+    ex = GraphExecutor(graph, store, strategy="sweeping")
+    rows = out["fifo"] = {}
+
+    def run(name, fn):
+        before = ops.launches()["frontier_scan"]
+        with _expanded_lanes() as acc:
+            sync(dev)
+            t0 = time.perf_counter()
+            r = fn()
+            sync(dev)
+            wall = time.perf_counter() - t0
+        row = {"wall_s": wall, "qps": nq / wall,
+               "frontier_scan_launches": ops.launches()["frontier_scan"]
+               - before, "supersteps": acc["supersteps"],
+               "queries_per_launch": _lanes_per_step(acc)}
+        rows[name] = row
+        return r, row
+
+    (res, _), row = run("serve_queue", lambda: _query_server(
+        ex, p, queries).serve_queue(np.arange(nq)[:, None], bm,
+                                    batch_size=SERVE_WIDTH, policy="fifo"))
+    print(f"   serve: serve_queue(fifo, {SERVE_WIDTH}) {nq} requests "
+          f"{row['wall_s']:.3f} s = {row['qps']:.1f} QPS, "
+          f"{row['frontier_scan_launches']} frontier_scan launches, "
+          f"{row['queries_per_launch']:.2f} queries a launch", flush=True)
+    for mode in ("continuous", "batch"):
+        srv = ContinuousServer(ex, p, width=SERVE_WIDTH,
+                               hop_chunk=SERVE_HOP_CHUNK)
+        reqs = [Request(rid=i, query=queries[i], bitmap=bm[i])
+                for i in range(nq)]
+        (recs, info), row = run(mode, lambda: srv.serve(reqs, mode=mode))
+        ids, dists = results_in_order(recs, nq, p.k)
+        same = bool((ids == res.ids).all()
+                    and (dists.view(np.int32)
+                         == res.dists.view(np.int32)).all())
+        row.update(ticks=info["ticks"], step_ticks=info["step_ticks"],
+                   slot_utilization=info["slot_utilization"],
+                   compiles=info["compiles"], bit_equal=same)
+        print(f"   serve: ContinuousServer({SERVE_WIDTH}, "
+              f"{SERVE_HOP_CHUNK}) {mode:10s} {row['wall_s']:.3f} s = "
+              f"{row['qps']:.1f} QPS, ticks {info['ticks']} (stepped "
+              f"{info['step_ticks']}), slot utilization "
+              f"{info['slot_utilization']:.4f}, "
+              f"{row['frontier_scan_launches']} frontier_scan launches, "
+              f"{row['queries_per_launch']:.2f} queries a launch, "
+              f"compiles {info['compiles']}; equal to serve_queue: {same}",
+              flush=True)
+        check(same, f"serve: {mode} batching differs from serve_queue")
+
+
+def _trace(queries, bm_fast, bm_slow, n: int, load: float, seed: int):
+    """benchmarks/bench_serving.py's make_trace: Poisson arrivals at
+    `load` requests a tick; a share STRAGGLER_FRAC of them in bursts of
+    BURST_LEN repeating one query with its selectivity-0.02 predicate."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.RandomState(seed)
+    arrivals = np.floor(np.cumsum(
+        rng.exponential(1.0 / load, n))).astype(np.int64)
+    nq = queries.shape[0]
+    reqs, slow = [], []
+    i = 0
+    while i < n:
+        if rng.rand() < STRAGGLER_FRAC / BURST_LEN:
+            hot = rng.randint(nq)
+            for _ in range(min(BURST_LEN, n - i)):
+                reqs.append(Request(rid=i, query=queries[hot],
+                                    bitmap=bm_slow[hot],
+                                    arrival=int(arrivals[i])))
+                slow.append(i)
+                i += 1
+        else:
+            qi = rng.randint(nq)
+            reqs.append(Request(rid=i, query=queries[qi],
+                                bitmap=bm_fast[qi],
+                                arrival=int(arrivals[i])))
+            i += 1
+    return reqs, slow
+
+
+def serve_open_loop(ctx: dict, out: dict, dev="cuda") -> None:
+    """The open-loop trace through both modes: p50 / p99 latency ticks,
+    goodput within the SLO, utilization, wall; per-request ids equal
+    between the modes."""
+    import numpy as np
+    from repro_torch.core import GraphExecutor, WorkloadSpec, \
+        generate_bitmaps
+    from repro_torch.serving import ContinuousServer, Request
+    store, graph, queries = ctx["store"], ctx["graph"], ctx["queries"]
+    p = main_params()
+    ex = GraphExecutor(graph, store, strategy="sweeping")
+    bm_fast = generate_bitmaps(store, queries, WorkloadSpec(SEL_FAST, "none"),
+                               seed=1, device=dev)
+    bm_slow = generate_bitmaps(store, queries,
+                               WorkloadSpec(SEL_SLOW, "high_pos"), seed=2,
+                               device=dev)
+    service = []
+    w = min(SERVE_WIDTH, queries.shape[0])
+    for bm in (bm_fast, bm_slow):         # bench_serving._service_estimate
+        reqs = [Request(rid=i, query=queries[i], bitmap=bm[i])
+                for i in range(w)]
+        recs, _ = ContinuousServer(ex, p, width=SERVE_WIDTH,
+                                   hop_chunk=SERVE_HOP_CHUNK).serve(reqs)
+        service.append(float(np.mean([recs[i]["latency_ticks"]
+                                      for i in range(w)])))
+    s_fast, s_slow = service
+    s_mean = (1 - STRAGGLER_FRAC) * s_fast + STRAGGLER_FRAC * s_slow
+    capacity = SERVE_WIDTH / s_mean
+    load = TRACE_LOAD * capacity
+    slo = 1.5 * s_slow
+    reqs, slow = _trace(queries, bm_fast, bm_slow, TRACE_REQUESTS, load,
+                        TRACE_SEED)
+    row = out["open_loop"] = {
+        "service_ticks": {"fast": s_fast, "slow": s_slow, "mean": s_mean},
+        "capacity_req_per_tick": capacity, "offered_load": load,
+        "slo_ticks": slo, "requests": TRACE_REQUESTS,
+        "stragglers": len(slow)}
+    print(f"   serve: open loop, {TRACE_REQUESTS} requests ({len(slow)} in "
+          f"bursts at sel {SEL_SLOW} high_pos): service ticks fast {s_fast:.2f}"
+          f" slow {s_slow:.2f}, capacity {capacity:.4f} a tick, offered "
+          f"{load:.4f} a tick ({TRACE_LOAD} x), SLO {slo:.1f} ticks",
+          flush=True)
+    got = {}
+    for mode in ("continuous", "batch"):
+        srv = ContinuousServer(ex, p, width=SERVE_WIDTH,
+                               hop_chunk=SERVE_HOP_CHUNK)
+        with _expanded_lanes() as acc:
+            sync(dev)
+            t0 = time.perf_counter()
+            recs, info = srv.serve(reqs, mode=mode)
+            sync(dev)
+            wall = time.perf_counter() - t0
+        lat = np.array([recs[i]["latency_ticks"]
+                        for i in range(TRACE_REQUESTS)], np.float64)
+        good = sum(1 for i in range(TRACE_REQUESTS)
+                   if (recs[i]["ids"] >= 0).any() and lat[i] <= slo)
+        got[mode] = np.stack([recs[i]["ids"] for i in range(TRACE_REQUESTS)])
+        m = row[mode] = {
+            "p50_ticks": float(np.percentile(lat, 50)),
+            "p99_ticks": float(np.percentile(lat, 99)),
+            "mean_ticks": float(lat.mean()),
+            "goodput": good / TRACE_REQUESTS,
+            "slot_utilization": info["slot_utilization"],
+            "ticks": info["ticks"], "step_ticks": info["step_ticks"],
+            "compiles": info["compiles"], "wall_s": wall,
+            "qps": TRACE_REQUESTS / wall,
+            "queries_per_launch": _lanes_per_step(acc)}
+        print(f"   serve: open loop {mode:10s} p50 {m['p50_ticks']:.1f} p99 "
+              f"{m['p99_ticks']:.1f} mean {m['mean_ticks']:.2f} ticks, "
+              f"goodput {m['goodput']:.4f}, slot utilization "
+              f"{m['slot_utilization']:.4f}, ticks {m['ticks']}, "
+              f"{m['queries_per_launch']:.2f} queries a launch, wall "
+              f"{wall:.3f} s", flush=True)
+    row["p99_ratio_batch_over_continuous"] = \
+        row["batch"]["p99_ticks"] / max(row["continuous"]["p99_ticks"], 1e-9)
+    check(bool((got["continuous"] == got["batch"]).all()),
+          "serve: open-loop ids differ between the modes")
+
+
+def serve_ladder(ctx: dict, out: dict, dev="cuda") -> None:
+    """The degradation ladder under seeded storage faults, LADDER_REQUESTS
+    of workload A's requests served twice:
+    failed reads happen, every request has k results or is flagged
+    degraded, the two runs agree, and every rung that served a request
+    launched its kernels."""
+    import collections
+    import dataclasses as dc
+    import numpy as np
+    from repro_torch.core import GraphExecutor, ScannExecutor
+    from repro_torch.kernels import ops
+    from repro_torch.serving import LadderRung, default_ladder
+    from repro_torch.storage import FaultPlan, make_storage_engine
+    qstore, graph, scann = ctx["qstore"], ctx["graph"], ctx["scann"]
+    nq = min(LADDER_REQUESTS, ctx["queries"].shape[0])
+    queries, bm = ctx["queries"][:nq], ctx["inputs"][0][1][:nq]
+    p = main_params()
+    rung_kernels = {"primary": ("frontier_scan",),
+                    "sq8_norerank": ("frontier_scan_sq8",),
+                    "scann_lite": ("distance_matrix", "leaf_scan_batched"),
+                    "partial_scan": ()}
+    runs = []
+    for _ in range(2):
+        eng = make_storage_engine(qstore, scann, graph, capacity_frac=0.25,
+                                  faults=FaultPlan(**LADDER_FAULTS))
+        gex = GraphExecutor(graph, qstore, strategy="sweeping", storage=eng)
+        ladder = default_ladder(gex)
+        ladder.insert(2, LadderRung(
+            "scann_lite", ScannExecutor(scann, qstore, storage=eng),
+            lambda r: dc.replace(r, num_leaves_to_search=max(
+                1, r.num_leaves_to_search // 2))))
+        before = ops.launches()
+        with _timed_accounting(eng, dev) as spent:
+            sync(dev)
+            t0 = time.perf_counter()
+            res, info = _query_server(gex, p, queries).serve_queue(
+                np.arange(nq)[:, None], bm, batch_size=SERVE_WIDTH,
+                policy="fifo", ladder=ladder)
+            sync(dev)
+            wall = time.perf_counter() - t0
+        after = ops.launches()
+        runs.append((res, info, wall, {k: after[k] - before[k]
+                                       for k in after}, dict(spent)))
+    (res, info, wall, launches, spent), (res2, info2, wall2, _, _) = runs
+    rungs = dict(collections.Counter(info["rung"].tolist()))
+    full = (res.ids >= 0).all(1)
+    out["ladder"] = {
+        "requests": nq, "ladder": info["ladder"], "rungs": rungs,
+        "wall_s": [wall, wall2], "retried": int(info["retried"].sum()),
+        "faulted": int(info["faulted"].sum()),
+        "degraded": int(info["degraded"].sum()),
+        "pool_failed_reads": info["pool_failed_reads"],
+        "pool_retries": info["pool_retries"],
+        "pool_spikes": info["pool_spikes"],
+        "pool_hit_rate": info["pool_hit_rate"], "compiles": info["compiles"],
+        "launches": {k: v for k, v in launches.items() if v},
+        "accounting_s": spent}
+    print(f"   serve: ladder under faults {LADDER_FAULTS}, pool of a quarter"
+          f" of the pages, {nq} requests fifo {SERVE_WIDTH}: rungs {rungs}, "
+          f"retried {out['ladder']['retried']}, degraded "
+          f"{out['ladder']['degraded']}, failed reads "
+          f"{info['pool_failed_reads']}, retries {info['pool_retries']}, "
+          f"spikes {info['pool_spikes']}, hit rate "
+          f"{info['pool_hit_rate']:.4f}, wall {wall:.2f} s and {wall2:.2f} s"
+          f" (first run: storage accounting {spent['account']:.2f} s, of "
+          f"which ordering the traces {spent['order']:.2f} s and the pool "
+          f"replay with its fault draws {spent['replay']:.2f} s); launches "
+          f"{out['ladder']['launches']}", flush=True)
+    check(info["pool_failed_reads"] > 0, "serve: the fault plan failed no "
+          "read")
+    check(bool((full | info["degraded"]).all()),
+          "serve: a request has fewer than k results and no degraded flag")
+    check(bool((res.ids == res2.ids).all()) and all(
+        bool((info[k] == info2[k]).all())
+        for k in ("rung", "retried", "faulted")),
+        "serve: the ladder is not deterministic under one fault plan")
+    for rung in rungs:
+        for k in rung_kernels.get(rung, ()):
+            check(launches[k] > 0, f"serve: rung {rung} served requests "
+                  f"without launching {k}")
+
+
+def serve_admission(ctx: dict, out: dict, dev="cuda") -> None:
+    """Deadline admission: 50 x the admission floor for every request but
+    one at 0.4 x, which is rejected with ids -1; a ContinuousServer over
+    distinct deadline buckets keeps its dispatch shapes at the
+    reference's bound (6)."""
+    import numpy as np
+    from repro_torch.core import GraphExecutor
+    from repro_torch.serving import (ContinuousServer, Request,
+                                     admission_floor, bucket_deadline)
+    store, graph, queries = ctx["store"], ctx["graph"], ctx["queries"]
+    bm = ctx["inputs"][0][1]
+    p = main_params()
+    n = min(ADMISSION_REQUESTS, queries.shape[0])
+    ex = GraphExecutor(graph, store, strategy="sweeping")
+    floor = admission_floor(store, p)
+    dls = np.full(n, 50 * floor)
+    dls[0] = 0.4 * floor
+    t0 = time.perf_counter()
+    res, info = _query_server(ex, p, queries).serve_queue(
+        np.arange(n)[:, None], bm[:n], batch_size=SERVE_WIDTH,
+        policy="fifo", deadlines=dls)
+    wall = time.perf_counter() - t0
+    check(not info["admitted"][0] and bool((res.ids[0] == -1).all())
+          and bool(info["admitted"][1:].all()),
+          "serve: the sub-floor deadline was not rejected alone")
+    cdl = [floor * (2.0 + i) for i in range(n)]
+    buckets = len({bucket_deadline(d) for d in cdl})
+    t1 = time.perf_counter()
+    recs, cinfo = ContinuousServer(ex, p, width=SERVE_WIDTH,
+                                   hop_chunk=SERVE_HOP_CHUNK).serve(
+        [Request(rid=i, query=queries[i], bitmap=bm[i],
+                 deadline_cycles=cdl[i]) for i in range(n)])
+    cwall = time.perf_counter() - t1
+    out["admission"] = {"floor_cycles": floor, "requests": n,
+                        "rejected": [int(i) for i in
+                                     np.flatnonzero(~info["admitted"])],
+                        "serve_queue_compiles": info["compiles"],
+                        "serve_queue_wall_s": wall,
+                        "continuous_buckets": buckets,
+                        "continuous_compiles": cinfo["compiles"],
+                        "continuous_wall_s": cwall}
+    print(f"   serve: admission floor {floor:.1f} cycles; serve_queue "
+          f"rejected {out['admission']['rejected']} (0.4 x floor) of {n}, "
+          f"compiles {info['compiles']}, {wall:.2f} s; ContinuousServer over "
+          f"{buckets} deadline buckets: compiles {cinfo['compiles']}, "
+          f"{cwall:.2f} s", flush=True)
+    check(buckets >= 5 and cinfo["compiles"] <= 6,
+          f"serve: {cinfo['compiles']} dispatch shapes over {buckets} "
+          "deadline buckets")
+    check(all(recs[i]["retire_tick"] >= 0 for i in range(n)),
+          "serve: a deadline request was not served")
+
+
+def serve_rag(ctx: dict, out: dict, dev="cuda") -> None:
+    """Retrieval-augmented generation: granite-8b's smoke LM on the card,
+    the adaptive planner over the 1M store, (1M, 8) document tokens; 4
+    prompts x 32 tokens retrieve under selectivity-0.2 bitmaps (every id
+    must pass its filter), then ServeEngine generates 16 tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import (SearchParams, WorkloadSpec,
+                                  generate_bitmaps, make_executor,
+                                  probe_batch)
+    from repro_torch.models import build_model
+    from repro_torch.serving import RetrievalAugmentedServer, ServeEngine
+    store = ctx["qstore"]
+    cfg = smoke_config("granite-8b")
+    bundle = build_model(cfg)
+    params = bundle.init(0, dev)
+    ex = make_executor("adaptive", store, graph=ctx["graph"],
+                       index=ctx["scann"], device=dev)
+    rng = np.random.RandomState(0)
+    docs = rng.randint(0, cfg.vocab, (store.n, 8)).astype(np.int32)
+    sp = SearchParams(k=4, num_leaves_to_search=16)
+    srv = RetrievalAugmentedServer(bundle, params, ex, sp, docs, chunk_len=8)
+    prompts = rng.randint(0, cfg.vocab, (4, 32)).astype(np.int32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bm = generate_bitmaps(store, torch.randn(4, store.dim, generator=gen,
+                                             device=dev),
+                          WorkloadSpec(0.2, "none"), seed=3, device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    res = srv.retrieve(prompts, bm)
+    sync(dev)
+    retrieve_s = time.perf_counter() - t0
+    ids = torch.as_tensor(res.ids, device=dev).to(torch.int64)
+    passing = bool(probe_batch(bm, ids.clamp(min=0))[ids >= 0].all())
+    check(passing and bool((ids >= 0).all()),
+          "serve: a retrieved id fails its filter, or fewer than k came")
+    check(res.tokens.shape == (4, 4 * 8 + 32), "serve: augmented prompts "
+          f"have shape {res.tokens.shape}")
+    engine = ServeEngine(bundle, params, max_seq=res.tokens.shape[1] + 16,
+                         batch_size=4, device=dev)
+    t0 = time.perf_counter()
+    toks = engine.generate(res.tokens, 16)
+    sync(dev)
+    generate_s = time.perf_counter() - t0
+    check(toks.shape == (4, 16) and bool((toks >= 0).all()
+                                         and (toks < cfg.vocab).all()),
+          f"serve: generated {toks.shape}")
+    out["rag"] = {"config": "granite-8b (smoke)", "strategy": res.strategy,
+                  "retrieve_s": retrieve_s, "generate_s": generate_s,
+                  "prompt_len": int(res.tokens.shape[1]),
+                  "first_ids": res.ids[0].tolist()}
+    print(f"   serve: RAG granite-8b smoke LM, 4 x 32-token prompts, "
+          f"planner chose {res.strategy}: retrieve {retrieve_s:.3f} s (ids "
+          f"pass their filters), augmented prompts {res.tokens.shape}, "
+          f"generate 16 tokens {generate_s:.3f} s", flush=True)
+
+
+def phase_serve(ctx: dict, report: dict, dev="cuda") -> None:
+    """The serving path on main's context, its kernel launches counted
+    from 0: stepped search, FIFO equivalence, the open-loop trace, the
+    fault ladder, admission and retrieval-augmented generation."""
+    from repro_torch.kernels import ops
+    print("== serve: the stepped frontier driver, continuous batching and "
+          "the retrieval server on the 1M store ==", flush=True)
+    out = report["serve"] = {}
+    secs = out["seconds"] = {}
+    ctx["results"] = report["main"]["results"]
+    ops.reset_launches()
+    for name, fn in (("stepped", serve_stepped), ("fifo", serve_fifo),
+                     ("open_loop", serve_open_loop),
+                     ("ladder", serve_ladder),
+                     ("admission", serve_admission), ("rag", serve_rag)):
+        t0 = time.perf_counter()
+        fn(ctx, out, dev)
+        secs[name] = time.perf_counter() - t0
+    counts = ops.launches()
+    out["launches"] = counts
+    print(f"   launches on the serving path: {counts}; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    for k in ("frontier_scan", "frontier_scan_sq8", "distance_matrix",
+              "leaf_scan_batched"):
+        check(counts[k] > 0, f"kernel {k} was not launched on the serving "
+              "path")
 
 
 # ---------------------------------------------------------------------------
@@ -1964,7 +2515,7 @@ def main(argv=None) -> int:
                                  "on one card and check it.")
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=1000)
-    ap.add_argument("--phases", default="parity,main,kernels,lm")
+    ap.add_argument("--phases", default="parity,main,serve,kernels,lm")
     ap.add_argument("--lm-frames", type=int, default=8192,
                     help="frames of each encoder prefill (lm phase)")
     ap.add_argument("--lm-batch", type=int, default=2,
@@ -2009,6 +2560,8 @@ def main(argv=None) -> int:
     kernels = []
     if "main" in phases:
         ctx = timed("main", phase_main, args.n, args.queries, report)
+        if "serve" in phases:
+            timed("serve", phase_serve, ctx, report)
         if "kernels" in phases:
             kernels = timed("kernels", phase_kernels, ctx, report)
         if "profile" in phases:

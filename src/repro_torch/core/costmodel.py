@@ -492,3 +492,45 @@ def evaluate_anytime(stats: Optional[SearchStats], params: SearchParams,
         truncated |= np.atleast_1d(np.asarray(extra_truncated, bool))
     return AnytimeInfo(truncated=truncated, budget_exhausted=budget,
                        completion=completion)
+
+
+def queueing_delay_cycles(offered_per_cycle: float, service_cycles: float,
+                          servers: int) -> float:
+    """Expected queueing wait (modeled cycles) at an open-loop arrival
+    rate of `offered_per_cycle` requests a cycle against `servers` slots
+    each taking `service_cycles` a request.
+
+    Sakasegawa's M/M/c approximation, Lq ~ rho^sqrt(2(c+1)) / (1 - rho)
+    with rho = lambda S / c and Wq = Lq / lambda, halved toward M/D/c
+    since slot service times cluster within a deadline bucket.  0.0 when
+    idle (lambda = 0), +inf at or past saturation (rho >= 1)."""
+    if offered_per_cycle <= 0.0 or service_cycles <= 0.0:
+        return 0.0
+    c = max(int(servers), 1)
+    rho = offered_per_cycle * service_cycles / c
+    if rho >= 1.0:
+        return float("inf")
+    lq = rho ** math.sqrt(2.0 * (c + 1)) / (1.0 - rho)
+    return 0.5 * lq / offered_per_cycle
+
+
+def queue_aware_floor(floor: float, queued: int, servers: int,
+                      service_cycles: float) -> float:
+    """The deadline admission floor inflated by the wait already visible in
+    the arrival queue: `queued` requests ahead drain at about `servers`
+    per `service_cycles`.  The plain floor when the queue is empty."""
+    if queued <= 0 or service_cycles <= 0.0:
+        return floor
+    return floor + (queued / max(int(servers), 1)) * service_cycles
+
+
+def fault_penalty(storage_stats, batch_q: int,
+                  constants: CostConstants = SYSTEM) -> float:
+    """Per-query extra cycles from injected storage faults (a StorageStats
+    with fault counters): every retry re-pays a miss-grade read and every
+    latency spike pays the same surcharge on the access it slowed, as
+    `measured_miss_penalty` prices a miss."""
+    extra = constants.page_access * (constants.page_miss_extra - 1.0)
+    events = getattr(storage_stats, "retries", 0) \
+        + getattr(storage_stats, "spikes", 0)
+    return events * extra / max(batch_q, 1)

@@ -5,12 +5,13 @@
     Executor.search(queries, bitmaps, params) = execute(plan(...))
 
 `GraphExecutor` (the frontier engine, with the SQ8 tier and FAVOR
-exclusion pruning), `PartitionedGraphExecutor` (JAG family subgraphs),
+exclusion pruning, and the stepped driver's hooks that continuous batching
+calls), `PartitionedGraphExecutor` (JAG family subgraphs),
 `ScannExecutor` (the query-batched pipeline, or the legacy per-query one),
 `BruteForceExecutor` (exact filtered KNN with seqscan counters) and
 `AdaptivePlanner` (per-batch system-aware dispatch on the predictive cost
-model) are ports of the reference executors of the same names, without the
-stepped driver.  With a `storage` engine (`storage.make_storage_engine`)
+model) are ports of the reference executors of the same names.  With a
+`storage` engine (`storage.make_storage_engine`)
 attached, a search also collects its access trace and replays it through
 the buffer pool: the result carries measured StorageStats, and the planner
 prices each candidate with the pool's residency.  `make_executor` builds
@@ -30,7 +31,10 @@ from repro_torch.core import costmodel
 from repro_torch.core.bruteforce import filtered_knn, filtered_knn_partial
 from repro_torch.core.exclusion import (ExclusionIndex, match_families,
                                         select_radii)
-from repro_torch.core.graph_search import search_batch
+from repro_torch.core.graph_search import (FrontierState, frontier_finalize,
+                                           frontier_idle, frontier_init,
+                                           frontier_write_slot, search_batch,
+                                           step_supersteps)
 from repro_torch.core.hnsw import HNSWGraph, PartitionedGraph
 from repro_torch.core.scann import (ScannIndex, _quant_pages_per_leaf,
                                     leaves_within_budget, project_query,
@@ -181,6 +185,45 @@ class GraphExecutor(BaseExecutor):
             notes = {"excl": select_radii(self.exclusion, bitmaps)}
         return SearchPlan(self.strategy, params, queries, bitmaps,
                           notes=notes)
+
+    # ---- the stepped frontier driver, for continuous batching: trace
+    # collection follows the storage attachment, as in `execute`
+
+    def _no_stepped_exclusion(self):
+        if self.exclusion is not None:
+            raise ValueError("exclusion pruning is not supported by the "
+                             "stepped frontier driver (radii don't ride in "
+                             "FrontierState); use the one-shot search path")
+
+    def idle_frontier(self, params: SearchParams,
+                      width: int) -> FrontierState:
+        self._no_stepped_exclusion()
+        return frontier_idle(self.graph, self.store,
+                             self.resolve_params(params), width,
+                             collect_trace=self.storage is not None)
+
+    def init_frontier(self, queries, bitmaps, params: SearchParams,
+                      deadlines=None) -> FrontierState:
+        self._no_stepped_exclusion()
+        return frontier_init(self.graph, self.store, queries, bitmaps,
+                             self.resolve_params(params),
+                             collect_trace=self.storage is not None,
+                             deadlines=deadlines)
+
+    def write_frontier_slot(self, state: FrontierState,
+                            lane: FrontierState, slot: int) -> FrontierState:
+        return frontier_write_slot(state, lane, slot)
+
+    def step_frontier(self, state: FrontierState, params: SearchParams,
+                      n_hops: int, dynamic_deadline: bool = False
+                      ) -> FrontierState:
+        return step_supersteps(self.graph, self.store, state,
+                               self.resolve_params(params), n_hops,
+                               dynamic_deadline=dynamic_deadline)
+
+    def finalize_frontier(self, state: FrontierState, params: SearchParams):
+        return frontier_finalize(self.graph, self.store, state,
+                                 self.resolve_params(params))
 
     def execute(self, plan: SearchPlan) -> SearchResult:
         excl = None if plan.notes is None else plan.notes.get("excl")

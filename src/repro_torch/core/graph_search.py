@@ -40,6 +40,12 @@ superstep's post-increment hop count as the superstep marks them visited,
 which are exactly the rows the reference finds newly set between two
 snapshots of its visited bitsets.
 
+The same loop is exposed as a stepped driver for continuous batching
+(`frontier_init`, `step_supersteps`, `frontier_finalize`,
+`frontier_write_slot`, `frontier_idle` over a `FrontierState`):
+`search_batch` is init, steps to completion and harvest, so the one-shot
+and stepped paths run the same code.
+
 `graph_exec_mode="vmapped"` runs the reference's legacy per-query beam
 search instead, with the query batch written out as a leading dimension:
 every lane steps until its own stop and finished lanes are frozen.  It is
@@ -55,7 +61,8 @@ import torch
 from repro_torch.core.costmodel import budget_cycle_weights
 from repro_torch.core.hnsw import HNSWGraph
 from repro_torch.core.types import (SearchParams, SearchStats, VectorStore,
-                                    distance, heap_pages_per_vector,
+                                    bitset_words, distance,
+                                    heap_pages_per_vector,
                                     probe_batch, quant_heap_pages_per_vector,
                                     topk_smallest)
 from repro_torch.kernels import ops
@@ -92,26 +99,35 @@ def _ppv(store: VectorStore, quant: str) -> int:
             else heap_pages_per_vector(store.dim))
 
 
-def _budget_over(st: SearchStats, params: SearchParams, dim: int):
+def _budget_over(st: SearchStats, params: SearchParams, dim: int,
+                 deadline: torch.Tensor | None = None):
     """Anytime budget-stop predicate over the carried counters, or None
     when no budget is set.  The deadline term prices the counters with
-    `budget_cycle_weights` in float32, in a fixed term order."""
+    `budget_cycle_weights` in float32, in a fixed term order.  `deadline`
+    is the stepped driver's per-lane (Q,) float32 deadline (+inf for
+    none), compared with the same cycles as the static
+    `params.deadline_cycles`, so a lane with deadline b stops where a
+    batch with deadline_cycles=b does."""
     terms = []
     if params.page_budget > 0:
         terms.append(st.page_accesses_index + st.page_accesses_heap
                      >= params.page_budget)
     if params.hop_budget > 0:
         terms.append(st.hops >= params.hop_budget)
-    if params.deadline_cycles > 0:
+    if params.deadline_cycles > 0 or deadline is not None:
+        # float32 constants filled on the device: a tensor copied from
+        # the host would cost a host sync every superstep
+        dev = st.hops.device
         cyc = None
         for name, weight in budget_cycle_weights(dim).items():
-            w = torch.tensor(weight, dtype=torch.float32,
-                             device=st.hops.device)
+            w = torch.full((), weight, dtype=torch.float32, device=dev)
             t = getattr(st, name).to(torch.float32) * w
             cyc = t if cyc is None else cyc + t
-        terms.append(cyc >= torch.tensor(params.deadline_cycles,
-                                         dtype=torch.float32,
-                                         device=cyc.device))
+        if params.deadline_cycles > 0:
+            terms.append(cyc >= torch.full((), params.deadline_cycles,
+                                           dtype=torch.float32, device=dev))
+        if deadline is not None:
+            terms.append(cyc >= deadline)
     if not terms:
         return None
     out = terms[0]
@@ -428,10 +444,13 @@ def _count(st: SearchStats, active, dc, fc, pai, pah, tm) -> SearchStats:
 
 def _base_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
                     params: SearchParams, ef_result: int, s: _Lanes,
-                    excl=None, trace: _Trace | None = None) -> _Lanes:
+                    excl=None, trace: _Trace | None = None,
+                    deadline=None) -> _Lanes:
     """One superstep of the base (non-iterative) engine.  `excl`
     (QueryRadii, sweeping only) prunes pool insertion; `trace` collects
-    the storage trace."""
+    the storage trace; `deadline` is the per-lane deadline of the stepped
+    driver.  A lane that is done or stopping scores no candidate (its ids
+    reach the kernels as -1) and moves no counter."""
     qn = queries.shape[0]
     strat = params.strategy
     quant = params.graph_quant
@@ -446,7 +465,7 @@ def _base_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
     w_worst = s.w_d[:, we_idx]
     stop = (best_d > w_worst) | torch.isinf(best_d) | \
         (s.st.hops >= params.max_hops)
-    over = _budget_over(s.st, params, store.dim)
+    over = _budget_over(s.st, params, store.dim, deadline)
     if over is not None:
         stop = stop | over
     active = ~s.done & ~stop
@@ -482,7 +501,10 @@ def _base_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
                 pai = pai + n_w
     else:
         # filter-first (acorn / navix): the predicate subgraph
-        d1, pass1 = _frontier_scores(queries, store, nb1, bitmaps, quant)
+        d1, pass1 = _frontier_scores(
+            queries, store, torch.where(active[:, None], nb1,
+                                        torch.full_like(nb1, -1)),
+            bitmaps, quant)
         n1 = v1.sum(1)
         fc = fc + n1                                   # check all 1-hop
         if tm_on:
@@ -566,22 +588,9 @@ def _base_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
     return _Lanes(pool_d, pool_id, w_d, w_id, visited, st, s.done | stop)
 
 
-def _frontier_base(graph, store, queries, bitmaps, params, entry, entry_d,
-                   st, ef_result: int, excl=None, trace=None):
-    """The base engine's superstep loop.  Returns (W_d, W_id) sorted
-    ascending and the stats."""
-    seed_ok = probe_batch(bitmaps, entry[:, None])[:, 0] \
-        | (params.strategy in ("unfiltered", "iterative_scan"))
-    s = _init_lanes(graph, entry, entry_d, st, params, ef_result, seed_ok)
-    while not bool(s.done.all()):
-        s = _base_superstep(graph, store, queries, bitmaps, params,
-                            ef_result, s, excl, trace)
-    return s.w_d, s.w_id, s.st
-
-
 def _iter_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
                     params: SearchParams, s: _Lanes, eff, rnd, checked,
-                    trace: _Trace | None = None):
+                    trace: _Trace | None = None, deadline=None):
     """One superstep of the iterative-scan engine: emit (post-filter the
     batch, maybe extend the scan) or expand."""
     quant = params.graph_quant
@@ -591,7 +600,7 @@ def _iter_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
 
     best_d, best_id = s.pool_d[:, 0], s.pool_id[:, 0]
     w_worst = torch.gather(s.w_d, 1, (eff.clamp(max=efmax) - 1)[:, None])[:, 0]
-    over = _budget_over(s.st, params, store.dim)
+    over = _budget_over(s.st, params, store.dim, deadline)
     batch_done = (best_d > w_worst) | torch.isinf(best_d) | \
         (s.st.hops >= params.max_hops)
     if over is not None:
@@ -643,28 +652,6 @@ def _iter_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
     lanes = _Lanes(pool_d, pool_id, w_d, w_id, visited, st,
                    s.done | (live & finish))
     return lanes, eff2, rnd2, checked2
-
-
-def _frontier_iterative(graph, store, queries, bitmaps, params, entry,
-                        entry_d, st, trace=None):
-    """The iterative-scan engine: unfiltered traversal into a resumable
-    (EFMAX,) result buffer, post-filtered at emit time.  Returns (dists,
-    ids, stats, the SQ8 emit's reranked rows or None)."""
-    qn = queries.shape[0]
-    dev = queries.device
-    efmax = params.batch_tuples * params.max_rounds
-    s = _init_lanes(graph, entry, entry_d, st, params, efmax,
-                    torch.ones(qn, dtype=torch.bool, device=dev))
-    eff = torch.full((qn,), params.batch_tuples, dtype=torch.int64,
-                     device=dev)
-    rnd = torch.zeros(qn, dtype=torch.int64, device=dev)
-    checked = torch.zeros(qn, dtype=torch.int64, device=dev)
-    while not bool(s.done.all()):
-        s, eff, rnd, checked = _iter_superstep(graph, store, queries,
-                                               bitmaps, params, s, eff, rnd,
-                                               checked, trace)
-    return _iter_finish(store, queries, bitmaps, params, s.w_d, s.w_id, eff,
-                        s.st)
 
 
 def _iter_finish(store: VectorStore, queries, bitmaps, params: SearchParams,
@@ -744,6 +731,214 @@ def _finalize(w_d, w_id, bitmaps, k: int, check_filter: bool):
     ids = torch.where(torch.isinf(dk), torch.full_like(pos, -1),
                       torch.gather(w_id, 1, pos))
     return dk, ids
+
+
+# ---------------------------------------------------------------------------
+# The frontier engine as init, superstep loop and harvest.  `search_batch`
+# runs them back to back; the stepped driver below exposes them to a
+# scheduler that steps a fixed-width pool of lanes in hop chunks, retires
+# finished lanes and writes waiting queries into their slots.  A done lane
+# is frozen by the superstep bodies (no pop, candidate ids -1, no counter
+# increment) and each lane's trajectory reads only its own row of the
+# state, so how the hops are chunked and which lanes share the pool is
+# invisible in every lane's results.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FrontierState:
+    """The frontier engine's per-lane state, one row per slot.
+
+    `hs` / `is_` are the storage-trace stamp rows, (W, n) int32 first-touch
+    supersteps, or (W, 0) when tracing is off (the width is the tracing
+    flag).  `deadline` is a per-lane anytime budget in modeled cycles
+    (+inf for none), read by `step_supersteps(dynamic_deadline=True)`.
+    `eff` / `rnd` / `checked` are iterative_scan's resume cursors (zeros
+    for the base engine).  Done lanes are frozen and may be harvested or
+    replaced between steps."""
+
+    queries: torch.Tensor       # (W, d) f32
+    bitmaps: torch.Tensor       # (W, words) int32
+    pool_d: torch.Tensor        # (W, beam) f32, sorted ascending
+    pool_id: torch.Tensor       # (W, beam) int64
+    w_d: torch.Tensor           # (W, ef or EFMAX) f32, sorted ascending
+    w_id: torch.Tensor          # (W, ef or EFMAX) int64
+    visited: torch.Tensor       # (W, n + 1) bool, column n the sink
+    hs: torch.Tensor            # (W, n) or (W, 0) int32 heap stamps
+    is_: torch.Tensor           # (W, n) or (W, 0) int32 adjacency stamps
+    stats: SearchStats          # (W,) int32 counters
+    deadline: torch.Tensor      # (W,) f32
+    eff: torch.Tensor           # (W,) int64
+    rnd: torch.Tensor           # (W,) int64
+    checked: torch.Tensor       # (W,) int64
+    done: torch.Tensor          # (W,) bool
+
+    @property
+    def tracing(self) -> bool:
+        return self.hs.shape[1] > 0
+
+
+def _init_state(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
+                params: SearchParams, collect_trace: bool,
+                deadline: torch.Tensor) -> FrontierState:
+    """Zoom-in (stats seeded with its counters, stamps when tracing) and
+    the engine state of `params.strategy`."""
+    qn = queries.shape[0]
+    dev = queries.device
+    trace = _Trace.empty(qn, graph.n, dev) if collect_trace else None
+    entry, entry_d, st = _zoom_in(graph, store, queries, params.graph_quant,
+                                  trace)
+    zeros = torch.zeros(qn, dtype=torch.int64, device=dev)
+    if params.strategy == "iterative_scan":
+        s = _init_lanes(graph, entry, entry_d, st, params,
+                        params.batch_tuples * params.max_rounds,
+                        torch.ones(qn, dtype=torch.bool, device=dev))
+        eff = torch.full((qn,), params.batch_tuples, dtype=torch.int64,
+                         device=dev)
+    else:
+        seed_ok = probe_batch(bitmaps, entry[:, None])[:, 0] \
+            | (params.strategy == "unfiltered")
+        s = _init_lanes(graph, entry, entry_d, st, params, params.ef_search,
+                        seed_ok)
+        eff = zeros
+    if trace is None:
+        trace = _Trace(*(torch.zeros((qn, 0), dtype=torch.int32, device=dev)
+                         for _ in range(2)))
+    return FrontierState(queries, bitmaps, s.pool_d, s.pool_id, s.w_d,
+                         s.w_id, s.visited, trace.heap, trace.index, s.st,
+                         deadline, eff, zeros.clone(), zeros.clone(), s.done)
+
+
+def _advance(graph: HNSWGraph, store: VectorStore, state: FrontierState,
+             params: SearchParams, n_hops: int | None = None, excl=None,
+             deadline=None) -> FrontierState:
+    """Up to `n_hops` supersteps (None: until every lane is done), one
+    host sync each (`done.all()`).  The visited map and the trace stamps
+    are updated in place (they are W x n, too large to copy each
+    superstep); every other field of the returned state is new."""
+    s = _Lanes(state.pool_d, state.pool_id, state.w_d, state.w_id,
+               state.visited, state.stats, state.done)
+    trace = _Trace(state.hs, state.is_) if state.tracing else None
+    eff, rnd, checked = state.eff, state.rnd, state.checked
+    hop = 0
+    while (n_hops is None or hop < n_hops) and not bool(s.done.all()):
+        if params.strategy == "iterative_scan":
+            s, eff, rnd, checked = _iter_superstep(
+                graph, store, state.queries, state.bitmaps, params, s, eff,
+                rnd, checked, trace, deadline)
+        else:
+            s = _base_superstep(graph, store, state.queries, state.bitmaps,
+                                params, params.ef_search, s, excl, trace,
+                                deadline)
+        hop += 1
+    return dataclasses.replace(
+        state, pool_d=s.pool_d, pool_id=s.pool_id, w_d=s.w_d, w_id=s.w_id,
+        visited=s.visited, stats=s.st, eff=eff, rnd=rnd, checked=checked,
+        done=s.done)
+
+
+def _harvest(store: VectorStore, state: FrontierState, params: SearchParams):
+    """The post-loop emit: the SQ8 tier's exact rerank, the top-k with the
+    strategy's filter check.  Writes nothing into the state.  Returns
+    (dists (W, k), ids (W, k) int32, stats, trace dict or None)."""
+    quant = params.graph_quant
+    rerank_rows = None
+    if params.strategy == "iterative_scan":
+        dk, ids, st, rerank_rows = _iter_finish(
+            store, state.queries, state.bitmaps, params, state.w_d,
+            state.w_id, state.eff, state.stats)
+    else:
+        w_d, st = state.w_d, state.stats
+        if quant == "sq8" and params.sq8_rerank:
+            w_d, st = _rerank_beam(store, state.queries, state.w_id, st)
+            rerank_rows = state.w_id
+        dk, ids = _finalize(w_d, state.w_id, state.bitmaps, params.k,
+                            check_filter=params.strategy != "unfiltered")
+    trace = None
+    if state.tracing:
+        trace = {"heap_steps": state.hs, "index_steps": state.is_}
+        if quant == "sq8" and rerank_rows is not None:
+            trace["rerank_rows"] = rerank_rows.to(torch.int32)
+    return dk, ids.to(torch.int32), st, trace
+
+
+def frontier_init(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor,
+                  bitmaps: torch.Tensor, params: SearchParams,
+                  collect_trace: bool = False,
+                  deadlines=None) -> FrontierState:
+    """Zoom-in and state init of the stepped frontier driver, as
+    `search_batch` starts.  `deadlines` is an optional per-query
+    modeled-cycle budget ((Q,), +inf for none) that rides in the state as
+    data.  Exclusion pruning is refused: its radii do not ride in the
+    state."""
+    if params.exclusion != "none":
+        raise ValueError("exclusion pruning is not supported by the "
+                         "stepped frontier driver (the excl radii do not "
+                         "ride in FrontierState); use the one-shot "
+                         "search_batch path")
+    _check_tier(store, params)
+    qn = queries.shape[0]
+    deadline = torch.full((qn,), INF, device=queries.device) \
+        if deadlines is None else torch.as_tensor(
+            deadlines, dtype=torch.float32, device=queries.device)
+    return _init_state(graph, store, queries, bitmaps, params, collect_trace,
+                       deadline)
+
+
+def step_supersteps(graph: HNSWGraph, store: VectorStore,
+                    state: FrontierState, params: SearchParams, n_hops: int,
+                    dynamic_deadline: bool = False) -> FrontierState:
+    """Advance every lane that is not done by up to `n_hops` supersteps,
+    stopping early once every lane is done, so a lane's superstep bodies
+    apply exactly as often as in the one-shot loop.  `dynamic_deadline`
+    also stops each lane at its own `state.deadline`.  The returned state
+    shares its visited map and trace stamps with `state`, which were
+    advanced in place: step the returned state, not the old one."""
+    return _advance(graph, store, state, params, n_hops,
+                    deadline=state.deadline if dynamic_deadline else None)
+
+
+def frontier_finalize(graph: HNSWGraph, store: VectorStore,
+                      state: FrontierState, params: SearchParams):
+    """Harvest (dists, ids, stats, trace or None) from the current state:
+    the emit `search_batch` ends with, on every lane, finished or not.  It
+    writes nothing into the state, so lanes still running are undisturbed.
+    The stats are copies; the trace dict's stamps are the state's own rows
+    (and "rerank_rows" on the SQ8 tier), valid until the next step or
+    slot write."""
+    dk, ids, st, trace = _harvest(store, state, params)
+    st = SearchStats(*(getattr(st, f.name).clone()
+                       for f in dataclasses.fields(SearchStats)))
+    return dk, ids, st, trace
+
+
+def frontier_write_slot(state: FrontierState, lane: FrontierState,
+                        slot: int) -> FrontierState:
+    """Copy lane 0 of a width-1 state into row `slot` of a pool state, in
+    place, and return the pool state.  Every per-lane tensor is copied
+    (the stats' counters, the visited row and the trace rows included), so
+    a freed slot keeps nothing of its previous occupant."""
+    for f in dataclasses.fields(FrontierState):
+        dst, src = getattr(state, f.name), getattr(lane, f.name)
+        if isinstance(dst, SearchStats):
+            for g in dataclasses.fields(SearchStats):
+                getattr(dst, g.name)[slot] = getattr(src, g.name)[0]
+        else:
+            dst[slot] = src[0]
+    return state
+
+
+def frontier_idle(graph: HNSWGraph, store: VectorStore, params: SearchParams,
+                  width: int, collect_trace: bool = False) -> FrontierState:
+    """An all-done pool state of `width` lanes to start a scheduler from:
+    `frontier_init` on zero queries and empty bitmaps, every lane marked
+    done (never stepped, never harvested)."""
+    dev = store.device
+    state = frontier_init(
+        graph, store, torch.zeros((width, store.dim), device=dev),
+        torch.zeros((width, bitset_words(store.n)), dtype=torch.int32,
+                    device=dev), params, collect_trace=collect_trace)
+    state.done = torch.ones(width, dtype=torch.bool, device=dev)
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -1024,38 +1219,37 @@ def _search_batch(graph: HNSWGraph, store: VectorStore, queries,
                   collect_trace: bool = False):
     """Zoom-in, the chosen engine's loop, the SQ8 rerank and the final
     top-k; the trace dict comes fourth when `collect_trace`."""
+    if params.graph_exec_mode == "frontier":
+        state = _init_state(graph, store, queries, bitmaps, params,
+                            collect_trace, None)
+        state = _advance(graph, store, state, params, excl=excl)
+        dk, ids, st, trace = _harvest(store, state, params)
+        return (dk, ids, st) if trace is None else (dk, ids, st, trace)
     quant = params.graph_quant
-    legacy = params.graph_exec_mode == "vmapped"
-    trace = _Trace.empty(queries.shape[0], graph.n, queries.device) \
-        if collect_trace else None
-    entry, entry_d, st = _zoom_in(graph, store, queries, quant, trace)
-    rerank_rows = None
+    entry, entry_d, st = _zoom_in(graph, store, queries, quant)
     if params.strategy == "iterative_scan":
-        run = _legacy_iterative if legacy else _frontier_iterative
-        dk, ids, st, rerank_rows = run(graph, store, queries, bitmaps,
-                                       params, entry, entry_d, st,
-                                       **({} if legacy else {"trace": trace}))
+        dk, ids, st, _ = _legacy_iterative(graph, store, queries, bitmaps,
+                                           params, entry, entry_d, st)
     else:
-        if legacy:
-            w_d, w_id, st = _legacy_base(graph, store, queries, bitmaps,
-                                         params, entry, entry_d, st,
-                                         params.ef_search)
-        else:
-            w_d, w_id, st = _frontier_base(graph, store, queries, bitmaps,
-                                           params, entry, entry_d, st,
-                                           ef_result=params.ef_search,
-                                           excl=excl, trace=trace)
+        w_d, w_id, st = _legacy_base(graph, store, queries, bitmaps, params,
+                                     entry, entry_d, st, params.ef_search)
         if quant == "sq8" and params.sq8_rerank:
             w_d, st = _rerank_beam(store, queries, w_id, st)
-            rerank_rows = w_id
         dk, ids = _finalize(w_d, w_id, bitmaps, params.k,
                             check_filter=params.strategy != "unfiltered")
-    if trace is None:
-        return dk, ids.to(torch.int32), st
-    out = {"heap_steps": trace.heap, "index_steps": trace.index}
-    if quant == "sq8" and rerank_rows is not None:
-        out["rerank_rows"] = rerank_rows.to(torch.int32)
-    return dk, ids.to(torch.int32), st, out
+    return dk, ids.to(torch.int32), st
+
+
+def _check_tier(store: VectorStore, params: SearchParams) -> None:
+    if params.graph_quant not in GRAPH_QUANT_MODES:
+        raise ValueError(f"unknown graph_quant {params.graph_quant!r}; "
+                         f"expected one of {GRAPH_QUANT_MODES}")
+    if params.graph_quant == "sq8" and not store.has_sq8:
+        raise ValueError("graph_quant='sq8' needs an SQ8 shadow store; "
+                         "build it with core.types.quantize_store")
+    if params.strategy not in ("unfiltered", "sweeping", "acorn", "navix",
+                               "iterative_scan"):
+        raise ValueError(f"unknown graph strategy {params.strategy!r}")
 
 
 def search_batch(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor,
@@ -1079,12 +1273,7 @@ def search_batch(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor,
     touched), plus `"rerank_rows"` ((Q, r) int32, -1 padded, candidate
     order) on the SQ8 tier; ids, dists and stats are the same with the
     flag on or off."""
-    if params.graph_quant not in GRAPH_QUANT_MODES:
-        raise ValueError(f"unknown graph_quant {params.graph_quant!r}; "
-                         f"expected one of {GRAPH_QUANT_MODES}")
-    if params.graph_quant == "sq8" and not store.has_sq8:
-        raise ValueError("graph_quant='sq8' needs an SQ8 shadow store; "
-                         "build it with core.types.quantize_store")
+    _check_tier(store, params)
     if params.exclusion not in ("none", "prune", "prune_exact"):
         raise ValueError(f"unknown exclusion {params.exclusion!r}; "
                          "expected 'none', 'prune' or 'prune_exact'")
@@ -1114,8 +1303,5 @@ def search_batch(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor,
     elif params.graph_exec_mode != "frontier":
         raise ValueError(f"unknown graph_exec_mode {params.graph_exec_mode!r}"
                          "; expected 'frontier' or 'vmapped'")
-    if params.strategy not in ("unfiltered", "sweeping", "acorn", "navix",
-                               "iterative_scan"):
-        raise ValueError(f"unknown graph strategy {params.strategy!r}")
     return _search_batch(graph, store, queries, bitmaps, params, excl,
                          collect_trace)

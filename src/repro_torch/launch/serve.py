@@ -2,8 +2,10 @@
 
 Runs the batched serve engine (prefill + decode) on the smoke config of an
 architecture, or at its full widths with --full, with weights drawn from
-seed 0.  `--rag` (filtered retrieval in front of generation) waits for the
-retrieval half of `serving/rag.py` (ROADMAP 1.10).
+seed 0.  `--rag` (filtered retrieval in front of generation) serves from a
+mesh-sharded ScaNN store (`build_sharded_scann` behind
+`DistributedScannExecutor`), which waits for the sharding port (ROADMAP
+1.12); `serving.RetrievalAugmentedServer` itself is ported.
 """
 from __future__ import annotations
 
@@ -17,8 +19,9 @@ from repro_torch.configs import get_config, smoke_config
 from repro_torch.models import build_model
 from repro_torch.serving import ServeEngine
 
-RAG_ITEM = ("--rag waits for the retrieval half of serving/rag.py "
-            "(ROADMAP 1.10)")
+RAG_ITEM = ("--rag serves from a mesh-sharded ScaNN store "
+            "(build_sharded_scann, DistributedScannExecutor), which is not "
+            "ported yet: ROADMAP 1.12 (sharding)")
 
 
 def main(argv=None) -> np.ndarray:

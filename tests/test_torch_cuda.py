@@ -1005,3 +1005,92 @@ def test_frontier_scan_exclusion_kernels_are_unchanged(cuda):
             h.update(t.cpu().numpy().tobytes())
         digests[name] = h.hexdigest()
     assert digests == EXCL_DIGESTS, digests
+
+
+def _serving_inputs(cuda, quant="none"):
+    from repro_torch.data import DatasetSpec, make_dataset
+    store, q = make_dataset(DatasetSpec("g", 3000, 64, "l2", clusters=16),
+                            num_queries=24, device=cuda)
+    if quant == "sq8":
+        store = T.quantize_store(store)
+    graph = T.build_graph(store, m=8, ef_construction=32, device=cuda)
+    bm = T.generate_bitmaps(store, q, T.WorkloadSpec(0.1, "med_pos"),
+                            device=cuda)
+    return store, q, graph, bm
+
+
+@pytest.mark.parametrize("quant", ["none", "sq8"])
+@pytest.mark.parametrize("strategy", ["sweeping", "acorn", "navix",
+                                      "iterative_scan"])
+def test_stepped_pool_on_card_matches_one_shot(cuda, strategy, quant):
+    """The stepped driver on CUDA tensors, hop chunks 1, 3, 8, equals the
+    card's one-shot search bit for bit and goes through the frontier
+    kernel."""
+    from repro_torch.core import graph_search as G
+    store, q, graph, bm = _serving_inputs(cuda, quant)
+    p = T.SearchParams(k=10, ef_search=32, beam_width=64, max_hops=200,
+                       strategy=strategy, graph_quant=quant)
+    want = T.search_batch(graph, store, q, bm, p)
+    ops.reset_launches()
+    state = G.frontier_init(graph, store, q, bm, p)
+    chunks, i = (1, 3, 8), 0
+    while not bool(state.done.all()):
+        state = G.step_supersteps(graph, store, state, p, chunks[i % 3])
+        i += 1
+    got = G.frontier_finalize(graph, store, state, p)
+    kernel = "frontier_scan_sq8" if quant == "sq8" else "frontier_scan"
+    assert ops.launches()[kernel] > 0
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    for f in dataclasses.fields(T.SearchStats):
+        assert torch.equal(getattr(got[2], f.name),
+                           getattr(want[2], f.name)), f.name
+
+
+def test_continuous_server_on_card_matches_serve_queue(cuda):
+    from repro_torch.serving import (ContinuousServer,
+                                     RetrievalAugmentedServer, Request,
+                                     results_in_order)
+    store, q, graph, bm = _serving_inputs(cuda)
+    p = T.SearchParams(k=10, ef_search=32, beam_width=64, max_hops=200)
+    ex = T.GraphExecutor(graph, store, strategy="sweeping")
+    srv = RetrievalAugmentedServer(
+        None, None, ex, p, doc_tokens=torch.zeros(store.n, 4).int().numpy(),
+        chunk_len=4, embed_fn=lambda pr, tok: q[tok[:, 0]])
+    n = q.shape[0]
+    res, _ = srv.serve_queue(torch.arange(n)[:, None].numpy(), bm,
+                             batch_size=8, policy="fifo")
+    ops.reset_launches()
+    recs, info = ContinuousServer(ex, p, width=8, hop_chunk=8).serve(
+        [Request(rid=i, query=q[i], bitmap=bm[i]) for i in range(n)])
+    assert ops.launches()["frontier_scan"] > 0
+    ids, dists = results_in_order(recs, n, p.k)
+    assert (ids == res.ids).all() and (dists == res.dists).all()
+    assert info["step_ticks"] > 0 and 0 < info["slot_utilization"] <= 1
+
+
+def test_ladder_scann_lite_rung_launches_its_kernels(cuda):
+    """Requests that exhaust the primary's budget descend to scann_lite,
+    which runs through distance_matrix and leaf_scan_batched."""
+    from repro_torch.serving import LadderRung, RetrievalAugmentedServer
+    store, q, graph, bm = _serving_inputs(cuda)
+    scann = T.build_scann(store, num_leaves=40, device=cuda)
+    p = T.SearchParams(k=10, ef_search=32, beam_width=64,
+                       num_leaves_to_search=8)
+    ex = T.GraphExecutor(graph, store, strategy="sweeping")
+    ladder = [LadderRung("primary", ex,
+                         lambda r: dataclasses.replace(r, hop_budget=1)),
+              LadderRung("scann_lite", T.ScannExecutor(scann, store),
+                         lambda r: dataclasses.replace(
+                             r, num_leaves_to_search=4))]
+    srv = RetrievalAugmentedServer(
+        None, None, ex, p, doc_tokens=torch.zeros(store.n, 4).int().numpy(),
+        chunk_len=4, embed_fn=lambda pr, tok: q[tok[:, 0]])
+    ops.reset_launches()
+    res, info = srv.serve_queue(torch.arange(q.shape[0])[:, None].numpy(),
+                                bm, batch_size=8, policy="fifo",
+                                ladder=ladder)
+    launches = ops.launches()
+    assert (info["rung"] == "scann_lite").all()
+    assert launches["leaf_scan_batched"] > 0
+    assert launches["distance_matrix"] > 0
+    assert (res.ids >= 0).all()

@@ -123,7 +123,7 @@ def test_launcher_runs_on_the_cpu(capsys):
                        "2"])
     assert out.shape == (2, 4)
     assert "generated (2, 4) tokens" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP 1.12"):
         tserve.main(["--arch", "granite-8b", "--device", "cpu", "--rag"])
     with pytest.raises(SystemExit):
         tserve.main(["--arch", "hubert-xlarge", "--device", "cpu"])
