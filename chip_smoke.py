@@ -1572,6 +1572,418 @@ def phase_serve(ctx: dict, report: dict, dev="cuda") -> None:
 
 
 # ---------------------------------------------------------------------------
+# mutate: live mutability on the 1M store (WAL, delta tier, tombstones,
+# checkpoints, compaction, crash recovery, ingestion while serving)
+# ---------------------------------------------------------------------------
+
+MUTATE_DELTA = 8192            # delta_capacity; capacity = base + 4 x delta
+MUTATE_BATCH = 512             # rows an insert batch
+MUTATE_FILLS = (0.25, 0.5, 0.75, 1.0)
+MUTATE_PLANTED = 16
+# The graph tier's cut: the exact build_graph that MutableIndex builds,
+# compacts and recovers with takes ~102 s at 1M rows on an H100
+# (tools_torch/time_graph_build.py, PERF.md), and the phase builds it four
+# times (construction, compaction, two recoveries), ~410 s, over the
+# phase's budget; so the graph methods run on a MutableIndex over the
+# first 100,000 rows of the same store, bruteforce and ScaNN on all of it
+MUTATE_GRAPH_ROWS = 100_000
+MUTATE_SERVE_MID_TICK = 20     # the mid-flight insert's tick
+
+
+def _widen(bm, base_words: int, width: int, delta_bits):
+    """Workload bitmaps over a base's ids [0, 32 * base_words), widened to
+    `width` words: the delta id range [base, base + 4 x delta) takes the
+    seeded `delta_bits` words (the same selectivity), the rest zeros."""
+    import torch
+    out = torch.zeros((bm.shape[0], width), dtype=torch.int32,
+                      device=bm.device)
+    out[:, :base_words] = bm[:, :base_words]
+    out[:, base_words:base_words + delta_bits.shape[1]] = delta_bits
+    return out
+
+
+def _secs(d: dict) -> str:
+    return ", ".join(f"{k} {v:.3f} s" for k, v in d.items())
+
+
+def _merged_row(ix, method, q, bm, p, dev) -> tuple:
+    """One merged search and the same method on the base alone (the live
+    bitmap clipped to the base), each timed."""
+    sync(dev)
+    t0 = time.perf_counter()
+    res = ix.search(q, bm, dataclasses.replace(p, strategy=method),
+                    method=method)
+    sync(dev)
+    merged_s = time.perf_counter() - t0
+    _, base_bm = ix.live_bitmaps(bm)
+    sync(dev)
+    t0 = time.perf_counter()
+    ix._executor(method).search(q, base_bm,
+                                dataclasses.replace(p, strategy=method))
+    sync(dev)
+    return res, merged_s, time.perf_counter() - t0
+
+
+def _oracle(ix, q, bm, k):
+    from repro_torch.core import filtered_knn, rebuild_oracle_store
+    store, live = rebuild_oracle_store(ix)
+    live_bm, _ = ix.live_bitmaps(bm)
+    return filtered_knn(store, q, live_bm & live[None], k)
+
+
+def _same_bits(a_ids, a_d, b_ids, b_d) -> bool:
+    import torch
+    return bool(torch.equal(a_ids.to(torch.int32), b_ids.to(torch.int32))
+                and torch.equal(a_d.view(torch.int32),
+                                b_d.view(torch.int32)))
+
+
+def _snapshot(tiers, queries, bms, p) -> dict:
+    """Every method's merged (ids, dists) on its tier."""
+    out = {}
+    for tier, (ix, methods) in tiers.items():
+        for m in methods:
+            r = ix.search(queries, bms[tier],
+                          dataclasses.replace(p, strategy=m), method=m)
+            out[m] = (r.ids.clone(), r.dists.clone())
+    return out
+
+
+def phase_mutate(ctx: dict, report: dict, dev="cuda") -> None:
+    """MutableIndex on main's store: inserts and deletes at four fills of
+    the delta tier with merged search against the oracle, a checkpoint, a
+    compaction, recovery from two crash points, and ContinuousServer
+    ingesting while it serves; kernel launches counted from 0."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import (MutableIndex, bitset_words,
+                                  pack_bool_bitmap, recall_at_k)
+    from repro_torch.core.costmodel import (should_compact,
+                                            write_amplification)
+    from repro_torch.kernels import ops
+    from repro_torch.measure import device_ms
+    from repro_torch.storage import PAGE_BYTES
+
+    store, queries = ctx["store"], ctx["queries"]
+    n, nq, dim = store.n, queries.shape[0], store.dim
+    graph_rows = min(MUTATE_GRAPH_ROWS, n)
+    print(f"== mutate: MutableIndex on the {n} x {dim} store (delta "
+          f"capacity {MUTATE_DELTA}, batches of {MUTATE_BATCH}) ==",
+          flush=True)
+    print(f"   cut: the graph tier (sweeping, sweeping_sq8) runs on the "
+          f"first {graph_rows} rows: the exact build_graph is built four "
+          f"times in this phase (bruteforce and scann on all {n})",
+          flush=True)
+    out = report["mutate"] = {"n": n, "graph_rows": graph_rows,
+                              "fills": []}
+    p = main_params()
+    tmp = tempfile.mkdtemp(prefix="mutate_")
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    try:
+        gen = torch.Generator(device=store.device).manual_seed(21)
+        kw = dict(delta_capacity=MUTATE_DELTA, graph_m=16,
+                  ef_construction=32, num_leaves=2000, seed=0, device=dev)
+        t0 = time.perf_counter()
+        big = MutableIndex(store.vectors, f"{tmp}/big.wal", f"{tmp}/big_ck",
+                           with_graph=False, with_scann=True, **kw)
+        small_base = store.vectors[:graph_rows].clone()
+        small = MutableIndex(small_base, f"{tmp}/g.wal", f"{tmp}/g_ck",
+                             with_graph=True, with_scann=False, **kw)
+        sync(dev)
+        out["build_s"] = time.perf_counter() - t0
+        out["build_seconds"] = {"base": big.build_seconds,
+                                "graph": small.build_seconds}
+        print(f"   build {out['build_s']:.1f} s: base "
+              f"{_secs(big.build_seconds)}; graph tier "
+              f"{_secs(small.build_seconds)}", flush=True)
+        tiers = {"base": (big, ("bruteforce", "scann")),
+                 "graph": (small, ("sweeping", "sweeping_sq8"))}
+        # workload A widened over each index's id space: the delta range
+        # takes bits at A's selectivity (0.10), one draw for both indexes
+        span = 4 * MUTATE_DELTA
+        dbits = pack_bool_bitmap(torch.rand((nq, span), generator=gen,
+                                            device=store.device) < 0.10)
+        bm_a = ctx["bitmaps"]
+        bms = {"base": _widen(bm_a, bitset_words(n), big.words(), dbits),
+               "graph": _widen(bm_a, bitset_words(graph_rows),
+                               small.words(), dbits)}
+        scale = float(store.vectors[:10_000].std())
+        ins_s = del_s = 0.0
+        ins_rows = del_ids = 0
+        deleted = {"base": [], "graph": []}
+        rows = None
+        for fill in MUTATE_FILLS:
+            target = int(fill * MUTATE_DELTA)
+            while big.delta.count < target:
+                src = torch.randint(0, n, (MUTATE_BATCH,), generator=gen,
+                                    device=store.device)
+                rows = (store.vectors[src] + 0.05 * scale * torch.randn(
+                    (MUTATE_BATCH, dim), generator=gen,
+                    device=store.device)).cpu().numpy()
+                for ix in (big, small):
+                    t0 = time.perf_counter()
+                    ix.insert(rows)
+                    ins_s += time.perf_counter() - t0
+                    ins_rows += MUTATE_BATCH
+            for name, (ix, _) in tiers.items():
+                nb = max(1, ix.base_n // 1000)
+                base_ids = torch.randint(0, ix.base_n, (nb,), generator=gen,
+                                         device=store.device).cpu().numpy()
+                dl = torch.randint(0, ix.delta.count,
+                                   (ix.delta.count // 16,), generator=gen,
+                                   device=store.device).cpu().numpy()
+                ids = np.concatenate([base_ids, ix.base_n + dl])
+                t0 = time.perf_counter()
+                ix.delete(ids)
+                del_s += time.perf_counter() - t0
+                del_ids += ids.size
+                deleted[name].append(ids)
+            if fill == 0.5:
+                t0 = time.perf_counter()
+                for ix in (big, small):
+                    ix.checkpoint()
+                out["checkpoint_s"] = time.perf_counter() - t0
+            row = {"fill": fill, "delta_count": big.delta.count,
+                   "should_compact": should_compact(
+                       big.delta.count, MUTATE_DELTA, big.base_n, dim, 0.10),
+                   "methods": {}}
+            for name, (ix, methods) in tiers.items():
+                od, truth = _oracle(ix, queries, bms[name], p.k)
+                dead = torch.as_tensor(np.concatenate(deleted[name]),
+                                       device=store.device)
+                for m in methods:
+                    res, merged_s, base_s = _merged_row(ix, m, queries,
+                                                        bms[name], p, dev)
+                    rec = float(recall_at_k(res.ids, truth, p.k).mean())
+                    hit = bool(torch.isin(res.ids.to(torch.int64),
+                                          dead).any())
+                    check(not hit, f"mutate: {m} returned a deleted id at "
+                          f"fill {fill}")
+                    row["methods"][m] = {
+                        "recall": rec, "merged_s": merged_s,
+                        "merged_qps": nq / merged_s, "base_s": base_s,
+                        "base_qps": nq / base_s}
+                    if m == "bruteforce":
+                        same = _same_bits(truth, od, res.ids, res.dists)
+                        row["bruteforce_equals_oracle"] = same
+                        check(same, f"mutate: merged bruteforce != oracle "
+                              f"at fill {fill}")
+            out["fills"].append(row)
+            print(f"   fill {fill:.2f} ({row['delta_count']} delta rows, "
+                  f"should_compact {row['should_compact']}): "
+                  + "; ".join(f"{m} recall {v['recall']:.4f} merged "
+                              f"{v['merged_qps']:.1f} QPS base alone "
+                              f"{v['base_qps']:.1f}"
+                              for m, v in row["methods"].items())
+                  + "; bruteforce == oracle bit for bit", flush=True)
+        out["insert_rows_per_s"] = ins_rows / ins_s
+        out["delete_ids_per_s"] = del_ids / del_s
+        print(f"   inserts {ins_rows} rows in {ins_s:.3f} s = "
+              f"{out['insert_rows_per_s']:.1f} rows/s; deletes {del_ids} "
+              f"ids in {del_s:.3f} s = {out['delete_ids_per_s']:.1f} ids/s "
+              f"(WAL append + fsync + apply); checkpoint at fill 0.5 "
+              f"{out['checkpoint_s']:.2f} s", flush=True)
+
+        # queries planted on live rows of the last batch rank them first
+        # for bruteforce (all-pass bitmaps)
+        last = big.base_n + big.delta.count - MUTATE_BATCH
+        cand = np.arange(last, last + MUTATE_BATCH)
+        want = cand[~big.tombstones.is_dead(cand)][:MUTATE_PLANTED]
+        pq = torch.as_tensor(rows[want - last], device=store.device)
+        pq = pq + 1e-3 * scale * torch.randn(pq.shape, generator=gen,
+                                             device=store.device)
+        allpass = torch.full((len(want), big.words()), -1,
+                             dtype=torch.int32, device=store.device)
+        pres = big.search(pq, allpass, dataclasses.replace(
+            p, strategy="bruteforce"))
+        check(bool((pres.ids[:, 0].cpu().numpy() == want).all()),
+              "mutate: a planted row does not rank first")
+        print(f"   {MUTATE_PLANTED} planted rows rank first for bruteforce",
+              flush=True)
+
+        # the delta scan alone, at the full tier
+        live, _ = big.live_bitmaps(bms["base"])
+        dex = big._delta_executor()
+        out["delta_scan_ms"] = device_ms(
+            lambda: dex.search(queries, live, p), iters=5, warmup=1) \
+            if dev == "cuda" else 0.0
+        print(f"   delta scan ({nq} queries x {big.delta.count} rows): "
+              f"{out['delta_scan_ms']:.4f} ms of device time", flush=True)
+
+        # crash point A: after the last mutation, before compaction
+        pre = _snapshot(tiers, queries, bms, p)
+        crash_a = {}
+        for name, (ix, _) in tiers.items():
+            wal_a = ix.wal.crash_copy(f"{tmp}/{name}_a.wal")
+            ck_a = f"{tmp}/{name}_ck_a"
+            shutil.copytree(ix.ckpt_dir, ck_a)
+            crash_a[name] = (wal_a, ck_a)
+
+        for ix in (big, small):
+            ix.compact()
+        out["compaction_seconds"] = {"base": big.compaction_seconds,
+                                     "graph": small.compaction_seconds}
+        print(f"   compaction: base {_secs(big.compaction_seconds)}; "
+              f"graph tier {_secs(small.compaction_seconds)}", flush=True)
+        od, oi = _oracle(big, queries, bms["base"], p.k)
+        res = big.search(queries, bms["base"], p)
+        check(_same_bits(oi, od, res.ids, res.dists),
+              "mutate: bruteforce != oracle after compaction")
+        post = _snapshot(tiers, queries, bms, p)
+        marker = big.wal.replay()[-1]
+
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(f"{tmp}/big_ck")
+                         for f in fs)
+        recs = {}
+        for name, (ix, methods) in tiers.items():
+            rkw = dict(kw, with_graph=name == "graph",
+                       with_scann=name == "base")
+            base = store.vectors if name == "base" else small_base
+            mk = ix.wal.replay()[-1]
+            wal_b = ix.wal.crash_copy(f"{tmp}/{name}_b.wal",
+                                      at_bytes=mk.offset + mk.length // 2)
+            for point, (wal, ck), want in (
+                    ("after the last insert", crash_a[name], pre),
+                    ("inside the COMPACT marker", (wal_b, ix.ckpt_dir),
+                     post)):
+                t0 = time.perf_counter()
+                r = MutableIndex.recover(base, wal, ck, **rkw)
+                sync(dev)
+                wall = time.perf_counter() - t0
+                for m in methods:
+                    got = r.search(queries, bms[name],
+                                   dataclasses.replace(p, strategy=m),
+                                   method=m)
+                    check(_same_bits(want[m][0], want[m][1], got.ids,
+                                     got.dists),
+                          f"mutate: {m} after recovery ({point}) differs "
+                          "from the uncrashed index")
+                recs[f"{name}: {point}"] = wall
+                r.close()
+                del r
+        out["recovery_s"] = recs
+        out["checkpoint_bytes"] = ckpt_bytes
+        wal_bytes = big.wal.offset
+        out["write_amplification"] = write_amplification(
+            big.user_bytes, -(-ckpt_bytes // PAGE_BYTES), wal_bytes)
+        out["should_compact_after"] = should_compact(
+            big.delta.count, MUTATE_DELTA, big.base_n, dim, 0.10)
+        print("   recovery (bit-equal to the uncrashed index, all four "
+              "methods): " + ", ".join(f"{k} {v:.2f} s"
+                                       for k, v in recs.items())
+              + f"; base checkpoint bytes {ckpt_bytes}; COMPACT marker "
+              f"{marker.length} bytes at {marker.offset}", flush=True)
+        print(f"   write amplification {out['write_amplification']:.4f} "
+              f"((WAL {wal_bytes} B + checkpoint pages) / user "
+              f"{big.user_bytes} B); should_compact after compaction "
+              f"{out['should_compact_after']}", flush=True)
+        mutate_serve(small, queries, bms["graph"], p, out, dev)
+        counts = ops.launches()
+        out["launches"] = counts
+        if dev == "cuda":
+            out["max_memory_allocated_bytes"] = \
+                torch.cuda.max_memory_allocated()
+        print(f"   launches on the mutate path: {counts}; peak device "
+              f"memory {out.get('max_memory_allocated_bytes', 0) / 2**30:.3f}"
+              " GiB", flush=True)
+        for k in ("frontier_scan", "frontier_scan_sq8", "distance_matrix",
+                  "leaf_scan_batched"):
+            check(counts[k] > 0, f"kernel {k} was not launched on the "
+                  "mutate path")
+        for ix in (big, small):
+            ix.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mutate_serve(ix, queries, bm, p, out: dict, dev="cuda") -> None:
+    """ContinuousServer(64, 8) on sweeping over the graph tier: without
+    ingestion; with an insert of 512 rows and a delete of 100 ids at tick 0
+    and arrivals from tick 1 (every record == MutableIndex.search); with an
+    insert mid-flight (each record's delta_count is the tier's at its admit
+    tick)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import GraphExecutor
+    from repro_torch.serving import ContinuousServer, Request, \
+        results_in_order
+    from repro_torch.serving.continuous import IngestEvent
+    nq = queries.shape[0]
+    gen = torch.Generator(device=queries.device).manual_seed(23)
+    ex = GraphExecutor(ix.graph, ix.store, strategy="sweeping")
+    ps = dataclasses.replace(p, strategy="sweeping")
+    rows = out["serve"] = {}
+
+    def serve(name, reqs, **kw):
+        srv = ContinuousServer(ex, ps, width=SERVE_WIDTH,
+                               hop_chunk=SERVE_HOP_CHUNK, **kw)
+        sync(dev)
+        t0 = time.perf_counter()
+        recs, info = srv.serve(reqs)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        rows[name] = {"wall_s": wall, "qps": nq / wall,
+                      "ticks": info["ticks"],
+                      "ingest": [info["ingest_inserts"],
+                                 info["ingest_deletes"],
+                                 info["ingest_rows"]]}
+        return recs, info
+
+    live, base = ix.live_bitmaps(bm)
+    serve("no ingestion", [Request(rid=i, query=queries[i], bitmap=base[i],
+                                   arrival=1) for i in range(nq)])
+
+    def new_rows(m):
+        src = torch.randint(0, ix.base_n, (m,), generator=gen,
+                            device=queries.device)
+        return (ix.store.vectors[src] + 0.01 * torch.randn(
+            (m, ix.store.dim), generator=gen,
+            device=queries.device)).cpu().numpy()
+
+    dels = torch.randint(0, ix.base_n, (100,), generator=gen,
+                         device=queries.device).cpu().numpy()
+    events = [IngestEvent(tick=0, kind="insert", rows=new_rows(512)),
+              IngestEvent(tick=0, kind="delete", ids=dels)]
+    recs, info = serve("ingest at tick 0", [
+        Request(rid=i, query=queries[i], bitmap=bm[i], arrival=1)
+        for i in range(nq)], index=ix, ingest=events)
+    check(info["ingest_inserts"] == 1 and info["ingest_rows"] == 512
+          and info["ingest_deletes"] == 1, "mutate: ingest counters")
+    ids, dists = results_in_order(recs, nq, p.k)
+    want = ix.search(queries, bm, ps, method="sweeping")
+    same = bool((want.ids.cpu().numpy() == ids).all() and (
+        want.dists.cpu().numpy().view(np.int32) == dists.view(np.int32)
+    ).all())
+    check(same, "mutate: ingest-serve records differ from "
+          "MutableIndex.search")
+    check(not np.isin(ids, dels).any(), "mutate: a deleted id was served")
+    c0 = ix.delta.count
+    recs, _ = serve("insert mid-flight", [
+        Request(rid=i, query=queries[i], bitmap=bm[i], arrival=1)
+        for i in range(nq)], index=ix, ingest=[IngestEvent(
+            tick=MUTATE_SERVE_MID_TICK, kind="insert", rows=new_rows(512))])
+    seen = [(r["admit_tick"], r["delta_count"]) for r in recs.values()]
+    ok = all(dc == (c0 + 512 if at >= MUTATE_SERVE_MID_TICK else c0)
+             for at, dc in seen)
+    check(ok, "mutate: a record's delta_count is not the tier's at its "
+          "admit tick")
+    before = sum(1 for at, _ in seen if at < MUTATE_SERVE_MID_TICK)
+    print("   serve (ContinuousServer(64, 8), sweeping, graph tier, "
+          f"{nq} requests): " + "; ".join(
+              f"{k} {v['wall_s']:.3f} s = {v['qps']:.1f} QPS, ticks "
+              f"{v['ticks']}" for k, v in rows.items())
+          + f"; records == MutableIndex.search bit for bit; mid-flight: "
+          f"{before} admitted before tick {MUTATE_SERVE_MID_TICK} saw "
+          f"{c0} delta rows, the rest {c0 + 512}", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # kernels against their plain versions, with times and bounds
 # ---------------------------------------------------------------------------
 
@@ -2515,7 +2927,7 @@ def main(argv=None) -> int:
                                  "on one card and check it.")
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=1000)
-    ap.add_argument("--phases", default="parity,main,serve,kernels,lm")
+    ap.add_argument("--phases", default="parity,main,serve,mutate,kernels,lm")
     ap.add_argument("--lm-frames", type=int, default=8192,
                     help="frames of each encoder prefill (lm phase)")
     ap.add_argument("--lm-batch", type=int, default=2,
@@ -2562,6 +2974,9 @@ def main(argv=None) -> int:
         ctx = timed("main", phase_main, args.n, args.queries, report)
         if "serve" in phases:
             timed("serve", phase_serve, ctx, report)
+        if "mutate" in phases:
+            timed("mutate", phase_mutate, ctx, report)
+            _free_cuda()
         if "kernels" in phases:
             kernels = timed("kernels", phase_kernels, ctx, report)
         if "profile" in phases:

@@ -534,3 +534,70 @@ def fault_penalty(storage_stats, batch_q: int,
     events = getattr(storage_stats, "retries", 0) \
         + getattr(storage_stats, "spikes", 0)
     return events * extra / max(batch_q, 1)
+
+
+# ---------------------------------------------------------------------------
+# Streaming mutability: the planner's price for a growing delta tier, and
+# the write-side system cost.
+# ---------------------------------------------------------------------------
+
+def delta_scan_counters(n_delta: int, dim: int, selectivity: float,
+                        k: int = 10) -> dict[str, float]:
+    """Expected per-query Table-6 counters of the delta tier's exact scan
+    (`executor.DeltaExecutor`): seqscan semantics over the live delta
+    rows, every one probed, the passing ones fetched and scored."""
+    ppv = heap_pages_per_vector(dim)
+    s = min(max(selectivity, 0.0), 1.0)
+    return dict(distance_comps=s * n_delta, filter_checks=float(n_delta),
+                hops=0.0, page_accesses_index=0.0,
+                page_accesses_heap=s * n_delta * ppv,
+                tmap_lookups=0.0, reorder_rows=0.0)
+
+
+def delta_scan_cycles(n_delta: int, dim: int, selectivity: float,
+                      k: int = 10,
+                      constants: CostConstants = SYSTEM) -> float:
+    """Modeled per-query cycles the delta scan adds to whatever base
+    strategy runs (the O(k) merge is free at this scale): the term that
+    makes a growing delta tier visible to the planner and to
+    `should_compact`."""
+    c = delta_scan_counters(n_delta, dim, selectivity, k)
+    return component_cycles(c, dim, constants)["total"]
+
+
+PAGE_BYTES_WA = 8192            # storage.pages.PAGE_BYTES
+
+
+def write_amplification(user_bytes: int, page_writes: int,
+                        wal_bytes: int = 0) -> float:
+    """Physical-write bytes per logical user byte, the LSM tax in the
+    paper's page currency: (WAL bytes + 8 KB x page write-backs) / user
+    payload bytes.  `page_writes` is the pool's write-back counter, so
+    checkpoint and compaction I/O count when they reach storage.  inf
+    when pages were written but no user byte, 1.0 when idle."""
+    phys = wal_bytes + page_writes * PAGE_BYTES_WA
+    if user_bytes <= 0:
+        return float("inf") if phys > 0 else 1.0
+    return phys / user_bytes
+
+
+def should_compact(n_delta: int, delta_capacity: int, n_base: int,
+                   dim: int, selectivity: float,
+                   queries_per_epoch: float = 1024.0,
+                   fill_trigger: float = 0.75,
+                   constants: CostConstants = SYSTEM) -> bool:
+    """Compaction policy: fold the delta when the tier is nearly full, or
+    when the scan tax the next epoch of queries pays on it exceeds the
+    modeled one-off cost of rewriting every base + delta heap page once
+    at miss-grade cost (an underestimate of the rebuild, so the policy
+    leans eager, as LSM compactors do)."""
+    if n_delta <= 0:
+        return False
+    if n_delta >= fill_trigger * delta_capacity:
+        return True
+    scan_tax = queries_per_epoch * delta_scan_cycles(
+        n_delta, dim, selectivity, constants=constants)
+    ppv = heap_pages_per_vector(dim)
+    rebuild = (n_base + n_delta) * ppv \
+        * constants.page_access * constants.page_miss_extra
+    return scan_tax > rebuild

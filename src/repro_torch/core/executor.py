@@ -8,15 +8,17 @@
 exclusion pruning, and the stepped driver's hooks that continuous batching
 calls), `PartitionedGraphExecutor` (JAG family subgraphs),
 `ScannExecutor` (the query-batched pipeline, or the legacy per-query one),
-`BruteForceExecutor` (exact filtered KNN with seqscan counters) and
+`BruteForceExecutor` (exact filtered KNN with seqscan counters),
+`DeltaExecutor` (the exact scan of the mutable delta tier) and
 `AdaptivePlanner` (per-batch system-aware dispatch on the predictive cost
 model) are ports of the reference executors of the same names.  With a
 `storage` engine (`storage.make_storage_engine`)
 attached, a search also collects its access trace and replays it through
 the buffer pool: the result carries measured StorageStats, and the planner
 prices each candidate with the pool's residency.  `make_executor` builds
-them by method name; the reference's "delta" method raises
-NotImplementedError naming the ROADMAP item that ports it.
+them by method name, as the reference's registry does ("delta" is not a
+method there either: `core.mutable.MutableIndex` builds its
+`DeltaExecutor` itself).
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from repro_torch.core.types import (SearchParams, SearchResult, SearchStats,
                                     check_store_device, heap_pages_per_vector,
                                     pack_bool_bitmap, probe_batch,
                                     quantize_store, topk_smallest)
+from repro_torch.core.workload import QUERY_CHUNK, exact_distances
 from repro_torch.storage.engine import (TRACE_UNTOUCHED, StorageEngine,
                                         merge_storage_stats)
 
@@ -52,17 +55,11 @@ GRAPH_STRATEGIES = costmodel.GRAPH_STRATEGIES
 GRAPH_SQ8_METHODS = tuple(f"{s}_sq8" for s in GRAPH_STRATEGIES)
 EXCL_METHODS = ("sweeping_excl", "sweeping_excl_sq8")
 PARTITIONED_METHODS = ("partitioned", "partitioned_sq8")
-PORTED_METHODS = GRAPH_STRATEGIES + GRAPH_SQ8_METHODS + EXCL_METHODS \
+REGISTERED_METHODS = GRAPH_STRATEGIES + GRAPH_SQ8_METHODS + EXCL_METHODS \
     + PARTITIONED_METHODS + ("scann", "scann_vmapped", "bruteforce",
                              "adaptive")
 DEFAULT_PLANNER_CANDIDATES = ("bruteforce", "scann", "sweeping",
                               "sweeping_sq8", "navix", "iterative_scan")
-
-# Methods of the reference's registry that the port does not run yet, with
-# the ROADMAP item that ports them.
-_NOT_PORTED = {
-    "delta": "ROADMAP 1.11 (mutability)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -560,6 +557,84 @@ class BruteForceExecutor(BaseExecutor):
                                 extra_budget=truncated))
 
 
+class DeltaExecutor(BaseExecutor):
+    """Exact scan over the mutable delta tier (`storage.delta.DeltaTier`):
+    the unindexed tail every base strategy's top-k merges with
+    (`core.mutable.MutableIndex`, `types.merge_topk`).
+
+    Seqscan counters scaled to the tier: every live delta row is filter
+    checked (its bit probed at its global id, so a tombstone-composed
+    bitmap applies unchanged), the passing ones are fetched and scored
+    (`costmodel.delta_scan_counters`).  The distances are
+    `workload.exact_distances`, the arithmetic of `filtered_knn`, so the
+    merge is bit-equal to one exact scan over base and delta.  With a
+    `storage` engine (built with delta_capacity=) each query's scan
+    replays through the pool's "delta" segment."""
+
+    name = "delta"
+
+    def __init__(self, tier, metric: str,
+                 storage: Optional[StorageEngine] = None):
+        self.tier = tier
+        self.metric = metric
+        self.storage = storage
+
+    def plan(self, queries, bitmaps, params: SearchParams) -> SearchPlan:
+        if params.strategy != "delta":
+            params = dataclasses.replace(params, strategy="delta")
+        # snapshot the mutable tier at plan time: a copy of its live rows,
+        # so a mutation or a compaction landing mid-request cannot leak in
+        count = int(self.tier.count)
+        rows = self.tier.device_vectors
+        if rows is None or rows.device != queries.device:
+            rows = torch.as_tensor(self.tier.vectors[:count],
+                                   device=queries.device)
+        notes = {"count": count, "base_n": int(self.tier.base_n),
+                 "vectors": rows[:count].clone()}
+        return SearchPlan("delta", params, queries, bitmaps, notes=notes)
+
+    def execute(self, plan: SearchPlan) -> SearchResult:
+        notes = plan.notes
+        vecs, count, base_n = notes["vectors"], notes["count"], \
+            notes["base_n"]
+        k = plan.params.k
+        q = plan.queries.shape[0]
+        dev = plan.queries.device
+        nsq = (vecs * vecs).sum(-1)           # VectorStore.build's norms
+        gids = base_n + torch.arange(count, device=dev)
+        ds, ids, npass = [], [], []
+        for s in range(0, q, QUERY_CHUNK):
+            qs = plan.queries[s:s + QUERY_CHUNK]
+            d = exact_distances(vecs, nsq, self.metric, qs)
+            passing = probe_batch(plan.bitmaps[s:s + QUERY_CHUNK],
+                                  gids.expand(qs.shape[0], count))
+            d = torch.where(passing, d, torch.full_like(d, float("inf")))
+            dk, idx = topk_smallest(d, min(k, count))
+            ds.append(dk)
+            ids.append(torch.where(torch.isinf(dk), torch.full_like(idx, -1),
+                                   idx + base_n))
+            npass.append(passing.sum(1).to(torch.int32))
+        d = torch.cat(ds)
+        ids = torch.cat(ids).to(torch.int32)
+        npass = torch.cat(npass)
+        if k > count:                          # the tier holds fewer than k
+            d = torch.nn.functional.pad(d, (0, k - count),
+                                        value=float("inf"))
+            ids = torch.nn.functional.pad(ids, (0, k - count), value=-1)
+        z = torch.zeros((q,), dtype=torch.int32, device=dev)
+        ppv = heap_pages_per_vector(vecs.shape[1])
+        stats = SearchStats(
+            distance_comps=npass, filter_checks=z + count, hops=z,
+            page_accesses_index=z, page_accesses_heap=npass * ppv,
+            tmap_lookups=z, reorder_rows=z)
+        sstats = None if self.storage is None \
+            else self.storage.account_delta_scan(count, q)
+        return SearchResult(dists=d, ids=ids, stats=stats, strategy="delta",
+                            plan=plan, storage=sstats,
+                            anytime=costmodel.evaluate_anytime(
+                                None, plan.params, vecs.shape[1], ids))
+
+
 def _mask_bitmap_prefix(bitmaps: torch.Tensor,
                         probes: torch.Tensor) -> torch.Tensor:
     """Zero every bit at row id >= probes[q]: the part of a budgeted
@@ -834,9 +909,6 @@ def make_executor(method: str, store: VectorStore, *,
     StorageStats, and for "adaptive" one pool backs every candidate (but
     "scann_vmapped") and feeds the planner's predictions."""
     check_store_device(store, device)
-    if method in _NOT_PORTED:
-        raise NotImplementedError(f"{method!r} is not ported yet: "
-                                  f"{_NOT_PORTED[method]}")
 
     def excl_executor(quant: str, st: VectorStore) -> GraphExecutor:
         if graph is None or exclusion is None:
@@ -906,9 +978,7 @@ def make_executor(method: str, store: VectorStore, *,
                     index, store, pipeline="batched" if name == "scann"
                     else "vmapped",
                     storage=storage if name == "scann" else None)
-            elif name in _NOT_PORTED:
-                raise NotImplementedError(f"{name!r} is not ported yet: "
-                                          f"{_NOT_PORTED[name]}")
         return AdaptivePlanner(cands, store, constants=constants,
                                graph_m=graph_m, storage=storage)
-    raise ValueError(f"unknown method {method!r}; ported: {PORTED_METHODS}")
+    raise ValueError(
+        f"unknown method {method!r}; registered: {REGISTERED_METHODS}")

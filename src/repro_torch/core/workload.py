@@ -62,6 +62,55 @@ def full_distances(store: VectorStore, queries: torch.Tensor) -> torch.Tensor:
     return (q * q).sum(-1, keepdim=True) + store.norms_sq[None, :] - 2.0 * ip
 
 
+# Rows of one product of an exact scan, by device type.  Each product is
+# (QUERY_CHUNK, d) x (d, ROW_BLOCK) whatever the scan's size, because BLAS
+# and cuBLAS pick their kernels (and so their sums' order) by shape: at one
+# shape a row's distance has the same bits at any position of any block,
+# which is what makes the mutable index's merged answer (base scan + delta
+# scan) bit-equal to one scan over the union.  The card takes wide blocks
+# (few launches at 1M rows); the CPU narrow ones (small stores).
+ROW_BLOCK = {"cuda": 65536, "cpu": 4096}
+
+
+def exact_distances(vectors: torch.Tensor, norms_sq: torch.Tensor,
+                    metric: str, queries: torch.Tensor) -> torch.Tensor:
+    """(Q, N) distances of `full_distances` for at most QUERY_CHUNK queries
+    against `vectors` (N, d), every cross term computed at one fixed GEMM
+    shape: the queries zero-padded to QUERY_CHUNK rows, the rows cut into
+    ROW_BLOCK blocks, the last zero-padded.  So the bits of row r's
+    distance do not depend on N or on r's position, and two exact scans
+    over any row sets agree on every row they share."""
+    qc, d = queries.shape
+    if qc > QUERY_CHUNK:
+        raise ValueError(f"at most {QUERY_CHUNK} queries a call, got {qc}")
+    dev = vectors.device
+    block = ROW_BLOCK.get(dev.type, ROW_BLOCK["cuda"])
+    q = torch.zeros((QUERY_CHUNK, d), dtype=torch.float32, device=dev)
+    q[:qc] = queries.to(torch.float32)
+    if metric == "l2":
+        qn = (q * q).sum(-1, keepdim=True)[:qc]
+    elif metric == "cos":
+        qn = (torch.linalg.norm(q, dim=-1) + 1e-12)[:qc, None]
+    elif metric != "ip":
+        raise ValueError(f"unknown metric {metric!r}")
+    n = vectors.shape[0]
+    out = torch.empty((qc, n), dtype=torch.float32, device=dev)
+    for s in range(0, n, block):
+        e = min(s + block, n)
+        rows = vectors[s:e]
+        if e - s < block:
+            rows = torch.nn.functional.pad(rows, (0, 0, 0, block - (e - s)))
+        ip = (q @ rows.T)[:qc, :e - s]
+        if metric == "ip":
+            out[:, s:e] = -ip
+        elif metric == "cos":
+            xn = torch.linalg.norm(rows, dim=-1)[:e - s] + 1e-12
+            out[:, s:e] = 1.0 - ip / (qn * xn[None, :])
+        else:
+            out[:, s:e] = qn + norms_sq[None, s:e] - 2.0 * ip
+    return out
+
+
 def query_distance_order(store: VectorStore,
                          queries: torch.Tensor) -> torch.Tensor:
     """(Q, N) int64 row ids sorted by increasing distance from each query

@@ -16,11 +16,13 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.exclusion import ExclusionIndex
 from repro_torch.core.hnsw import GraphPartition, HNSWGraph, PartitionedGraph
+from repro_torch.core.mutable import MutableIndex
 from repro_torch.core.scann import ScannIndex
 from repro_torch.core.types import (VectorStore, resolve_device,
                                     words_from_uint32)
-from repro_torch.storage import (FaultPlan, GraphAdjacencyLayout,
-                                 HeapLayout, ScannLeafLayout, StorageEngine)
+from repro_torch.storage import (DeltaTier, FaultPlan, GraphAdjacencyLayout,
+                                 HeapLayout, ScannLeafLayout, StorageEngine,
+                                 Tombstones)
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -138,6 +140,54 @@ def storage_engine(engine) -> StorageEngine:
         wal_pages=int(engine.wal_pages))
     out.pool.restore(list(engine.pool._pages.items()),
                      sorted(engine.pool._dirty))
+    return out
+
+
+def mutable_index(index, wal_path: str, ckpt_dir: str,
+                  device="cuda") -> MutableIndex:
+    """A reference MutableIndex: its store with the SQ8 shadow, graph and
+    ScaNN index (as they are, not rebuilt), delta tier, tombstones,
+    applied_lsn, capacities, settings and counters.  The port's index
+    logs to `wal_path` (copy the reference's log there to continue it)
+    and checkpoints to `ckpt_dir`; a storage engine comes across warm."""
+    dev = resolve_device(device)
+    plan = None
+    if index.faults is not None:
+        plan = FaultPlan(**{f.name: getattr(index.faults, f.name)
+                            for f in dataclasses.fields(FaultPlan)})
+    out = MutableIndex(
+        np.asarray(index.store.vectors), wal_path, ckpt_dir,
+        metric=index.metric, capacity=index.capacity,
+        delta_capacity=index.delta_capacity, num_leaves=index.num_leaves,
+        graph_m=index.graph_m, ef_construction=index.ef_construction,
+        seed=index.seed, with_graph=index.with_graph,
+        with_scann=index.with_scann, with_storage=index.with_storage,
+        storage_capacity_frac=index.storage_capacity_frac,
+        wal_pages=index.wal_pages_budget, faults=plan, device=dev,
+        _defer_build=True)
+    out.store = vector_store(index.store, dev)
+    out.graph = None if index.graph is None else hnsw_graph(index.graph, dev)
+    out.scann = None if index.scann is None else scann_index(index.scann,
+                                                             dev)
+    out._executors = {}
+    out.engine = None if index.engine is None \
+        else storage_engine(index.engine)
+    if out.engine is not None and out._injector is not None:
+        out.engine.pool.faults = out._injector
+    d = index.delta
+    out.delta = DeltaTier(base_n=int(d.base_n), capacity=int(d.capacity),
+                          dim=int(d.dim), count=int(d.count),
+                          version=int(d.version),
+                          vectors=np.array(d.vectors, np.float32),
+                          inserted_bytes=int(d.inserted_bytes), device=dev)
+    out.tombstones = Tombstones(int(index.tombstones.capacity),
+                                words=index.tombstones.words, device=dev)
+    out.tombstones.version = int(index.tombstones.version)
+    out.applied_lsn = int(index.applied_lsn)
+    out._ckpt_step = int(index._ckpt_step)
+    out.compactions = int(index.compactions)
+    out.user_bytes = int(index.user_bytes)
+    out._open_wal()
     return out
 
 

@@ -25,8 +25,14 @@ With fairness off and all arrivals at t=0 the harvested ids and dists equal
 `serve_queue(policy="fifo")` bit for bit, and per-request SearchStats do
 not depend on arrival order: each lane reads only its own row of the pool
 state.  The pool's host work is one sync per superstep and the per-request
-admit and harvest.  Live ingestion (`index=`, `ingest=`) needs the mutable
-index of ROADMAP 1.11 and is refused.
+admit and harvest.
+
+Live ingestion (`index=` a `core.mutable.MutableIndex` whose base tiers
+the executor was built over, `ingest=` a stream of `IngestEvent`s): due
+events are applied durably at each tick; each request sees the index as
+of its admit tick (the tombstones composed into its bitmap and the delta
+tier snapshotted there, on the index's device), and the delta scan's
+top-k is merged into its answer at retire, ladder retires included.
 """
 from __future__ import annotations
 
@@ -39,13 +45,10 @@ import torch
 
 from repro_torch.core import costmodel
 from repro_torch.core.executor import GraphExecutor
-from repro_torch.core.types import SearchParams, SearchStats
+from repro_torch.core.types import SearchParams, SearchStats, merge_topk
 from repro_torch.serving.rag import (LadderRung, admission_floor,
                                      bucket_deadline, find_scann_index,
                                      nearest_centroid)
-
-INGEST_ITEM = ("live ingestion during serving needs MutableIndex, which is "
-               "not ported yet: ROADMAP 1.11 (mutability)")
 
 
 @dataclasses.dataclass
@@ -63,9 +66,12 @@ class Request:
 
 @dataclasses.dataclass
 class IngestEvent:
-    """One live mutation interleaved with serving: at the first tick >=
-    `tick`, kind="insert" appends `rows`, kind="delete" tombstones `ids`.
-    Needs ROADMAP 1.11's MutableIndex; `ContinuousServer` refuses it."""
+    """One live mutation interleaved with serving: at the first loop
+    iteration with virtual time >= `tick` it is applied durably (WAL first)
+    to the server's MutableIndex: kind="insert" appends `rows`,
+    kind="delete" tombstones `ids`.  A request sees the index as of its
+    admit tick: mutations landing while it is in flight are invisible to
+    it (snapshot isolation per request)."""
     tick: int
     kind: str                              # "insert" | "delete"
     rows: Optional[np.ndarray] = None      # insert: (m, dim) float32
@@ -298,8 +304,6 @@ class ContinuousServer:
         if assign not in ("fifo", "centroid"):
             raise ValueError(f"unknown assign policy {assign!r}; "
                              "expected 'fifo' or 'centroid'")
-        if index is not None or ingest:
-            raise NotImplementedError(INGEST_ITEM)
         self.executor = executor
         self.params = executor.resolve_params(params)
         self.width = width
@@ -309,6 +313,15 @@ class ContinuousServer:
         self.ladder = ladder
         self.admit = admit
         self.slo_ticks = slo_ticks
+        # live ingestion: request bitmaps are sized to index.words() (the
+        # global capacity id space).  Compaction is deferred while serving
+        # (the lanes hold the base graph), so an insert that would
+        # overflow the delta tier is an error: size delta_capacity for the
+        # serve window and compact between windows
+        self.index = index
+        self.ingest = list(ingest) if ingest else []
+        if self.ingest and index is None:
+            raise ValueError("ingest events require a MutableIndex")
 
     def _centroid_keys(self, requests: list[Request]) -> Optional[dict]:
         if self.assign != "centroid":
@@ -376,8 +389,9 @@ class ContinuousServer:
         """Run the event loop over `requests` (any order; sorted by arrival
         tick here).  Returns (records, info): `records` maps rid -> its
         record (ids, dists, stats, anytime, rung, arrival / admit / retire
-        ticks, latency_ticks); `info` the run's telemetry (compiles,
-        ticks, slot utilization, admission rejects, queue depth)."""
+        ticks, latency_ticks; with an index, the delta count it saw);
+        `info` the run's telemetry (compiles, ticks, slot utilization,
+        admission rejects, queue depth, the ingest counters)."""
         if mode not in ("continuous", "batch"):
             raise ValueError(f"unknown mode {mode!r}; expected "
                              "'continuous' or 'batch'")
@@ -399,6 +413,34 @@ class ContinuousServer:
         occupied_ticks = 0
         queue_depth: list[int] = []
         done_cycles: list[float] = []    # completed service, modeled cycles
+        ing = sorted(self.ingest, key=lambda e: e.tick)
+        gi = 0                           # ingest cursor
+        delta_plans: dict = {}           # rid -> admit-time delta snapshot
+        ingested = dict(inserts=0, deletes=0, rows=0)
+
+        def _apply_ingest(force: bool = False) -> None:
+            """Durably apply every event due at the current tick (`force`
+            drains the stream at loop exit)."""
+            nonlocal gi
+            while gi < len(ing) and (force or ing[gi].tick <= t):
+                ev = ing[gi]
+                gi += 1
+                if ev.kind == "insert":
+                    rows = np.asarray(ev.rows, np.float32)
+                    if self.index.delta.count + rows.shape[0] \
+                            > self.index.delta_capacity:
+                        raise RuntimeError(
+                            "delta tier full mid-serve: compaction is "
+                            "deferred while lanes hold the base graph; "
+                            "size delta_capacity for the serve window")
+                    self.index.insert(rows)
+                    ingested["inserts"] += 1
+                    ingested["rows"] += int(rows.shape[0])
+                elif ev.kind == "delete":
+                    self.index.delete(np.asarray(ev.ids, np.int64))
+                    ingested["deletes"] += 1
+                else:
+                    raise ValueError(f"unknown ingest kind {ev.kind!r}")
 
         def _enqueue_arrivals() -> None:
             nonlocal ai
@@ -432,6 +474,15 @@ class ContinuousServer:
                     else None
                 req = queue.pop(prefer_key=prefer, keys=keys)
                 key = keys.get(req.rid, -1) if keys is not None else -1
+                if self.index is not None:
+                    # snapshot isolation: compose the tombstones and freeze
+                    # the delta tier's rows as of this tick
+                    dev = self.index.device
+                    live, base_bm = self.index.live_bitmaps(req.bitmap[None])
+                    delta_plans[req.rid] = \
+                        self.index._delta_executor().plan(
+                            req.query.to(dev)[None], live, self.params)
+                    req = dataclasses.replace(req, bitmap=base_bm[0])
                 pool.admit(req, int(s), key=key)
                 by_rid[req.rid] = req
                 records[req.rid] = dict(
@@ -447,6 +498,23 @@ class ContinuousServer:
                 done_cycles.append(rec["cycles"])
                 extra = self._ladder_walk(req, rec, bucket, pool)
                 rec.setdefault("retried", False)
+                if self.index is not None:
+                    # merge at retire: the admit-time delta snapshot's
+                    # exact top-k fuses with whichever rung served the base
+                    dplan = delta_plans.pop(req.rid)
+                    dres = self.index._delta_executor().execute(dplan)
+                    dev = dres.dists.device
+                    md, mi = merge_topk(
+                        torch.as_tensor(rec["dists"], device=dev)[None],
+                        torch.as_tensor(rec["ids"], device=dev)[None],
+                        dres.dists, dres.ids, self.params.k)
+                    rec["dists"] = md[0].cpu().numpy()
+                    rec["ids"] = mi[0].cpu().numpy()
+                    if rec.get("stats") is not None:
+                        rec["stats"] = rec["stats"] + SearchStats(**{
+                            f.name: getattr(dres.stats, f.name).cpu()
+                            for f in dataclasses.fields(SearchStats)})
+                    rec["delta_count"] = int(dplan.notes["count"])
                 rec["retire_tick"] = t + extra
                 records[req.rid].update(rec)
                 records[req.rid]["latency_ticks"] = \
@@ -454,6 +522,8 @@ class ContinuousServer:
 
         served = 0
         while served < n - len(rejected) or ai < n:
+            if self.index is not None:
+                _apply_ingest()
             _enqueue_arrivals()
             if mode == "continuous":
                 _admit_free()
@@ -477,6 +547,8 @@ class ContinuousServer:
                                  if r.get("retire_tick", -1) >= 0)
             else:
                 t += 1               # idle tick: waiting on arrivals
+        if self.index is not None:
+            _apply_ingest(force=True)    # drain events past the last tick
         info = dict(
             mode=mode, ticks=t, step_ticks=step_ticks,
             hop_chunk=self.hop_chunk, width=self.width,
@@ -488,7 +560,10 @@ class ContinuousServer:
             mean_queue_depth=float(np.mean(queue_depth))
             if queue_depth else 0.0,
             fairness="drr" if self.fairness is not None else "fifo",
-            assign=self.assign if keys is not None else "fifo")
+            assign=self.assign if keys is not None else "fifo",
+            ingest_inserts=ingested["inserts"],
+            ingest_deletes=ingested["deletes"],
+            ingest_rows=ingested["rows"])
         return records, info
 
 

@@ -1,5 +1,6 @@
 """Paged storage engine of the port: page layouts, the buffer pool, fault
-injection and per-batch accounting of the search traces."""
+injection and per-batch accounting of the search traces; the mutable
+index's delta tier, tombstones and write-ahead log."""
 from repro_torch.storage.pages import (HEAP_PAGE_BYTES, PAGE_BYTES,
                                        GraphAdjacencyLayout, HeapLayout,
                                        ScannLeafLayout, heap_pages_per_vector,
@@ -13,6 +14,11 @@ from repro_torch.storage.engine import (SEGMENTS, TRACE_UNTOUCHED,
                                         make_storage_engine,
                                         merge_storage_stats,
                                         ordered_touches)
+from repro_torch.storage.delta import DeltaFull, DeltaTier, Tombstones
+from repro_torch.storage.wal import (REC_CHECKPOINT, REC_COMPACT,
+                                     REC_DELETE, REC_INSERT, WalCorruption,
+                                     WalRecord, WalSyncError, WalTornWrite,
+                                     WriteAheadLog, crc32c, iter_records)
 
 __all__ = ["HEAP_PAGE_BYTES", "PAGE_BYTES", "GraphAdjacencyLayout",
            "HeapLayout", "ScannLeafLayout", "heap_pages_per_vector",
@@ -20,4 +26,8 @@ __all__ = ["HEAP_PAGE_BYTES", "PAGE_BYTES", "GraphAdjacencyLayout",
            "POLICIES", "BufferPool", "BufferPoolState", "PoolCounters",
            "FaultInjector", "FaultPlan", "SEGMENTS", "TRACE_UNTOUCHED",
            "StorageEngine", "StorageStats", "make_storage_engine",
-           "merge_storage_stats", "ordered_touches"]
+           "merge_storage_stats", "ordered_touches",
+           "DeltaFull", "DeltaTier", "Tombstones",
+           "REC_CHECKPOINT", "REC_COMPACT", "REC_DELETE", "REC_INSERT",
+           "WalCorruption", "WalRecord", "WalSyncError", "WalTornWrite",
+           "WriteAheadLog", "crc32c", "iter_records"]

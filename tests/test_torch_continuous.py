@@ -14,8 +14,8 @@ against the reference, on the CPU.
 * Per-request results do not depend on arrival order (hypothesis, few
   examples, and two fixed orders).
 * `FairQueue` pops as the reference's does; the costmodel's queueing terms
-  equal the reference's on a grid; the refusals (live ingestion, stepped
-  exclusion).
+  equal the reference's on a grid; the refusals (ingest events without an
+  index, stepped exclusion).
 """
 import dataclasses
 
@@ -227,8 +227,10 @@ def test_continuous_records_equal_reference(serving, mode):
         for key in ("admit_tick", "retire_tick", "latency_ticks", "rung",
                     "rung_level", "retried"):
             assert r[key] == t[key], (rid, key)
+    assert set(tinfo) == set(rinfo)
     for key in ("ticks", "step_ticks", "slot_utilization", "compiles",
-                "mean_queue_depth", "rejected_frac"):
+                "mean_queue_depth", "rejected_frac", "ingest_inserts",
+                "ingest_deletes", "ingest_rows"):
         assert rinfo[key] == tinfo[key], key
     rsrv = _query_server(RRAG, rex, p, fx["jq"], fx["store"].n)
     tsrv = _query_server(TRAG, tex, tp, fx["q"], fx["store"].n)
@@ -364,14 +366,14 @@ def test_fair_queue_and_slot_pool_validation(serving):
 
 
 def test_refusals(serving):
-    """Live ingestion names ROADMAP 1.11; the stepped driver refuses
-    exclusion pruning, as the reference does."""
-    fx, p, tp, tex, _, _ = serving
-    with pytest.raises(NotImplementedError, match="1.11"):
-        TS.ContinuousServer(tex, tp, index=object())
-    with pytest.raises(NotImplementedError, match="1.11"):
-        TS.ContinuousServer(tex, tp, ingest=[TS.IngestEvent(
-            tick=0, kind="delete", ids=np.zeros(1, np.int64))])
+    """Ingest events without a MutableIndex are refused, and the stepped
+    driver refuses exclusion pruning, as the reference does."""
+    fx, p, tp, tex, rex, _ = serving
+    for mod, ex, pp in ((TS, tex, tp), (RS, rex, p)):
+        with pytest.raises(ValueError,
+                           match="ingest events require a MutableIndex"):
+            mod.ContinuousServer(ex, pp, ingest=[mod.IngestEvent(
+                tick=0, kind="delete", ids=np.zeros(1, np.int64))])
     with pytest.raises(ValueError, match="stepped frontier driver"):
         TG.frontier_init(fx["graph"], fx["store"], fx["q"],
                          fx["bitmaps"][WORKLOAD],

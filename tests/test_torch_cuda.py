@@ -1094,3 +1094,133 @@ def test_ladder_scann_lite_rung_launches_its_kernels(cuda):
     assert launches["leaf_scan_batched"] > 0
     assert launches["distance_matrix"] > 0
     assert (res.ids >= 0).all()
+
+
+# ---------------------------------------------------------------------------
+# live mutability on the card (MutableIndex, the delta scan, recovery)
+# ---------------------------------------------------------------------------
+
+def _mutable_ops(seed: int, n: int, dim: int = 128):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    base = rng.randn(n, dim).astype(np.float32)
+    queries = rng.randn(64 + 7, dim).astype(np.float32)   # a ragged chunk
+    ops = []
+    for i in range(6):
+        ops.append(("insert", rng.randn(300, dim).astype(np.float32)))
+        hi = n + 300 * (i + 1)
+        ops.append(("delete", rng.randint(0, hi, 50).astype(np.int64)))
+    return base, queries, ops
+
+
+def _mutable(base, tmp_path, tag, device, **kw):
+    kw = dict(dict(delta_capacity=2048, with_graph=False, with_scann=False,
+                   num_leaves=64, graph_m=16, ef_construction=32), **kw)
+    return T.MutableIndex(base, str(tmp_path / f"{tag}.wal"),
+                          str(tmp_path / f"{tag}_ck"), device=device, **kw)
+
+
+def _apply_op(ix, op):
+    if op[0] == "insert":
+        ix.insert(op[1])
+    else:
+        ix.delete(op[1])
+
+
+def test_exact_distances_bits_do_not_depend_on_the_scan(cuda):
+    # the same row's distance, scanned at other positions and in scans of
+    # other sizes, and the same query at another position of its chunk
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(70_000, 128, device=cuda, generator=g)
+    q = torch.randn(64, 128, device=cuda, generator=g)
+    norms = (x * x).sum(-1)
+    full = T.exact_distances(x, norms, "l2", q)
+    for lo, hi in ((0, 8192), (12_345, 20_000), (65_000, 70_000),
+                   (3, 4)):
+        part = T.exact_distances(x[lo:hi].contiguous(),
+                                 (x[lo:hi] * x[lo:hi]).sum(-1), "l2", q)
+        assert torch.equal(part, full[:, lo:hi]), (lo, hi)
+    one = T.exact_distances(x, norms, "l2", q[5:6])
+    assert torch.equal(one[0], full[5])
+
+
+def test_mutable_merged_equals_card_oracle(cuda, tmp_path):
+    base, queries, ops = _mutable_ops(1, 20_000)
+    ix = _mutable(base, tmp_path, "m", cuda)
+    q = torch.as_tensor(queries, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    p = T.SearchParams(k=10, strategy="bruteforce")
+    for op in ops:
+        _apply_op(ix, op)
+        bm = torch.randint(-2 ** 31, 2 ** 31 - 1, (q.shape[0], ix.words()),
+                           device=cuda, generator=g, dtype=torch.int32)
+        res = ix.search(q, bm, p)
+        store, live = T.rebuild_oracle_store(ix)
+        od, oi = T.filtered_knn(store, q, ix.live_bitmaps(bm)[0]
+                                & live[None], 10)
+        assert torch.equal(oi.to(torch.int32), res.ids)
+        assert torch.equal(od, res.dists)
+    ix.close()
+
+
+def test_mutable_card_against_cpu(cuda, tmp_path):
+    base, queries, ops = _mutable_ops(3, 20_000)
+    ixs = [_mutable(base, tmp_path, d, d) for d in ("cpu", "cuda")]
+    p = T.SearchParams(k=10, strategy="bruteforce")
+    bm = torch.full((queries.shape[0], ixs[0].words()), -1,
+                    dtype=torch.int32)
+    for op in ops:
+        for ix in ixs:
+            _apply_op(ix, op)
+        got = [ix.search(torch.as_tensor(queries), bm, p) for ix in ixs]
+        assert torch.equal(got[0].ids, got[1].ids.cpu())
+        _close(got[1].dists.cpu(), got[0].dists)
+    for ix in ixs:
+        ix.close()
+
+
+def test_exact_graph_build_is_deterministic_on_the_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    store = T.VectorStore.build(torch.randn(20_000, 128, device=cuda,
+                                            generator=g), device=cuda)
+    a, b = (T.build_graph(store, m=16, ef_construction=32, seed=0,
+                          device=cuda) for _ in range(2))
+    assert torch.equal(a.neighbors, b.neighbors)
+    assert torch.equal(a.node_level, b.node_level)
+    assert a.entry_point == b.entry_point
+
+
+def test_mutable_recovery_on_the_card_is_bit_equal(cuda, tmp_path):
+    base, queries, ops = _mutable_ops(6, 20_000)
+    kw = dict(with_graph=True, with_scann=True)
+    ix = _mutable(base, tmp_path, "r", cuda, **kw)
+    q = torch.as_tensor(queries, device=cuda)
+    bm = torch.full((q.shape[0], ix.words()), -1, dtype=torch.int32,
+                    device=cuda)
+    p = T.SearchParams(k=10, ef_search=64, beam_width=64, max_hops=400,
+                       num_leaves_to_search=8)
+
+    def snap(index):
+        out = {}
+        for m in ("bruteforce", "sweeping", "sweeping_sq8", "scann"):
+            r = index.search(q, bm, dataclasses.replace(p, strategy=m),
+                             method=m)
+            out[m] = (r.ids, r.dists)
+        return out
+
+    for op in ops[:4]:
+        _apply_op(ix, op)
+    ix.checkpoint()
+    for op in ops[4:]:
+        _apply_op(ix, op)
+    want = snap(ix)
+    cut = ix.wal.crash_copy(str(tmp_path / "crash.wal"))
+    r = T.MutableIndex.recover(base, cut, ix.ckpt_dir, device=cuda,
+                               **dict(delta_capacity=2048, num_leaves=64,
+                                      graph_m=16, ef_construction=32, **kw))
+    got = snap(r)
+    for m in want:
+        assert torch.equal(want[m][0], got[m][0]), m
+        assert torch.equal(want[m][1], got[m][1]), m
+    ix.close()
+    r.close()

@@ -32,6 +32,8 @@ import chip_smoke
 sys.path.insert(0, %(tools)r)
 import time_scann_build
 import time_kernel_redesign
+import time_graph_build
+import time_exact_scan
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -135,3 +137,26 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                          capture_output=True, text=True, timeout=120,
                          cwd=str(tmp_path), env=env)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_mutability_modules_are_covered_and_default_to_the_card(tmp_path):
+    # the import blocker above walks these modules too
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.storage.delta", "repro_torch.storage.wal",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+            "repro_torch.core.mutable"} <= names
+    _no_card()
+    from repro_torch.core import MutableIndex
+    from repro_torch.storage import DeltaTier, Tombstones
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MutableIndex(np.ones((40, 4), np.float32), str(tmp_path / "wal"),
+                     str(tmp_path / "ck"), with_graph=False,
+                     with_scann=False)
+    assert not os.path.exists(tmp_path / "wal")     # nothing was logged
+    # the host state alone needs no device
+    assert DeltaTier(base_n=0, capacity=4, dim=2).device_vectors is None
+    assert Tombstones(64).device_words is None
