@@ -6,6 +6,7 @@ check it, end to end.
     python3 chip_smoke.py --n 100000 --queries 200 --phases main,kernels
     python3 chip_smoke.py --phases lm --lm-frames 2048   # model serving
     python3 chip_smoke.py --phases main,serve            # the serving path
+    python3 chip_smoke.py --phases main,shard            # the sharded tiers
 
 Phases:
   device    the card's name and power limit; the kernels' build time
@@ -39,6 +40,26 @@ Phases:
             on A and B, the measured miss penalty of every storage run and
             the 9 x 5 workload grid, every cell's bitmaps holding
             max(1, round(sel * n)) rows each
+  shard     (after main, on its store, SQ8 shadow, graph, index, workloads
+            and truth; kernel launches counted from 0) the mesh-sharded
+            tiers with S shards stacked on the card: ShardedGraphExecutor
+            in lockstep bit-equal to main's one-shot searches (sweeping at
+            S = 1, 2, 4, 8, sweeping_sq8 at 4 and 8, acorn, navix and
+            iterative_scan at 4) with S times their frontier launches and
+            the modeled scale-out of each S; drift at S = 4, E = 2, 4, 8
+            (recall@10 no more than 0.05 above the E before it,
+            collective bytes, wall), and at E = 2, 4 card against CPU on
+            the parity phase's store (recall within 0.01, counter means
+            within 1 %); per-shard pools (S = 1, 4; 200 queries; S = 1
+            equal to the unsharded pool); ContinuousServer(64, 8) over 4
+            shards bit-equal to the same server over the GraphExecutor
+            (256 requests);
+            DistributedScannExecutor over main's index at S = 1, 2, 4, 8
+            on A and B (recall@10 >= 0.9, hops and index pages S x nsel,
+            one leaf_scan call a search) and card against CPU on a 20,000
+            x 128 store (the parity phase's); distributed k-means (k =
+            256) S = 4 against S = 1; `python -m repro_torch.launch.serve
+            --arch granite-8b --rag`
   serve     (after main, on its store, SQ8 shadow, graph, index and
             workload A; kernel launches counted from 0) the stepped
             frontier driver against main's one-shot searches bit for bit
@@ -101,8 +122,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
-from repro_torch.measure import (cuda_ms, device_ms,  # noqa: E402
-                                 device_us_by_name, rel_l2)
+from repro_torch.measure import (EMPTY_SESSIONS, cuda_ms,  # noqa: E402
+                                 device_ms, device_us_by_name, rel_l2)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bandwidth, FP32 outside
 # the tensor cores, and bf16 on the tensor cores
@@ -1572,6 +1593,427 @@ def phase_serve(ctx: dict, report: dict, dev="cuda") -> None:
 
 
 # ---------------------------------------------------------------------------
+# shard: the mesh-sharded tiers on main's store, S shards stacked on the card
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (1, 2, 4, 8)
+SHARD_SQ8_COUNTS = (4, 8)
+SHARD_OTHERS = ("acorn", "navix", "iterative_scan")   # at S = 4
+SHARD_DRIFT_E = (2, 4, 8)                              # at S = 4
+SHARD_STORAGE_QUERIES = 200
+SHARD_SERVE_WIDTH = 64
+# requests served over 4 shards and over the GraphExecutor: 1,000 took
+# 16.0 + 38.5 s on an H100 (PERF.md), the phase's longest step, so the
+# check serves the first 256 of A's queries
+SHARD_SERVE_REQUESTS = 256
+SHARD_KMEANS_K, SHARD_KMEANS_ITERS = 256, 5
+
+
+def _bit_equal(a, b) -> bool:
+    """Two SearchResults equal bit for bit: ids, dists, seven counters."""
+    import torch
+    return bool(torch.equal(a.ids, b.ids)
+                and torch.equal(a.dists.view(torch.int32),
+                                b.dists.view(torch.int32))
+                and all(torch.equal(getattr(a.stats, c), getattr(b.stats, c))
+                        for c in COUNTERS))
+
+
+def _timed_search(ex, queries, bm, p, dev):
+    from repro_torch.kernels import ops
+    before = ops.launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    res = ex.search(queries, bm, p)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    after = ops.launches()
+    return res, wall, {k: after[k] - before[k] for k in after
+                       if after[k] > before[k]}
+
+
+def shard_lockstep(ctx: dict, out: dict, dev="cuda") -> None:
+    """ShardedGraphExecutor(S) in lockstep against main's one-shot search
+    bit for bit: sweeping at S in {1, 2, 4, 8}, sweeping_sq8 at 4 and 8,
+    acorn / navix / iterative_scan at 4; S times the frontier launches;
+    the modeled scale-out of each S."""
+    from repro_torch.core import SYSTEM
+    from repro_torch.core.costmodel import sharded_cycle_summary
+    from repro_torch.core.distributed import ShardedGraphExecutor
+    label, bm, truth = ctx["inputs"][0]
+    queries, p = ctx["queries"], main_params()
+    rows = out["lockstep"] = []
+    cases = [("sweeping", S) for S in SHARD_COUNTS]
+    cases += [("sweeping_sq8", S) for S in SHARD_SQ8_COUNTS]
+    cases += [(m, 4) for m in SHARD_OTHERS]
+    for method, S in cases:
+        quant = "sq8" if method.endswith("_sq8") else "none"
+        strategy = method[:-4] if quant == "sq8" else method
+        ex = ShardedGraphExecutor(ctx["graph"], ctx["qstore"], S,
+                                  strategy=strategy, graph_quant=quant,
+                                  device=dev)
+        res, wall, launches = _timed_search(ex, queries, bm, p, dev)
+        want = ctx["oneshot"][(label, method)]
+        base = next(r for r in ctx["results"]
+                    if r["workload"] == label and r["method"] == method)
+        kern = "frontier_scan_sq8" if quant == "sq8" else "frontier_scan"
+        same = _bit_equal(res, want)
+        summary = sharded_cycle_summary(res.stats, res.plan.params,
+                                        ctx["store"].dim, S, SYSTEM,
+                                        graph_quant=quant)
+        row = {"method": method, "shards": S, "wall_s": wall,
+               "qps": queries.shape[0] / wall,
+               "unsharded_wall_s": base["wall_s"],
+               "launches": launches.get(kern, 0),
+               "unsharded_launches": base["launches"].get(kern, 0),
+               "bit_equal": same, "model": summary}
+        rows.append(row)
+        print(f"   shard: lockstep {method:14s} S={S} {wall:.3f} s "
+              f"(unsharded {base['wall_s']:.3f} s), {kern} launches "
+              f"{row['launches']} = {S} x {row['unsharded_launches']}: "
+              f"{row['launches'] == S * row['unsharded_launches']}; ids, "
+              f"dists, 7 counters bit-equal: {same} | modeled "
+              f"{summary['cycles_per_query'] / 1e6:.4f} Mcycles a query, "
+              f"collective {summary['collective_bytes']:.1f} B, QPS "
+              f"{summary['modeled_qps']:.1f}", flush=True)
+        check(same, f"shard: lockstep {method} at S={S} differs from the "
+              "unsharded search")
+        check(row["launches"] == S * row["unsharded_launches"] > 0,
+              f"shard: {method} at S={S} launched {kern} "
+              f"{row['launches']} times, not {S} x "
+              f"{row['unsharded_launches']}")
+
+
+def _parity_shard_store(ctx: dict, dev="cuda"):
+    """The parity phase's 20,000 x 128 store and 200 queries, remade on the
+    card, for the shard phase's card-against-CPU checks."""
+    if "shard_parity" not in ctx:
+        from repro_torch.data import DatasetSpec, make_dataset
+        ctx["shard_parity"] = make_dataset(
+            DatasetSpec("parity", PARITY_N, 128, "l2", clusters=128),
+            num_queries=PARITY_QUERIES, seed=1, device=dev)
+    return ctx["shard_parity"]
+
+
+def shard_drift(ctx: dict, out: dict, dev="cuda") -> None:
+    """Drift at S = 4, E in {2, 4, 8}: recall@10, collective bytes a
+    query, wall.  Recall may not rise by more than 0.05 as E grows (the
+    reference test's monotone limit) and the search must return real
+    neighbors.  The reference test's other limit, recall >= 0.5, holds on
+    its 4,000-row fixture at S = 2 (tests/test_torch_sharding.py) but not
+    at this scale: the reference's own 1M sweep (BENCH_sharding.json,
+    benchmarks/bench_sharding.py) records 0.1375 at S = 4 for every E > 1.
+    So drift on the card is also held against drift on the CPU (which
+    tests/test_torch_sharding.py holds to the reference bit for bit) on
+    the parity phase's store, at S = 4 and E in {2, 4}, to the parity
+    phase's tolerances: recall within 0.01, every counter's mean within
+    1 %."""
+    import dataclasses as dc
+    from repro_torch.core import recall_at_k, stats_table_row
+    from repro_torch.core.costmodel import beam_exchange_bytes
+    from repro_torch.core.distributed import ShardedGraphExecutor
+    label, bm, truth = ctx["inputs"][0]
+    queries = ctx["queries"]
+    ex = ShardedGraphExecutor(ctx["graph"], ctx["qstore"], 4, device=dev)
+    prev = float(recall_at_k(ctx["oneshot"][(label, "sweeping")].ids,
+                             truth, 10).mean())
+    rows = out["drift"] = [{"E": 1, "recall": prev}]
+    for E in SHARD_DRIFT_E:
+        p = dc.replace(main_params(), beam_exchange_interval=E)
+        res, wall, launches = _timed_search(ex, queries, bm, p, dev)
+        rec = float(recall_at_k(res.ids, truth, 10).mean())
+        cbytes = beam_exchange_bytes(stats_table_row(res.stats),
+                                     res.plan.params, 4)
+        rows.append({"E": E, "recall": rec, "collective_bytes": cbytes,
+                     "wall_s": wall,
+                     "launches": launches.get("frontier_scan", 0)})
+        print(f"   shard: drift S=4 E={E}: recall@10 {rec:.4f} (E before "
+              f"it {prev:.4f}), collective {cbytes:.1f} B a query, wall "
+              f"{wall:.3f} s, frontier_scan launches "
+              f"{rows[-1]['launches']}", flush=True)
+        check(rec <= prev + 0.05 and rec > 0.0,
+              f"shard: drift recall {rec} at E={E} rises by more than the "
+              f"reference's 0.05 over {prev}, or finds nothing")
+        prev = rec
+    drift_parity(ctx, out, dev)
+
+
+def drift_parity(ctx: dict, out: dict, dev="cuda") -> None:
+    """Drift at S = 4, E in {2, 4} on the card against the CPU on the
+    parity phase's store, its graph built on the card and copied."""
+    import dataclasses as dc
+    from repro_torch.core import (WorkloadSpec, build_graph_blocked,
+                                  filtered_knn, generate_bitmaps,
+                                  recall_at_k, to_device)
+    from repro_torch.core.distributed import ShardedGraphExecutor
+    store, q = _parity_shard_store(ctx, dev)
+    graph = build_graph_blocked(store, m=16, ef_construction=32, seed=0,
+                                device=dev)
+    bm = generate_bitmaps(store, q, WorkloadSpec(0.10, "med_pos"), seed=2,
+                          device=dev)
+    truth = filtered_knn(to_device(store, "cpu"), q.cpu(), bm.cpu(), 10)[1]
+    sides = {"card": ShardedGraphExecutor(graph, store, 4, device=dev),
+             "cpu": ShardedGraphExecutor(to_device(graph, "cpu"),
+                                         to_device(store, "cpu"), 4,
+                                         device="cpu")}
+    rows = out["drift_parity"] = []
+    for E in (2, 4):
+        p = dc.replace(main_params(), beam_exchange_interval=E)
+        got = {}
+        for side, ex in sides.items():
+            on = q.device if side == "card" else "cpu"
+            res, wall, _ = _timed_search(ex, q.to(on), bm.to(on), p, on)
+            got[side] = (res, float(recall_at_k(res.ids.cpu(), truth,
+                                                10).mean()),
+                         counter_means(res), wall)
+        (rh, rech, ch, th), (rg, recg, cg, tg) = got["cpu"], got["card"]
+        worst = max(abs(cg[k] - ch[k]) / max(abs(ch[k]), 1e-9)
+                    if ch[k] or cg[k] else 0.0 for k in COUNTERS)
+        ids_diff = int((rg.ids.cpu() != rh.ids).sum())
+        stats_diff = sum(int((getattr(rg.stats, k).cpu()
+                              != getattr(rh.stats, k)).sum())
+                         for k in COUNTERS)
+        rows.append({"E": E, "recall_card": recg, "recall_cpu": rech,
+                     "worst_counter_drift": worst, "ids_differing": ids_diff,
+                     "counters_differing": stats_diff, "wall_card_s": tg,
+                     "wall_cpu_s": th})
+        print(f"   shard: drift S=4 E={E} on the parity phase's {PARITY_N} "
+              f"x 128 store: recall@10 card {recg:.4f} CPU {rech:.4f} | "
+              f"worst counter drift {worst:.5f} | differing ids {ids_diff}"
+              f" counters {stats_diff} | card {tg:.2f} s CPU {th:.1f} s",
+              flush=True)
+        check(abs(recg - rech) <= 0.01, f"shard: drift E={E} recall on the "
+              f"card {recg} vs the CPU {rech}")
+        check(worst <= 0.01, f"shard: drift E={E} counters drift {worst} "
+              "between the card and the CPU")
+
+
+def shard_storage(ctx: dict, out: dict, dev="cuda") -> None:
+    """Per-shard pools of 0.5 / S of the pages, S in {1, 4}, on 200
+    queries of A; at S = 1 the merged StorageStats equal the unsharded
+    executor's with the same pool.  Per-shard hit rates."""
+    from repro_torch.core import GraphExecutor
+    from repro_torch.core.distributed import (ShardedGraphExecutor,
+                                              make_sharded_storage)
+    from repro_torch.storage import make_storage_engine
+    store, graph = ctx["qstore"], ctx["graph"]
+    nq = SHARD_STORAGE_QUERIES
+    queries, bm = ctx["queries"][:nq], ctx["inputs"][0][1][:nq]
+    p = main_params()
+    one = make_storage_engine(store, graph=graph, capacity_frac=0.5)
+    base = GraphExecutor(graph, store, storage=one).search(queries, bm, p)
+    rows = out["storage"] = []
+    for S in (1, 4):
+        engines = [make_storage_engine(store, graph=graph,
+                                       capacity_frac=0.5 / S)
+                   for _ in range(S)]
+        acct = make_sharded_storage(engines, store.n)
+        ex = ShardedGraphExecutor(graph, store, S, storage=acct, device=dev)
+        res, wall, _ = _timed_search(ex, queries, bm, p, dev)
+        hits = [s.hit_rate for s in acct.last_per_shard]
+        row = {"shards": S, "wall_s": wall, "hit_rate": res.storage.hit_rate,
+               "per_shard_hit_rate": hits,
+               "logical": dict(res.storage.logical),
+               "misses": dict(res.storage.misses),
+               "bit_equal": _bit_equal(res, base)}
+        rows.append(row)
+        print(f"   shard: storage S={S}, {nq} queries, pools of 0.5/{S} of "
+              f"the pages: wall {wall:.3f} s, hit rate "
+              f"{row['hit_rate']:.4f}, per shard "
+              f"{[round(h, 4) for h in hits]}, logical {row['logical']}",
+              flush=True)
+        check(row["bit_equal"], f"shard: storage S={S} changed the search")
+        if S == 1:
+            same = res.storage.as_dict() == base.storage.as_dict()
+            print(f"   shard: storage S=1 merged StorageStats equal the "
+                  f"unsharded executor's: {same}", flush=True)
+            check(same, "shard: S=1 StorageStats differ from the "
+                  "unsharded executor's")
+
+
+def shard_serving(ctx: dict, out: dict, dev="cuda") -> None:
+    """ContinuousServer(64, 8) over ShardedGraphExecutor(4) against the
+    same server over the GraphExecutor: SHARD_SERVE_REQUESTS FIFO
+    requests, records bit-equal."""
+    import numpy as np
+    from repro_torch.core import GraphExecutor
+    from repro_torch.core.distributed import ShardedGraphExecutor
+    from repro_torch.serving import ContinuousServer, Request, \
+        results_in_order
+    store, graph = ctx["qstore"], ctx["graph"]
+    nq = min(SHARD_SERVE_REQUESTS, ctx["queries"].shape[0])
+    queries, bm = ctx["queries"][:nq], ctx["inputs"][0][1][:nq]
+    p = main_params()
+    reqs = [Request(rid=i, query=queries[i], bitmap=bm[i])
+            for i in range(nq)]
+    got = {}
+    for name, ex in (("graph", GraphExecutor(graph, store)),
+                     ("sharded4", ShardedGraphExecutor(graph, store, 4,
+                                                       device=dev))):
+        srv = ContinuousServer(ex, p, width=SHARD_SERVE_WIDTH, hop_chunk=8)
+        sync(dev)
+        t0 = time.perf_counter()
+        recs, info = srv.serve(reqs)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        got[name] = results_in_order(recs, nq, p.k)
+        out.setdefault("serving", {})[name] = {
+            "wall_s": wall, "qps": nq / wall, "ticks": info["ticks"]}
+        print(f"   shard: ContinuousServer({SHARD_SERVE_WIDTH}, 8) over "
+              f"{name}: {nq} requests {wall:.3f} s = {nq / wall:.1f} QPS, "
+              f"ticks {info['ticks']}", flush=True)
+    (ai, ad), (bi, bd) = got["graph"], got["sharded4"]
+    same = bool((ai == bi).all() and (ad.view(np.int32)
+                                      == bd.view(np.int32)).all())
+    out["serving"]["bit_equal"] = same
+    print(f"   shard: served records bit-equal: {same}", flush=True)
+    check(same, "shard: the server over 4 shards differs from the server "
+          "over the GraphExecutor")
+
+
+def shard_scann(ctx: dict, out: dict, dev="cuda") -> None:
+    """shard_index of main's index for S in {1, 2, 4, 8} behind
+    DistributedScannExecutor on A and B: recall@10 >= 0.9 (the reference
+    test's limit), hops = S * nsel and index pages = S * nsel * pages a
+    leaf for every query, leaf_scan called once a search; then card
+    against CPU at S = 4 on a 20,000 x 128 store: recall within 0.01."""
+    from repro_torch.core import (WorkloadSpec, filtered_knn,
+                                  generate_bitmaps, recall_at_k, to_device)
+    from repro_torch.core.distributed import (DistributedScannExecutor,
+                                              build_sharded_scann,
+                                              shard_index)
+    from repro_torch.core.scann import _quant_pages_per_leaf
+    from repro_torch.launch.mesh import make_mesh
+    p = main_params()
+    qppl = _quant_pages_per_leaf(ctx["scann"])
+    rows = out["scann"] = []
+    for S in SHARD_COUNTS:
+        sh = shard_index(ctx["scann"], ctx["store"],
+                         make_mesh((S,), ("data",)), "data")
+        ex = DistributedScannExecutor(sh)
+        nsel = min(max(1, -(-p.num_leaves_to_search // S)),
+                   sh.index.num_leaves // S)
+        for label, bm, truth in ctx["inputs"]:
+            res, wall, launches = _timed_search(ex, ctx["queries"], bm, p,
+                                                dev)
+            rec = float(recall_at_k(res.ids, truth, p.k).mean())
+            counts_ok = bool((res.stats.hops == S * nsel).all() and (
+                res.stats.page_accesses_index == S * nsel * qppl).all())
+            rows.append({"shards": S, "workload": label, "recall": rec,
+                         "wall_s": wall,
+                         "qps": ctx["queries"].shape[0] / wall,
+                         "leaf_scan_calls": launches.get("leaf_scan", 0),
+                         "counters_ok": counts_ok})
+            print(f"   shard: scann S={S} {label:10s} recall@10 {rec:.4f}"
+                  f" wall {wall:.3f} s QPS {rows[-1]['qps']:.1f}, "
+                  f"leaf_scan calls {rows[-1]['leaf_scan_calls']}, hops = "
+                  f"{S} x {nsel} and index pages = {S} x {nsel} x {qppl}: "
+                  f"{counts_ok}", flush=True)
+            check(rec >= 0.9, f"shard: scann recall {rec} < 0.9 at S={S}")
+            check(counts_ok, f"shard: scann counters at S={S}")
+            check(rows[-1]["leaf_scan_calls"] == 1,
+                  f"shard: scann at S={S} called leaf_scan "
+                  f"{rows[-1]['leaf_scan_calls']} times, not once")
+    store, q = _parity_shard_store(ctx, dev)
+    mesh = make_mesh((4,), ("data",))
+    sh = build_sharded_scann(store, mesh, "data", num_leaves=200, levels=1,
+                             seed=0, device=dev)
+    bm = generate_bitmaps(store, q, WorkloadSpec(0.10, "med_pos"), seed=10,
+                          device=dev)
+    _, truth = filtered_knn(store, q, bm, p.k)
+    sp = dataclasses.replace(p, num_leaves_to_search=20)
+    card = DistributedScannExecutor(sh).search(q, bm, sp)
+    cpu_sh = shard_index(to_device(sh.index, "cpu"),
+                         to_device(store, "cpu"), mesh, "data")
+    cpu = DistributedScannExecutor(cpu_sh).search(q.cpu(), bm.cpu(), sp)
+    rc = float(recall_at_k(card.ids, truth, p.k).mean())
+    rh = float(recall_at_k(cpu.ids, truth.cpu(), p.k).mean())
+    out["scann_parity"] = {"card_recall": rc, "cpu_recall": rh}
+    print(f"   shard: scann S=4 on the parity phase's {PARITY_N} x 128 "
+          f"store, card recall@10 {rc:.4f}, CPU {rh:.4f}", flush=True)
+    check(abs(rc - rh) <= 0.01, "shard: scann card and CPU recalls differ "
+          "by more than 0.01")
+
+
+def shard_kmeans(ctx: dict, out: dict, dev="cuda") -> None:
+    """distributed_kmeans on main's 1M rows, k = 256, 5 iterations: S = 4
+    within 1e-3 of S = 1."""
+    import numpy as np
+    import torch
+    from repro_torch.core.distributed import distributed_kmeans_fn
+    from repro_torch.launch.mesh import make_mesh
+    x = ctx["store"].vectors
+    pick = np.random.RandomState(0).choice(x.shape[0], SHARD_KMEANS_K,
+                                           replace=False)
+    init = x[torch.as_tensor(pick, device=x.device)]
+    got = {}
+    for S in (1, 4):
+        fn = distributed_kmeans_fn(make_mesh((S,), ("data",)), "data",
+                                   SHARD_KMEANS_K, SHARD_KMEANS_ITERS)
+        sync(dev)
+        t0 = time.perf_counter()
+        got[S] = fn(x, init)
+        sync(dev)
+        out.setdefault("kmeans", {})[f"wall_s_{S}"] = \
+            time.perf_counter() - t0
+    err = float((got[4] - got[1]).abs().max())
+    out["kmeans"]["max_abs_diff"] = err
+    print(f"   shard: distributed_kmeans k={SHARD_KMEANS_K}, "
+          f"{SHARD_KMEANS_ITERS} iterations on {x.shape[0]} rows: S=1 "
+          f"{out['kmeans']['wall_s_1']:.3f} s, S=4 "
+          f"{out['kmeans']['wall_s_4']:.3f} s, max |S=4 - S=1| {err:.3g}",
+          flush=True)
+    check(err < 1e-3, f"shard: kmeans S=4 is {err} from S=1")
+
+
+def shard_rag(ctx: dict, out: dict, dev="cuda") -> None:
+    """`python -m repro_torch.launch.serve --arch granite-8b --rag` as a
+    subprocess: exit 0, every retrieved id passing its bitmap."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           "--arch", "granite-8b", "--rag"],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=ROOT, env=env)
+    wall = time.perf_counter() - t0
+    ok = proc.returncode == 0 and \
+        "retrieved ids pass their filters: True" in proc.stdout
+    out["rag"] = {"wall_s": wall, "returncode": proc.returncode, "ok": ok}
+    print(f"   shard: serve --rag exit {proc.returncode} in {wall:.1f} s; "
+          f"ids pass their filters: {ok}", flush=True)
+    if not ok:
+        print(proc.stdout[-2000:] + proc.stderr[-3000:], flush=True)
+    check(ok, "shard: serve --rag failed")
+
+
+def phase_shard(ctx: dict, report: dict, dev="cuda") -> None:
+    """The mesh-sharded tiers on main's data, its kernel launches counted
+    from 0: lockstep, drift, the sharded storage, serving over shards,
+    the sharded ScaNN executor, distributed k-means, serve --rag."""
+    from repro_torch.kernels import ops
+    print("== shard: the mesh-sharded graph, storage and ScaNN tiers on the "
+          "1M store (S shards stacked on one card) ==", flush=True)
+    out = report["shard"] = {}
+    secs = out["seconds"] = {}
+    ctx["results"] = report["main"]["results"]
+    ops.reset_launches()
+    for name, fn in (("lockstep", shard_lockstep), ("drift", shard_drift),
+                     ("storage", shard_storage), ("serving", shard_serving),
+                     ("scann", shard_scann), ("kmeans", shard_kmeans),
+                     ("rag", shard_rag)):
+        t0 = time.perf_counter()
+        fn(ctx, out, dev)
+        secs[name] = time.perf_counter() - t0
+    counts = ops.launches()
+    out["launches"] = counts
+    print(f"   launches on the shard path: {counts}; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    for k in ("frontier_scan", "frontier_scan_sq8", "leaf_scan"):
+        check(counts[k] > 0, f"kernel {k} was not launched on the shard "
+              "path")
+
+
+# ---------------------------------------------------------------------------
 # mutate: live mutability on the 1M store (WAL, delta tier, tombstones,
 # checkpoints, compaction, crash recovery, ingestion while serving)
 # ---------------------------------------------------------------------------
@@ -2927,7 +3369,8 @@ def main(argv=None) -> int:
                                  "on one card and check it.")
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=1000)
-    ap.add_argument("--phases", default="parity,main,serve,mutate,kernels,lm")
+    ap.add_argument("--phases",
+                    default="parity,main,shard,serve,mutate,kernels,lm")
     ap.add_argument("--lm-frames", type=int, default=8192,
                     help="frames of each encoder prefill (lm phase)")
     ap.add_argument("--lm-batch", type=int, default=2,
@@ -2972,6 +3415,9 @@ def main(argv=None) -> int:
     kernels = []
     if "main" in phases:
         ctx = timed("main", phase_main, args.n, args.queries, report)
+        if "shard" in phases:
+            timed("shard", phase_shard, ctx, report)
+            _free_cuda()
         if "serve" in phases:
             timed("serve", phase_serve, ctx, report)
         if "mutate" in phases:
@@ -2998,6 +3444,11 @@ def main(argv=None) -> int:
         for k in kernels:
             if k["name"] == "flash_attention":
                 k["launches"] = launches
+    # profiler sessions that device_ms read empty and read again
+    report["profiler_empty_sessions"] = dict(EMPTY_SESSIONS)
+    print(f"profiler sessions read empty and read again: "
+          f"{sum(EMPTY_SESSIONS.values())} "
+          f"{report['profiler_empty_sessions']}", flush=True)
     report["total_s"] = time.perf_counter() - t_start
     print(f"total {report['total_s']:.1f} s ("
           + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()) + ")",

@@ -179,6 +179,39 @@ def beam_exchange_bytes(counters: Mapping[str, float], params: SearchParams,
     return 8.0 * params.ef_search * exchanges * (S - 1)
 
 
+def sharded_cycle_summary(stats: SearchStats, params: SearchParams,
+                          dim: int, num_shards: int,
+                          constants: CostConstants = SYSTEM,
+                          graph_quant: str = "none",
+                          per_shard_storage=None, batch_q: int = 1,
+                          clock_hz: float = 3.0e9, threads: int = 16
+                          ) -> dict[str, float]:
+    """Aggregate modeled cost of one sharded batch (the sharding bench's
+    record).  The one-device cycle total parallelizes over the shards
+    (each scores and fetches only its own rows); on top ride the
+    beam-exchange collective term and, given the per-shard StorageStats of
+    a `ShardedStorageAccountant` replay, a straggler term: the batch ends
+    with the SLOWEST shard's measured miss penalty, so `max - mean` of the
+    per-shard penalties.  Returns cycles a query, collective bytes and
+    cycles, the straggler's extra cycles and the aggregate modeled QPS."""
+    row = stats_table_row(stats)
+    base = component_cycles(row, dim, constants,
+                            graph_quant=graph_quant)["total"]
+    cbytes = beam_exchange_bytes(row, params, num_shards)
+    ccycles = cbytes * constants.collective_per_byte
+    straggler = 0.0
+    if per_shard_storage:
+        pens = [measured_miss_penalty(p, batch_q, constants)
+                for p in per_shard_storage]
+        straggler = max(pens) - float(np.mean(pens))
+    cycles = base / max(int(num_shards), 1) + ccycles + straggler
+    amp = 1.0 if threads <= 1 else 1.5
+    qps = threads / (cycles * amp / clock_hz)
+    return {"cycles_per_query": cycles, "base_cycles": base,
+            "collective_bytes": cbytes, "collective_cycles": ccycles,
+            "straggler_cycles": straggler, "modeled_qps": qps}
+
+
 def cycle_breakdown(stats: SearchStats, dim: int,
                     constants: CostConstants = SYSTEM,
                     scale: Optional[Mapping[str, float]] = None,

@@ -46,6 +46,12 @@ The same loop is exposed as a stepped driver for continuous batching
 `search_batch` is init, steps to completion and harvest, so the one-shot
 and stepped paths run the same code.
 
+The graph and store may also be the row-sharded views of
+`core.shardtypes` (DESIGN.md §13): every row read (`_gather_vec_dist`,
+`_adj`, `_frontier_scores`) then resolves on the shard that owns the row,
+and `beam_exchange` is the drift loop's synchronization point
+(`core.distributed`).
+
 `graph_exec_mode="vmapped"` runs the reference's legacy per-query beam
 search instead, with the query batch written out as a leading dimension:
 every lane steps until its own stop and finished lanes are frozen.  It is
@@ -60,6 +66,7 @@ import torch
 
 from repro_torch.core.costmodel import budget_cycle_weights
 from repro_torch.core.hnsw import HNSWGraph
+from repro_torch.core.shardtypes import ShardGraph, ShardStore
 from repro_torch.core.types import (SearchParams, SearchStats, VectorStore,
                                     bitset_words, distance,
                                     heap_pages_per_vector,
@@ -136,18 +143,93 @@ def _budget_over(st: SearchStats, params: SearchParams, dim: int,
     return out
 
 
+def _owned(view, i: int, ids: torch.Tensor):
+    """(own, local) of global `ids` on the i-th block of a sharded view:
+    whether the block holds each row, and its local row (clamped into the
+    block, so every gather is in range)."""
+    off, ln = view.offset(i), view.local_n
+    own = (ids >= off) & (ids < off + ln)
+    return own, (ids - off).clamp(0, ln - 1)
+
+
 def _gather_vec_dist(store: VectorStore, queries: torch.Tensor,
                      ids: torch.Tensor, quant: str = "none") -> torch.Tensor:
     """(Q, m) distances of each query to the rows `ids` (Q, m); a -1 id
     reads row 0, as in the reference, and callers mask it.  quant="sq8"
-    reads the shadow rows, dequantized, with their precomputed norms."""
+    reads the shadow rows, dequantized, with their precomputed norms.
+
+    On a `ShardStore` each held block scores the rows it owns (a -1 id
+    clamps to global row 0, which shard 0 owns) and gives +inf elsewhere;
+    a collective view takes the `min` over shards, which selects the
+    owner's distance, computed at the same shapes as the one-device read,
+    so its bits are the same.  A non-collective view keeps +inf for remote
+    rows."""
     safe = ids.clamp(min=0).to(torch.int64)
+    if isinstance(store, ShardStore):
+        parts = []
+        for i in range(len(store.shards)):
+            own, local = _owned(store, i, safe)
+            d = _gather_vec_dist(_block_store(store, i), queries, local,
+                                 quant)
+            parts.append(torch.where(own, d, torch.full_like(d, INF)))
+        return _combine(store, parts)
     if quant == "sq8":
         vecs = dequantize(store.q_vectors[safe], store.q_scale, store.q_mean)
         nsq = store.q_norms_sq[safe]
     else:
         vecs, nsq = store.vectors[safe], store.norms_sq[safe]
     return distance(store.metric, queries[:, None, :], vecs, nsq)
+
+
+def _block_store(store: ShardStore, i: int) -> VectorStore:
+    """The i-th held block of a sharded view as a one-device store of
+    local_n rows (views, no copy)."""
+    def block(t):
+        return None if t is None else t[i]
+    return VectorStore(vectors=block(store.vectors),
+                       norms_sq=block(store.norms_sq), metric=store.metric,
+                       q_vectors=block(store.q_vectors),
+                       q_scale=store.q_scale, q_mean=store.q_mean,
+                       q_norms_sq=block(store.q_norms_sq))
+
+
+def _combine(view, parts: list) -> torch.Tensor:
+    """The per-block reads of a sharded view: the shard collective's `min`
+    over them (collective views), or the one block's read."""
+    if view.collective:
+        return view.coll.min(torch.stack(parts))
+    return parts[0]
+
+
+INT32_MIN = -2 ** 31
+
+
+def _adj(graph, lvl: int, ids: torch.Tensor) -> torch.Tensor:
+    """Adjacency read `graph.neighbors[lvl, ids]` as int64, dispatched on
+    the view; `ids` are non-negative at every call site but the drift
+    loop's entry of an all-padding shard (-1, owned by no shard).
+
+    On a `ShardGraph` each held block reads the rows it owns.  Collective
+    views take the `max` over shards with INT32_MIN from non-owners, below
+    the -1 padding, so the owner's int32 row comes back untouched.
+    Non-collective views keep traversal on the induced subgraph: remote
+    rows read as all -1, and remote neighbor values are masked to -1."""
+    if not isinstance(graph, ShardGraph):
+        return graph.neighbors[lvl, ids].to(torch.int64)
+    parts = []
+    for i in range(len(graph.shards)):
+        own, local = _owned(graph, i, ids)
+        nb = graph.neighbors[lvl, i][local]
+        if graph.collective:
+            parts.append(torch.where(own[..., None], nb,
+                                     torch.full_like(nb, INT32_MIN)))
+            continue
+        nb = torch.where(own[..., None], nb, torch.full_like(nb, -1))
+        keep, _ = _owned(graph, i, nb)
+        parts.append(torch.where(keep, nb, torch.full_like(nb, -1)))
+    if graph.collective:
+        return graph.coll.max(torch.stack(parts)).to(torch.int64)
+    return parts[0].to(torch.int64)
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -207,7 +289,7 @@ def _zoom_in(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor,
     for lvl in range(graph.num_levels - 1, 0, -1):
         improved = torch.ones(qn, dtype=torch.bool, device=dev)
         while bool(improved.any()):
-            nbrs = graph.neighbors[lvl, cur].to(torch.int64)   # (Q, 2M)
+            nbrs = _adj(graph, lvl, cur)                      # (Q, 2M)
             valid = nbrs >= 0
             d = torch.where(valid, _gather_vec_dist(store, queries, nbrs,
                                                     quant),
@@ -233,7 +315,23 @@ def _frontier_scores(queries, store: VectorStore, cids, bitmaps,
                      quant: str = "none"):
     """Scoring + filter probe of one (Q, C) candidate id block: the
     `frontier_scan[_sq8]` kernel on the card, its plain version on the
-    CPU."""
+    CPU.
+
+    On a `ShardStore` each held block launches the kernel on its own rows
+    with the local ids of the candidates it owns and -1 in every other
+    slot, in place, so each candidate keeps its slot in the block; the
+    kernel gives +inf at -1.  The pass mask is one probe of the global ids
+    (the kernel's own would probe the local ones).  A collective view then
+    takes the `min` over shards."""
+    if isinstance(store, ShardStore):
+        parts = []
+        for i in range(len(store.shards)):
+            own, local = _owned(store, i, cids)
+            lids = torch.where(own, local, torch.full_like(local, -1))
+            d, _ = _frontier_scores(queries, _block_store(store, i), lids,
+                                    bitmaps, quant)
+            parts.append(d)
+        return _combine(store, parts), probe_batch(bitmaps, cids)
     if quant == "sq8":
         return ops.frontier_scan_sq8(queries, store.q_vectors, store.q_scale,
                                      store.q_mean, store.q_norms_sq, cids,
@@ -455,7 +553,7 @@ def _base_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
     strat = params.strategy
     quant = params.graph_quant
     ppv = _ppv(store, quant)
-    deg = graph.neighbors.shape[2]
+    deg = graph.neighbors.shape[-1]
     tm_on = params.translation_map
     we_idx = params.ef_search - 1 if ef_result >= params.ef_search \
         else ef_result - 1
@@ -474,7 +572,7 @@ def _base_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
     if trace is not None:         # adjacency read of the popped node
         _stamp(trace.index, node[:, None], active[:, None], step)
 
-    nb1 = graph.neighbors[0, node].to(torch.int64)            # (Q, deg)
+    nb1 = _adj(graph, 0, node)                                 # (Q, deg)
     v1 = nb1 >= 0
     unv1 = v1 & ~_probe_visited(s.visited, nb1)
     zero = torch.zeros(qn, dtype=torch.int64, device=queries.device)
@@ -551,7 +649,7 @@ def _base_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
         pai = pai + expand.sum(1)                      # branch pages
         if trace is not None:     # adjacency reads of the expanded branches
             _stamp(trace.index, nb1, expand & active[:, None], step)
-        nb2 = graph.neighbors[0, nb1.clamp(min=0)].to(torch.int64)
+        nb2 = _adj(graph, 0, nb1.clamp(min=0))
         nb2 = torch.where(v1[:, :, None], nb2, torch.full_like(nb2, -1))
         v2 = nb2 >= 0
         pass2 = probe_batch(bitmaps, nb2)
@@ -630,7 +728,7 @@ def _iter_superstep(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
     step = s.st.hops + 1
     if trace is not None:
         _stamp(trace.index, node[:, None], active[:, None], step)
-    nb1 = graph.neighbors[0, node].to(torch.int64)
+    nb1 = _adj(graph, 0, node)
     score_m = (nb1 >= 0) & ~_probe_visited(s.visited, nb1)
     n_s = score_m.sum(1)
     pool_d, pool_id, w_d, w_id, visited, _ = _score_insert_chunks(
@@ -942,6 +1040,70 @@ def frontier_idle(graph: HNSWGraph, store: VectorStore, params: SearchParams,
 
 
 # ---------------------------------------------------------------------------
+# Beam exchange (DESIGN.md §13): the drift-mode synchronization point of the
+# mesh-sharded traversal.  Between exchanges every shard runs plain
+# supersteps on its induced subgraph (non-collective views); the exchange
+# gathers the shards' result beams, reduces them to the global top-ef and
+# re-seeds every shard's frontier from it.
+# ---------------------------------------------------------------------------
+
+def beam_exchange(store, states: list[FrontierState], params: SearchParams,
+                  coll) -> list[FrontierState]:
+    """All-gather the W beams of every shard (`states` holds the lane
+    states of the shards in this process, `coll` the shard collectives)
+    and re-seed each state from the global top-ef (base strategies only:
+    iterative_scan's W is an emission buffer, not a beam).
+
+    A row id can sit in several shards' beams only after an earlier
+    exchange copied it, so its copies carry the same distance: a stable
+    sort groups them, the first of each group is kept, the rest and the
+    -1 padding dropped.  Then, per state:
+
+      * W       := the global top-ef beam (the same on every shard);
+      * pool    := pool + the beam entries not yet visited;
+      * visited |= those entries (marked in place);
+      * done    := the base engine's stop predicate on the new pool and W,
+                   budgets included: a lane that had converged locally
+                   revives when the global beam shows closer work.
+
+    Collective volume: S * ef (f32 distance + id) a query an exchange, the
+    `collective_bytes` term `costmodel` prices."""
+    qn, ef = states[0].w_d.shape
+    gd = coll.all_gather(torch.stack([s.w_d for s in states]))
+    gi = coll.all_gather(torch.stack([s.w_id for s in states]))
+    fd = gd.permute(1, 0, 2).reshape(qn, -1)          # (Q, S * ef)
+    fi = gi.permute(1, 0, 2).reshape(qn, -1)
+    si, order = torch.sort(fi, dim=1, stable=True)    # group id copies
+    sd = torch.gather(fd, 1, order)
+    dup = torch.cat([torch.zeros_like(si[:, :1], dtype=torch.bool),
+                     si[:, 1:] == si[:, :-1]], 1)
+    keep = ~dup & (si >= 0)
+    sd = torch.where(keep, sd, torch.full_like(sd, INF))
+    si = torch.where(keep, si, torch.full_like(si, -1))
+    nwd, pos = topk_smallest(sd, ef)
+    nwi = torch.where(torch.isinf(nwd), torch.full_like(pos, -1),
+                      torch.gather(si, 1, pos))
+    we_idx = params.ef_search - 1
+    out = []
+    for s in states:
+        fresh = (nwi >= 0) & ~_probe_visited(s.visited, nwi)
+        pool_d, pool_id = _merge_smallest(
+            s.pool_d, s.pool_id,
+            torch.where(fresh, nwd, torch.full_like(nwd, INF)),
+            torch.where(fresh, nwi, torch.full_like(nwi, -1)))
+        visited = _mark(s.visited, nwi, fresh)
+        stop = (pool_d[:, 0] > nwd[:, we_idx]) | torch.isinf(pool_d[:, 0]) \
+            | (s.stats.hops >= params.max_hops)
+        over = _budget_over(s.stats, params, store.dim)
+        if over is not None:
+            stop = stop | over
+        out.append(dataclasses.replace(
+            s, pool_d=pool_d, pool_id=pool_id, w_d=nwd.clone(),
+            w_id=nwi.clone(), visited=visited, done=stop))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The legacy engine (graph_exec_mode="vmapped"): the reference's per-query
 # beam loop under jax.vmap, with the batch written out.  Its pool is popped
 # by argmin and re-sorted by every insertion, its visited map is dense, and
@@ -991,7 +1153,7 @@ def _expand(graph: HNSWGraph, store: VectorStore, queries, bitmaps, node,
     ids, validity, unvisited and filter masks and distances."""
     qn = queries.shape[0]
     inf = torch.tensor(INF, device=queries.device)
-    nb1 = graph.neighbors[0, node].to(torch.int64)            # (Q, deg)
+    nb1 = _adj(graph, 0, node)                                 # (Q, deg)
     v1 = nb1 >= 0
     e = dict(nb1=nb1, v1=v1, unv1=v1 & ~_probe_visited(visited, nb1),
              pass1=probe_batch(bitmaps, nb1),
@@ -1000,7 +1162,7 @@ def _expand(graph: HNSWGraph, store: VectorStore, queries, bitmaps, node,
     if not two_hop:
         return e
     deg = nb1.shape[1]
-    nb2 = graph.neighbors[0, nb1.clamp(min=0)].to(torch.int64)
+    nb2 = _adj(graph, 0, nb1.clamp(min=0))
     nb2 = torch.where(v1[:, :, None], nb2, torch.full_like(nb2, -1))
     v2 = nb2 >= 0
     d2 = _gather_vec_dist(store, queries, nb2.reshape(qn, -1), quant)
@@ -1020,7 +1182,7 @@ def _legacy_base(graph: HNSWGraph, store: VectorStore, queries, bitmaps,
     strat = params.strategy
     quant = params.graph_quant
     ppv = _ppv(store, quant)
-    deg = graph.neighbors.shape[2]
+    deg = graph.neighbors.shape[-1]
     tm_on = params.translation_map
     seed_ok = probe_batch(bitmaps, entry[:, None])[:, 0] \
         | (strat in ("unfiltered", "iterative_scan"))
@@ -1291,6 +1453,9 @@ def search_batch(graph: HNSWGraph, store: VectorStore, queries: torch.Tensor,
         if params.graph_exec_mode != "frontier":
             raise ValueError("exclusion pruning needs the frontier engine "
                              "(graph_exec_mode='frontier')")
+        if isinstance(store, ShardStore):
+            raise ValueError("exclusion pruning is not supported on "
+                             "sharded stores")
         if not params.exclusion_margin > 0.0:
             raise ValueError("exclusion_margin must be > 0 (0 would prune "
                              "everything once W fills)")

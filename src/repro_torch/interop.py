@@ -14,12 +14,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.distributed import ShardedFVS
 from repro_torch.core.exclusion import ExclusionIndex
 from repro_torch.core.hnsw import GraphPartition, HNSWGraph, PartitionedGraph
 from repro_torch.core.mutable import MutableIndex
 from repro_torch.core.scann import ScannIndex
 from repro_torch.core.types import (VectorStore, resolve_device,
                                     words_from_uint32)
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.storage import (DeltaTier, FaultPlan, GraphAdjacencyLayout,
                                  HeapLayout, ScannLeafLayout, StorageEngine,
                                  Tombstones)
@@ -76,6 +78,17 @@ def scann_index(index, device="cuda") -> ScannIndex:
         branch_leaves=_t(index.branch_leaves, dev, torch.int32),
         pca=_t(index.pca, dev, torch.float32),
         row_norms_sq=norms_t, metric=index.metric, levels=int(index.levels))
+
+
+def sharded_fvs(sharded, device="cuda") -> ShardedFVS:
+    """A reference ShardedFVS: its (padded) index and its store, on a port
+    mesh of the same axes and sizes (its shards run stacked)."""
+    mesh = sharded.mesh
+    shape = tuple(int(v) for v in dict(mesh.shape).values())
+    return ShardedFVS(index=scann_index(sharded.index, device),
+                      store=vector_store(sharded.store, device),
+                      mesh=make_mesh(shape, tuple(mesh.axis_names)),
+                      axis=sharded.axis)
 
 
 def bitmaps(words, device="cuda") -> torch.Tensor:

@@ -12,10 +12,14 @@ Conventions:
     It cannot give `jax.random`'s numbers: the parity tests carry the
     reference's weights across with `repro_torch.interop.lm_params`.
 
-Left out: `shard`, `act_spec` and `shard_act` are identities without a
-mesh (sharding waits for ROADMAP 1.12); `init_moe`, `moe_block` and
-`_ep_local_combine` wait for the MoE slice (ROADMAP 1.14b);
-`softmax_xent` waits for training (ROADMAP 1.14d).
+  * `shard(x, *axes)` is the reference's sharding constraint; the port's
+    models run on one card with no mesh, where the reference's constraint
+    is a no-op too, so it returns x.  `act_spec` keeps the reference's
+    activation templates.
+
+Left out: `init_moe`, `moe_block` and `_ep_local_combine` wait for the
+MoE slice (ROADMAP 1.14b); `softmax_xent` waits for training (ROADMAP
+1.14d).
 """
 from __future__ import annotations
 
@@ -26,6 +30,45 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+
+
+BATCH_AXES = ("pod", "data")
+
+
+def shard(x: torch.Tensor, *axes) -> torch.Tensor:
+    """The reference's `with_sharding_constraint` wrapper, which no-ops
+    without an active mesh: the port's models have none, so x comes back
+    as it is."""
+    return x
+
+
+def act_spec(cfg: ArchConfig, kind: str):
+    """Activation sharding templates per scheme (DESIGN.md §6), the
+    reference's axis-name tuples.
+
+    tp: Megatron-style, heads / ffn hidden / vocab over `model`.
+    sp: sequence-parallel, seq over `model`, weights FSDP over `data`;
+        K/V gathered for attention.
+    """
+    if cfg.sharding_scheme == "sp":
+        return {
+            "resid": (BATCH_AXES, "model", None),
+            "heads": (BATCH_AXES, "model", None, None),
+            "kv": (BATCH_AXES, None, None, None),
+            "ffn": (BATCH_AXES, "model", None),
+            "logits": (BATCH_AXES, "model", None),
+        }[kind]
+    return {
+        "resid": (BATCH_AXES, None, None),
+        "heads": (BATCH_AXES, None, "model", None),
+        "kv": (BATCH_AXES, None, "model", None),
+        "ffn": (BATCH_AXES, None, "model"),
+        "logits": (BATCH_AXES, None, "model"),
+    }[kind]
+
+
+def shard_act(x: torch.Tensor, cfg: ArchConfig, kind: str) -> torch.Tensor:
+    return shard(x, *act_spec(cfg, kind))
 
 
 def cdtype(cfg: ArchConfig) -> torch.dtype:

@@ -318,13 +318,16 @@ class StorageEngine:
         return self._replay(streams)
 
     def account_graph(self, heap_steps, index_steps, rerank_rows=None,
-                      quant: bool = False) -> StorageStats:
+                      quant: bool = False,
+                      rows: tuple[int, int] | None = None) -> StorageStats:
         """The frontier engine's first-touch stamps: heap_steps (rows
         fetched during traversal) and index_steps (adjacency entries read),
         each (Q, n) int32, TRACE_UNTOUCHED where never touched.  `quant`
         (the SQ8 tier) replays the traversal's rows through "qheap", and
         `rerank_rows` ((Q, r), -1 padded, candidate order) charges the
-        exact rerank's full-width fetches to "heap"."""
+        exact rerank's full-width fetches to "heap".  `rows` = (lo, hi)
+        replays only the stamps of rows [lo, hi), read in place (a shard's
+        slice of the trace: `core.distributed.ShardedStorageAccountant`)."""
         if self.graph is None:
             raise ValueError("engine built without a graph layout")
         if quant and self.qheap is None:
@@ -333,8 +336,15 @@ class StorageEngine:
                              "store")
         row_seg = "qheap" if quant else "heap"
         row_layout = self.qheap if quant else self.heap
-        itouch = ordered_touches(index_steps)
-        htouch = ordered_touches(heap_steps)
+        if rows is None:
+            itouch = ordered_touches(index_steps)
+            htouch = ordered_touches(heap_steps)
+        else:
+            lo, hi = rows
+            itouch = [t + lo for t in ordered_touches(
+                torch.as_tensor(index_steps)[:, lo:hi])]
+            htouch = [t + lo for t in ordered_touches(
+                torch.as_tensor(heap_steps)[:, lo:hi])]
         rr = None if rerank_rows is None else _np(rerank_rows)
         streams = []
         for i in range(len(htouch)):

@@ -1224,3 +1224,164 @@ def test_mutable_recovery_on_the_card_is_bit_equal(cuda, tmp_path):
         assert torch.equal(want[m][1], got[m][1]), m
     ix.close()
     r.close()
+
+
+# ---------------------------------------------------------------------------
+# Mesh sharding (the one-card stacked emulation): per-shard reads of the
+# frontier kernels, the lockstep executor, the sharded ScaNN executor
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("quant", ["none", "sq8"])
+@pytest.mark.parametrize("c", [32, 64])
+@pytest.mark.parametrize("S", [2, 3, 8])
+def test_frontier_scan_per_shard_reads_are_bit_equal(cuda, S, c, quant):
+    """A shard's launch on its own block at local ids (-1 where it does
+    not own the row, in place) gives the unsharded launch's bits on the
+    rows it owns and +inf elsewhere; the ids are uniform over the rows, so
+    the shard boundaries cut through every 32-candidate item.  The
+    collective `min` of the sharded scoring is the unsharded one, pass
+    mask included."""
+    from repro_torch.core import graph_search as G
+    from repro_torch.core.distributed import shard_graph_tiers
+    from repro_torch.data import DatasetSpec, make_dataset
+    store, q = make_dataset(DatasetSpec("shard", 20_000, 128, "l2",
+                                        clusters=32), num_queries=1000,
+                            seed=S, device=cuda)
+    store = T.quantize_store(store)
+    g = torch.Generator(device=cuda).manual_seed(S * c)
+    ids = torch.randint(-1, store.n, (1000, c), device=cuda, generator=g)
+    bm = T.generate_bitmaps(store, q, T.WorkloadSpec(0.3, "none"),
+                            device=cuda)
+    want = G._frontier_scores(q, store, ids, bm, quant)
+    rps = -(-store.n // S)
+    for s in range(S):
+        lo, hi = s * rps, min((s + 1) * rps, store.n)
+        own = (ids >= lo) & (ids < hi)
+        lids = torch.where(own, ids - lo, -1).to(torch.int32)
+        if quant == "sq8":
+            got, _ = ops.frontier_scan_sq8(
+                q, store.q_vectors[lo:hi], store.q_scale, store.q_mean,
+                store.q_norms_sq[lo:hi], lids, bm)
+        else:
+            got, _ = ops.frontier_scan(q, store.vectors[lo:hi],
+                                       store.norms_sq[lo:hi], lids, bm)
+        assert torch.equal(got[own].view(torch.int32),
+                           want[0][own].view(torch.int32))
+        assert bool(torch.isinf(got[~own]).all())
+    graph = T.HNSWGraph(torch.full((1, store.n, 4), -1, dtype=torch.int32,
+                                   device=cuda),
+                        torch.zeros(store.n, dtype=torch.int32,
+                                    device=cuda), 0)
+    _, sv = shard_graph_tiers(graph, store, S)
+    ops.reset_launches()
+    d, p = G._frontier_scores(q, sv, ids, bm, quant)
+    name = "frontier_scan_sq8" if quant == "sq8" else "frontier_scan"
+    assert ops.launches()[name] == S
+    assert torch.equal(d.view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(p, want[1])
+
+
+def test_lockstep_sharded_executor_on_card_equals_graph_executor(cuda):
+    """S in {1, 2, 4, 8} on a 20,000 x 128 store: ids, dists and the seven
+    counters equal the card's GraphExecutor, with S times its
+    frontier_scan launches; sweeping_sq8 at S = 4 too."""
+    from repro_torch.core.distributed import ShardedGraphExecutor
+    from repro_torch.data import DatasetSpec, make_dataset
+    store, q = make_dataset(DatasetSpec("lock", 20_000, 128, "l2",
+                                        clusters=64), num_queries=200,
+                            seed=0, device=cuda)
+    store = T.quantize_store(store)
+    graph = T.build_graph_blocked(store, m=16, ef_construction=32, seed=0,
+                                  device=cuda)
+    bm = T.generate_bitmaps(store, q, T.WorkloadSpec(0.1, "med_pos"),
+                            device=cuda)
+    p = T.SearchParams(k=10, ef_search=64, beam_width=256, max_hops=512)
+
+    def same(a, b):
+        assert torch.equal(a.ids, b.ids)
+        assert torch.equal(a.dists.view(torch.int32),
+                           b.dists.view(torch.int32))
+        for f in dataclasses.fields(T.SearchStats):
+            assert torch.equal(getattr(a.stats, f.name),
+                               getattr(b.stats, f.name)), f.name
+
+    for quant, shards in (("none", (1, 2, 4, 8)), ("sq8", (4,))):
+        ops.reset_launches()
+        base = T.GraphExecutor(graph, store, graph_quant=quant).search(
+            q, bm, p)
+        name = "frontier_scan_sq8" if quant == "sq8" else "frontier_scan"
+        one = ops.launches()[name]
+        assert one > 0
+        for S in shards:
+            ops.reset_launches()
+            res = ShardedGraphExecutor(graph, store, S, graph_quant=quant,
+                                       device=cuda).search(q, bm, p)
+            assert ops.launches()[name] == S * one
+            same(res, base)
+
+
+def test_sharded_scann_on_card_matches_cpu(cuda):
+    """DistributedScannExecutor at S = 4 on one card (stacked) against the
+    same index on the CPU: recall within 0.01, counters equal, the
+    leaf_scan kernel called once a search."""
+    from repro_torch.core.distributed import (DistributedScannExecutor,
+                                              build_sharded_scann,
+                                              shard_index)
+    from repro_torch.data import DatasetSpec, make_dataset
+    from repro_torch.launch.mesh import make_mesh
+    store, q = make_dataset(DatasetSpec("dscann", 20_000, 128, "l2",
+                                        clusters=64), num_queries=200,
+                            seed=0, device=cuda)
+    mesh = make_mesh((4,), ("data",))
+    sh = build_sharded_scann(store, mesh, "data", num_leaves=200, levels=1,
+                             device=cuda)
+    bm = T.generate_bitmaps(store, q, T.WorkloadSpec(0.1, "med_pos"),
+                            device=cuda)
+    p = T.SearchParams(k=10, num_leaves_to_search=20, reorder_factor=4)
+    ops.reset_launches()
+    a = DistributedScannExecutor(sh).search(q, bm, p)
+    assert ops.launches()["leaf_scan"] == 1
+    cpu = shard_index(T.to_device(sh.index, "cpu"),
+                      T.to_device(store, "cpu"), mesh, "data")
+    b = DistributedScannExecutor(cpu).search(q.cpu(), bm.cpu(), p)
+    overlap = (a.ids.cpu()[:, :, None] == b.ids[:, None, :]).any(-1)
+    assert overlap.float().mean() >= 0.99
+    for f in dataclasses.fields(T.SearchStats):
+        x = getattr(a.stats, f.name).cpu().double().mean()
+        y = getattr(b.stats, f.name).double().mean()
+        assert abs(x - y) <= 0.01 * max(abs(float(y)), 1.0), f.name
+
+
+@pytest.mark.parametrize("E", [2, 4])
+def test_drift_sharded_executor_on_card_matches_cpu(cuda, E):
+    """Drift (beam exchange every E supersteps) at S = 4 on the card
+    against the CPU, whose drift equals the reference's bit for bit
+    (tests/test_torch_sharding.py), on a 20,000 x 128 store with its graph
+    built on the card and copied: recall@10 within 0.01 and every
+    counter's mean within 1 %, the parity tolerances of chip_smoke.py;
+    frontier_scan launched on the card."""
+    from repro_torch.core.distributed import ShardedGraphExecutor
+    from repro_torch.data import DatasetSpec, make_dataset
+    store, q = make_dataset(DatasetSpec("drift", 20_000, 128, "l2",
+                                        clusters=64), num_queries=200,
+                            seed=0, device=cuda)
+    graph = T.build_graph_blocked(store, m=16, ef_construction=32, seed=0,
+                                  device=cuda)
+    bm = T.generate_bitmaps(store, q, T.WorkloadSpec(0.1, "med_pos"),
+                            device=cuda)
+    cpu_store = T.to_device(store, "cpu")
+    _, truth = T.filtered_knn(cpu_store, q.cpu(), bm.cpu(), 10)
+    p = T.SearchParams(k=10, ef_search=64, beam_width=256, max_hops=512,
+                       beam_exchange_interval=E)
+    ops.reset_launches()
+    a = ShardedGraphExecutor(graph, store, 4, device=cuda).search(q, bm, p)
+    assert ops.launches()["frontier_scan"] > 0
+    b = ShardedGraphExecutor(T.to_device(graph, "cpu"), cpu_store, 4,
+                             device="cpu").search(q.cpu(), bm.cpu(), p)
+    ra = float(T.recall_at_k(a.ids.cpu(), truth, 10).mean())
+    rb = float(T.recall_at_k(b.ids, truth, 10).mean())
+    assert abs(ra - rb) <= 0.01, (ra, rb)
+    for f in dataclasses.fields(T.SearchStats):
+        x = getattr(a.stats, f.name).cpu().double().mean()
+        y = getattr(b.stats, f.name).double().mean()
+        assert abs(x - y) <= 0.01 * max(abs(float(y)), 1e-9), f.name

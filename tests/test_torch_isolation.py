@@ -84,11 +84,16 @@ def test_entry_points_default_to_the_card():
     from repro_torch import interop, quickstart
     from repro_torch.configs import smoke_config
     from repro_torch.data import DatasetSpec, make_dataset
+    from repro_torch.core.distributed import (ShardedGraphExecutor,
+                                              build_sharded_scann)
+    from repro_torch.data import make_dataset_streamed
     from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
     from repro_torch.serving import ServeEngine
     spec = DatasetSpec("iso", 200, 8, "l2", clusters=4)
     store, q = make_dataset(spec, num_queries=2, device="cpu")
+    graph = T.build_graph(store, m=4, ef_construction=8, device="cpu")
     calls = [
         lambda: make_dataset(spec, num_queries=2),
         lambda: T.VectorStore.build(np.ones((3, 2), np.float32)),
@@ -108,6 +113,11 @@ def test_entry_points_default_to_the_card():
         lambda: ServeEngine(build_model(smoke_config("granite-8b")), {}, 8,
                             1),
         lambda: serve.main(["--arch", "granite-8b"]),
+        lambda: serve.main(["--arch", "granite-8b", "--rag"]),
+        lambda: make_dataset_streamed(spec, num_queries=2),
+        lambda: build_sharded_scann(store, make_mesh((2,), ("data",)),
+                                    "data", num_leaves=4),
+        lambda: ShardedGraphExecutor(graph, store, 2),
         lambda: interop.lm_params({"w": np.ones(2, np.float32)}),
     ]
     for call in calls:
@@ -137,6 +147,18 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                          capture_output=True, text=True, timeout=120,
                          cwd=str(tmp_path), env=env)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_sharding_modules_are_covered():
+    # the import blocker and the import-first check walk these too
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.core.collectives", "repro_torch.core.shardtypes",
+            "repro_torch.core.distributed", "repro_torch.launch.mesh",
+            "repro_torch.launch.serve"} <= names
 
 
 def test_mutability_modules_are_covered_and_default_to_the_card(tmp_path):

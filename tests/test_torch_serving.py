@@ -123,8 +123,14 @@ def test_launcher_runs_on_the_cpu(capsys):
                        "2"])
     assert out.shape == (2, 4)
     assert "generated (2, 4) tokens" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.12"):
-        tserve.main(["--arch", "granite-8b", "--device", "cpu", "--rag"])
+    # --rag retrieves from the sharded ScaNN store first (its checks:
+    # tests/test_torch_distributed.py)
+    out = tserve.main(["--arch", "granite-8b", "--device", "cpu", "--rag",
+                       "--prompt-len", "6", "--max-new", "4", "--batch",
+                       "2"])
+    assert out.shape == (2, 4)
+    assert "retrieved ids pass their filters: True" in \
+        capsys.readouterr().out
     with pytest.raises(SystemExit):
         tserve.main(["--arch", "hubert-xlarge", "--device", "cpu"])
 

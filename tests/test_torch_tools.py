@@ -1,7 +1,9 @@
 """What `chip_smoke.py` and the scripts in `tools_torch/` share, on the CPU:
 the relative L2 error that holds a bf16 kernel against its plain version,
 and where the build puts a library of another checkout's source."""
+import contextlib
 import shutil
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -31,6 +33,34 @@ def test_rel_l2_sees_one_dropped_key_tile():
     cut = ref.flash_attention_ref(q, k[:, :-64], v[:, :-64], False)
     whole, worst = rel_l2(cut, want)
     assert 0.1 < whole < 0.5 and worst > whole
+
+
+@pytest.mark.parametrize("empty", [0, 1, 2, 3])
+def test_device_ms_reads_again_after_an_empty_session_and_records_it(
+        monkeypatch, empty):
+    """The profiler stubbed: `empty` sessions with no device time, then one
+    with 80 us over 40 calls.  Each empty session is counted under the
+    timed function's name; three empty ones raise."""
+    from repro_torch import measure
+    sessions = iter([{}] * empty + [{"k": 80.0}])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    session = SimpleNamespace(key_averages=lambda: [])
+    monkeypatch.setattr("torch.profiler.profile",
+                        lambda **kw: contextlib.nullcontext(session))
+    monkeypatch.setattr(measure, "device_us_by_name",
+                        lambda prof: next(sessions))
+    monkeypatch.setattr(measure, "EMPTY_SESSIONS", {})
+
+    def timed():
+        pass
+
+    if empty < measure.PROFILER_SESSIONS:
+        assert measure.device_ms(timed) == pytest.approx(80.0 / 40 / 1e3)
+    else:
+        with pytest.raises(RuntimeError, match="no device time in 3"):
+            measure.device_ms(timed)
+    name = timed.__qualname__
+    assert measure.EMPTY_SESSIONS == ({name: empty} if empty else {})
 
 
 def test_a_source_from_another_directory_builds_into_its_own(tmp_path):
