@@ -7,6 +7,7 @@ check it, end to end.
     python3 chip_smoke.py --phases lm --lm-frames 2048   # model serving
     python3 chip_smoke.py --phases main,serve            # the serving path
     python3 chip_smoke.py --phases main,shard            # the sharded tiers
+    python3 chip_smoke.py --phases families    # MoE, RWKV6, Zamba2, LLaVA
 
 Phases:
   device    the card's name and power limit; the kernels' build time
@@ -99,8 +100,24 @@ Phases:
             the tensor-core route, held against the same prefill through
             the plain version and the jnp-path prefill); granite-8b's
             ServeEngine, 4 prompts x 128 tokens + 32 greedy (no flash
-            launch).  The kernel's launches on this path fill its `kernels`
-            row
+            launch) and its replay against prefill (2 x 64).  The
+            kernel's launches on this path fill its `kernels` row
+  families  (after lm, the card freed between models) the other LM
+            families: smoke models, f32, card against CPU (greedy tokens,
+            4 x 24 + 16, equal for granite-moe, kimi-k2, rwkv6 scan and
+            chunked, zamba2; llava's prefill with 16 patch embeddings
+            within LM_SMOKE_TOL); then at the published widths:
+            granite-moe-1b-a400m's ServeEngine 4 x 128 + 32 (prefill
+            tokens/s, ms a step, peak memory, 4 profiled steps) and its
+            replay against prefill at capacity_factor = n_experts (2 x 64);
+            kimi-k2-1t-a32b cut to 1 layer (bf16, ~39 GB): a 1 x 256
+            prefill and 8 decode steps; rwkv6-3b's and zamba2-1.2b's
+            ServeEngine 4 x 128 + 32, their replay against prefill (2 x 64)
+            and rwkv6's chunked against scan prefill (4 x 128) held at f32
+            compute (SSM_F32) and, cut to 2 layers, at bf16;
+            llava-next-mistral-7b's prefill of 2,880 patch embeddings + 128
+            tokens and 16 text-only decode steps.  No decoder launches the
+            flash kernel
   profile   (only when named in --phases) one search per method under
             torch.profiler: the device's busy share and its top kernels
 
@@ -2926,7 +2943,6 @@ def lm_smoke_parity(out: dict, dev="cuda") -> None:
     from repro_torch import configs as C
     from repro_torch.kernels import ops
     from repro_torch.models import build_model, params_to
-    from repro_torch.serving import ServeEngine
 
     cfg = dataclasses.replace(C.smoke_config("hubert-xlarge"),
                               pallas_flash=True)
@@ -2954,18 +2970,27 @@ def lm_smoke_parity(out: dict, dev="cuda") -> None:
         cfg = C.smoke_config(arch)
         if arch == "gemma3-12b":       # two 5:1 groups
             cfg = dataclasses.replace(cfg, n_layers=12)
-        bundle = build_model(cfg)
-        params = bundle.init(0, "cpu")
-        prompts = np.random.RandomState(1).randint(0, cfg.vocab, (4, 24))
-        toks = {dev: ServeEngine(bundle, p, 24 + 16, 4, device=dev)
-                .generate(prompts, 16)
-                for dev, p in (("cpu", params),
-                               (dev, params_to(params, dev)))}
-        same = bool((toks["cpu"] == toks[dev]).all())
-        out[f"smoke_{arch}_tokens_equal"] = same
-        print(f"   smoke {arch} greedy tokens (4 x 24 + 16) card == CPU: "
-              f"{same}", flush=True)
-        check(same, f"lm smoke: {arch} greedy tokens differ card vs CPU")
+        greedy_card_vs_cpu(cfg, arch, out, dev)
+
+
+def greedy_card_vs_cpu(cfg, label: str, out: dict, dev="cuda") -> None:
+    """One smoke config's ServeEngine, 4 prompts x 24 + 16 greedy tokens,
+    on the CPU and on the card with the same weights: the same tokens."""
+    import numpy as np
+    from repro_torch.models import build_model, params_to
+    from repro_torch.serving import ServeEngine
+
+    bundle = build_model(cfg)
+    params = bundle.init(0, "cpu")
+    prompts = np.random.RandomState(1).randint(0, cfg.vocab, (4, 24))
+    toks = {d: ServeEngine(bundle, p, 24 + 16, 4, device=d)
+            .generate(prompts, 16)
+            for d, p in (("cpu", params), (dev, params_to(params, dev)))}
+    same = bool((toks["cpu"] == toks[dev]).all())
+    out[f"smoke_{label}_tokens_equal"] = same
+    print(f"   smoke {label} greedy tokens (4 x 24 + 16) card == CPU: "
+          f"{same}", flush=True)
+    check(same, f"smoke {label}: greedy tokens differ card vs CPU")
 
 
 @contextlib.contextmanager
@@ -3120,19 +3145,33 @@ def _leaves(tree):
         yield tree
 
 
-def decoder_serving(out: dict, batch: int = 4, prompt_len: int = 128,
-                    new: int = 32, dev="cuda") -> None:
-    """granite-8b's ServeEngine at full width: greedy generation of `new`
-    tokens for `batch` prompts of `prompt_len`, the prefill and each decode
-    step timed to a synchronize.  The flash kernel must not run."""
+def _timed(fn, *a, dev="cuda"):
+    """(fn(*a), its seconds between two synchronizes)."""
+    sync(dev)
+    t0 = time.perf_counter()
+    r = fn(*a)
+    sync(dev)
+    return r, time.perf_counter() - t0
+
+
+def decoder_serving(out: dict, cfg, key: str, batch: int = 4,
+                    prompt_len: int = 128, new: int = 32,
+                    dev="cuda") -> dict:
+    """One decoder's ServeEngine at the config's widths: greedy generation
+    of `new` tokens for `batch` prompts of `prompt_len`, the prefill and
+    each decode step timed to a synchronize; then 4 decode steps under
+    the profiler.  The flash kernel must not run.  The replayed prompt's
+    logits at its last position against the prefill's are recorded here
+    and held by `replay_vs_prefill` (a MoE prefill at its published
+    capacity factor drops pairs a one-token step never drops, and the
+    RWKV6 and Mamba2 stacks at full depth amplify bf16 rounding past any
+    limit: SSM_F32).  Writes and returns out[key]."""
     import numpy as np
     import torch
-    from repro_torch import configs as C
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
     from repro_torch.serving import ServeEngine
 
-    cfg = C.get_config("granite-8b")
     bundle = build_model(cfg)
     t0 = time.perf_counter()
     params = bundle.init(0, dev)
@@ -3146,11 +3185,8 @@ def decoder_serving(out: dict, batch: int = 4, prompt_len: int = 128,
 
     def timed(kind, fn):
         def run(*a):
-            sync(dev)
-            t0 = time.perf_counter()
-            r = fn(*a)
-            sync(dev)
-            spent[kind].append(time.perf_counter() - t0)
+            r, sec = _timed(fn, *a, dev=dev)
+            spent[kind].append(sec)
             if kind == "prefill":
                 kept["prefill"] = r
             elif len(spent[kind]) == prompt_len:
@@ -3174,24 +3210,22 @@ def decoder_serving(out: dict, batch: int = 4, prompt_len: int = 128,
     launches = ops.launches()
     peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
     check(launches["flash_attention"] == 0,
-          f"the decoder launched flash_attention "
+          f"{cfg.name} launched flash_attention "
           f"{launches['flash_attention']} times")
-    check(toks.shape == (batch, new), f"generated {toks.shape}")
+    check(toks.shape == (batch, new), f"{cfg.name} generated {toks.shape}")
     check(bool((toks >= 0).all() and (toks < cfg.vocab).all()),
-          "generated tokens out of range")
+          f"{cfg.name}: generated tokens out of range")
     rel = _rel(kept["replay"], kept["prefill"])
     agree = float((kept["replay"].argmax(-1)
                    == kept["prefill"].argmax(-1)).float().mean())
-    check(rel <= LM_REL_TOL, f"decoder: replayed vs prefill logits relative "
-          f"error {rel} > {LM_REL_TOL}")
     prof = _profile_decode(bundle, params, batch, prompt_len + new, dev)
     steps = spent["decode"]
     gen_steps = steps[prompt_len:]
     pre_s = spent["prefill"][0]
     ms_step = 1e3 * sum(steps) / len(steps)
     ms_gen = 1e3 * sum(gen_steps) / max(len(gen_steps), 1)
-    out["decoder"] = {
-        "config": "granite-8b", "params": n_params, "batch": batch,
+    rec = out[key] = {
+        "config": cfg.name, "params": n_params, "batch": batch,
         "prompt_len": prompt_len, "new_tokens": new, "init_s": init_s,
         "generate_s": wall, "prefill_s": pre_s,
         "prefill_tokens_per_s": batch * prompt_len / pre_s,
@@ -3203,18 +3237,18 @@ def decoder_serving(out: dict, batch: int = 4, prompt_len: int = 128,
         "stats": dataclasses.asdict(engine.stats), "launches": launches,
         "profile_4_steps": prof,
         "first_tokens": toks[:, :8].tolist()}
-    print(f"   decoder granite-8b ({n_params / 1e9:.3f} B params, f32 "
-          f"weights, bf16 compute, init {init_s:.1f} s): {batch} x "
-          f"{prompt_len} prompt + {new} greedy in {wall:.2f} s; prefill "
-          f"{pre_s:.3f} s = {batch * prompt_len / pre_s:.0f} tokens/s; "
-          f"{len(steps)} decode steps at {ms_step:.2f} ms "
-          f"({ms_gen:.2f} ms a generated step = "
+    print(f"   {key} {cfg.name} ({n_params / 1e9:.3f} B params, "
+          f"{cfg.param_dtype} weights, {cfg.compute_dtype} compute, init "
+          f"{init_s:.1f} s): {batch} x {prompt_len} prompt + {new} greedy in "
+          f"{wall:.2f} s; prefill {pre_s:.3f} s = "
+          f"{batch * prompt_len / pre_s:.0f} tokens/s; {len(steps)} decode "
+          f"steps at {ms_step:.2f} ms ({ms_gen:.2f} ms a generated step = "
           f"{batch * 1e3 / ms_gen:.1f} tokens/s); peak "
           f"{peak / 2**30:.2f} GiB; flash launches "
           f"{launches['flash_attention']}", flush=True)
-    print(f"   decoder replayed vs prefill logits: relative error {rel:.4f}"
-          f", argmax agreement {agree:.3f} (tolerance {LM_REL_TOL})",
-          flush=True)
+    print(f"   {key} replayed vs prefill logits: relative error {rel:.4f}, "
+          f"argmax agreement {agree:.3f} (recorded)", flush=True)
+    return rec
 
 
 def _profile_decode(bundle, params, batch: int, seq: int, dev) -> dict:
@@ -3240,11 +3274,17 @@ def _profile_decode(bundle, params, batch: int, seq: int, dev) -> dict:
     per_name = device_us_by_name(prof)
     dev_ms = sum(per_name.values()) / 1e3
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    # device kernels and copies run, a step
+    from torch.autograd import DeviceType
+    per_step = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 4
     out = {"wall_ms": wall_ms, "device_ms": dev_ms,
-           "busy_share": dev_ms / wall_ms,
+           "busy_share": dev_ms / wall_ms, "device_items_a_step": per_step,
            "top": [(k[:80], v / 1e3) for k, v in top]}
-    print(f"   decoder, 4 decode steps profiled: wall {wall_ms:.1f} ms, "
-          f"device {dev_ms:.1f} ms (busy {dev_ms / wall_ms:.3f}); top: "
+    print(f"   {bundle.cfg.name}, 4 decode steps profiled: wall "
+          f"{wall_ms:.1f} ms, "
+          f"device {dev_ms:.1f} ms (busy {dev_ms / wall_ms:.3f}), "
+          f"{per_step:.0f} device items a step; top: "
           + "; ".join(f"{k[:50]} {v / 1e3:.1f} ms" for k, v in top[:5]),
           flush=True)
     return out
@@ -3254,16 +3294,278 @@ def phase_lm(report: dict, frames: int, batch: int, dev="cuda") -> int:
     """The model-serving path; returns the flash launches of its encoder
     prefills (the kernel's launches on the main path)."""
     import torch
+    from repro_torch import configs as C
     print(f"== lm: model serving at full width ({batch} x {frames} frames; "
           "granite-8b 4 x 128 + 32) ==", flush=True)
     out = report["lm"] = {}
     lm_smoke_parity(out, dev)
     launches = encoder_serving(out, frames, batch, dev)
     _free_cuda(dev)
+    granite = C.get_config("granite-8b")
     with torch.inference_mode():
-        decoder_serving(out, dev=dev)
+        decoder_serving(out, granite, "decoder", dev=dev)
+        _free_cuda(dev)
+        replay_vs_prefill(granite, out, "decoder_replay", 2, 64, dev)
     _free_cuda(dev)
     return launches
+
+
+# the smoke-size decoders of the families phase held card against CPU:
+# (arch, rwkv_mode or None)
+FAMILY_SMOKE = (("granite-moe-1b-a400m", None), ("kimi-k2-1t-a32b", None),
+                ("rwkv6-3b", "scan"), ("rwkv6-3b", "chunked"),
+                ("zamba2-1.2b", None))
+# kimi-k2 at its published widths, cut to 1 of its 61 layers: one layer's
+# bf16 experts are ~34 GB and the embeddings ~4.7 GB, so the full depth
+# needs more than one card
+KIMI_LAYERS, KIMI_PROMPT, KIMI_STEPS = 1, 256, 8
+# llava: 2,880 patch embeddings (the config's anyres prefix) + this many
+# text tokens, then text-only decode steps on a fresh cache
+LLAVA_TEXT, LLAVA_STEPS = 128, 16
+# patch embeddings at the token table's scale (its init std)
+PATCH_STD = 0.02
+# The RWKV6 and Mamba2 stacks with random weights amplify a difference in
+# their input over their depth: in bf16 the scan and chunked forms, and a
+# prefill and its token-by-token replay, round differently in every layer,
+# and at d 512 the reference's own two-path readings grow from ~0.009 at 2
+# layers to 0.29 (rwkv6, 32 layers) and 0.62 (zamba2, 38 layers), the
+# port's alike (CPU, `tests/torch_bf16_study.py --depth`, PERF.md section 6).
+# So at full depth the two-path comparisons are held at f32 compute
+# (SSM_F32), and at bf16 at a depth cut where the port on the CPU reads
+# ~0.01 at the published widths: 2 layers (zamba2's are then its Mamba2
+# tail; its shared attention is the dense block granite-8b's replay
+# holds).  The bf16 path itself is held against the reference on the CPU
+# (`tests/test_torch_bf16_families.py`).
+SSM_F32 = "float32"
+RWKV6_BF16_LAYERS = ZAMBA2_BF16_LAYERS = 2
+
+
+def families_smoke(out: dict, dev="cuda") -> None:
+    """Smoke-size models, f32, with the same weights on the CPU and the
+    card: the decoders' greedy tokens equal; llava's prefill with 16
+    seeded patch embeddings within LM_SMOKE_TOL."""
+    import numpy as np
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.models import build_model, params_to
+
+    for arch, mode in FAMILY_SMOKE:
+        cfg, label = C.smoke_config(arch), arch
+        if mode is not None:
+            cfg, label = dataclasses.replace(cfg, rwkv_mode=mode), \
+                f"{arch} {mode}"
+        greedy_card_vs_cpu(cfg, label, out, dev)
+    cfg = C.smoke_config("llava-next-mistral-7b")
+    bundle = build_model(cfg)
+    params = bundle.init(0, "cpu")
+    rng = np.random.RandomState(2)
+    batch = {"tokens": torch.as_tensor(rng.randint(0, cfg.vocab, (2, 24))),
+             "patch_embeds": torch.as_tensor((rng.randn(
+                 2, cfg.num_patches, cfg.d_model) * PATCH_STD).astype(
+                     np.float32))}
+    want = bundle.prefill(params, batch)
+    got = bundle.prefill(params_to(params, dev), params_to(batch, dev)).cpu()
+    err = float((got - want).abs().max())
+    out["smoke_llava_prefill_max_abs_err"] = err
+    print(f"   smoke llava prefill (2 x 24 tokens, {cfg.num_patches} "
+          f"patches, f32): card vs CPU max |err| {err:.3g}", flush=True)
+    check(bool(torch.allclose(got, want, rtol=LM_SMOKE_TOL,
+                              atol=LM_SMOKE_TOL)),
+          f"smoke llava prefill card vs CPU max |err| {err}")
+
+
+def _seeded_tokens(cfg, batch: int, length: int, dev):
+    import numpy as np
+    import torch
+    return torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab, (batch, length)), dtype=torch.int64, device=dev)
+
+
+def replay_vs_prefill(cfg, out: dict, key: str, batch: int,
+                      prompt_len: int, dev="cuda") -> float:
+    """The prefill's last-position logits against the decode path's after
+    replaying the same prompts, seed-0 weights, `batch` x `prompt_len`;
+    held under LM_REL_TOL.  Writes out[key]."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    bundle = build_model(cfg)
+    params = bundle.init(0, dev)
+    toks = _seeded_tokens(cfg, batch, prompt_len, dev)
+    ops.reset_launches()
+    pre = bundle.prefill(params, {"tokens": toks})
+    cache = bundle.init_cache(batch, prompt_len, dev)
+    for t in range(prompt_len):
+        logits, cache = bundle.decode(params, cache,
+                                      {"tokens": toks[:, t:t + 1]}, t)
+    rel = _rel(logits, pre)
+    flash = ops.launches()["flash_attention"]
+    cf = f" at capacity_factor {cfg.capacity_factor}" \
+        if cfg.family == "moe" else ""
+    out[key] = {"config": f"{cfg.name}{cf}, {cfg.n_layers} layers, "
+                          f"{cfg.compute_dtype} compute",
+                "batch": batch,
+                "prompt_len": prompt_len, "rel_err": rel,
+                "flash_launches": flash}
+    print(f"   {key}: {cfg.name}{cf}, {cfg.n_layers} layers, "
+          f"{cfg.compute_dtype} compute, {batch} x {prompt_len}: replayed "
+          f"vs prefill logits relative error {rel:.4g} (tolerance "
+          f"{LM_REL_TOL})", flush=True)
+    check(flash == 0, f"{key}: {flash} flash launches")
+    check(rel <= LM_REL_TOL, f"{key}: replayed vs prefill logits relative "
+          f"error {rel} > {LM_REL_TOL}")
+    return rel
+
+
+def rwkv_chunked_vs_scan(cfg, out: dict, key: str, batch: int = 4,
+                         prompt_len: int = 128, dev="cuda") -> float:
+    """rwkv6's chunked prefill against its scan prefill on the same
+    seed-0 weights and prompts, each timed to a synchronize; held under
+    LM_REL_TOL.  Writes out[key]."""
+    from repro_torch.models import build_model
+
+    params = build_model(cfg).init(0, dev)
+    toks = _seeded_tokens(cfg, batch, prompt_len, dev)
+    logits, walls = {}, {}
+    for mode in ("scan", "chunked"):
+        bundle = build_model(dataclasses.replace(cfg, rwkv_mode=mode))
+        logits[mode], walls[mode] = _timed(bundle.prefill, params,
+                                           {"tokens": toks}, dev=dev)
+    rel = _rel(logits["chunked"], logits["scan"])
+    out[key] = {"config": f"{cfg.name}, {cfg.n_layers} layers, "
+                f"{cfg.compute_dtype} compute", "batch": batch,
+                "prompt_len": prompt_len, "rel_err": rel,
+                "prefill_s": walls}
+    print(f"   {key}: {cfg.name} ({cfg.n_layers} layers, "
+          f"{cfg.compute_dtype} compute, {batch} x {prompt_len}): chunked "
+          f"vs scan prefill relative error {rel:.4g} (tolerance "
+          f"{LM_REL_TOL}); scan {walls['scan']:.3f} s, chunked "
+          f"{walls['chunked']:.3f} s", flush=True)
+    check(rel <= LM_REL_TOL, f"{key}: chunked vs scan prefill relative "
+          f"error {rel} > {LM_REL_TOL}")
+    return rel
+
+
+def prefill_and_steps(cfg, out: dict, key: str, batch: dict, steps: int,
+                      dev="cuda") -> dict:
+    """One model at the config's widths: a prefill of `batch` (timed
+    twice), then `steps` greedy text-only decode steps on a fresh cache,
+    each timed to a synchronize; prefill tokens/s, ms a step, peak memory.
+    No flash launch, finite logits of the right shape."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+
+    bundle = build_model(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(0, dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    leaves = list(_leaves(params))
+    n_params = sum(int(t.numel()) for t in leaves)
+    n_bytes = sum(int(t.numel()) * t.element_size() for t in leaves)
+    b, t = batch["tokens"].shape
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    pre_s = []
+    for _ in range(2):
+        logits, sec = _timed(bundle.prefill, params, batch, dev=dev)
+        pre_s.append(sec)
+    check(tuple(logits.shape) == (b, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{key}: prefill logits {tuple(logits.shape)} or not finite")
+    cache = bundle.init_cache(b, steps, dev)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    step_s = []
+    for pos in range(steps):
+        (logits, cache), sec = _timed(bundle.decode, params, cache,
+                                      {"tokens": tok}, pos, dev=dev)
+        step_s.append(sec)
+        tok = logits[:, -1].argmax(-1)[:, None]
+    check(bool(torch.isfinite(logits).all()), f"{key}: decode logits not "
+          "finite")
+    flash = ops.launches()["flash_attention"]
+    check(flash == 0, f"{key}: {flash} flash launches")
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    ms = 1e3 * sum(step_s[1:]) / max(len(step_s) - 1, 1)
+    rec = out[key] = {
+        "config": f"{cfg.name}, {cfg.n_layers} layers", "params": n_params,
+        "param_bytes": n_bytes, "init_s": init_s, "batch": b,
+        "prefill_len": t, "prefill_s": pre_s,
+        "prefill_tokens_per_s": b * t / pre_s[-1], "decode_steps": steps,
+        "step_s": step_s, "ms_per_decode_step": ms, "peak_bytes": peak,
+        "flash_launches": flash}
+    print(f"   {key} {cfg.name} ({cfg.n_layers} layers, {n_params / 1e9:.3f} "
+          f"B params, {n_bytes / 2**30:.2f} GiB, init {init_s:.1f} s): "
+          f"prefill {b} x {t} {pre_s[0]:.3f} s then {pre_s[1]:.3f} s = "
+          f"{b * t / pre_s[-1]:.0f} tokens/s; {steps} decode steps, "
+          f"{ms:.2f} ms a step after the first ({1e3 * step_s[0]:.2f}); "
+          f"peak {peak / 2**30:.2f} GiB; flash launches {flash}", flush=True)
+    return rec
+
+
+def phase_families(report: dict, dev="cuda") -> None:
+    """The MoE, RWKV6, Zamba2 hybrid and LLaVA families: smoke models
+    card against CPU, then each model at its published widths (kimi-k2 at
+    one layer), the card freed between models."""
+    import torch
+    from repro_torch import configs as C
+
+    print("== families: MoE, RWKV6, Zamba2, LLaVA at full width ==",
+          flush=True)
+    out = report["families"] = {}
+    step_s = out["step_s"] = {}
+
+    def step(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            fn(*a, **kw)
+        _free_cuda(dev)
+        step_s[name] = time.perf_counter() - t0
+
+    moe = C.get_config("granite-moe-1b-a400m")
+    rwkv6 = C.get_config("rwkv6-3b")
+    kimi = dataclasses.replace(C.get_config("kimi-k2-1t-a32b"),
+                               n_layers=KIMI_LAYERS)
+    llava = C.get_config("llava-next-mistral-7b")
+    step("smoke", families_smoke, out, dev)
+    # the published capacity factor drops pairs in the prefill that a
+    # one-token step keeps: replay against prefill at n_experts instead
+    step("granite_moe", decoder_serving, out, moe, "granite_moe", dev=dev)
+    step("granite_moe_nodrop", replay_vs_prefill, dataclasses.replace(
+        moe, capacity_factor=float(moe.n_experts)), out,
+        "granite_moe_replay", 2, 64, dev)
+    step("kimi_k2", prefill_and_steps, kimi, out, "kimi_k2",
+         {"tokens": _seeded_tokens(kimi, 1, KIMI_PROMPT, dev)}, KIMI_STEPS,
+         dev)
+    zamba2 = C.get_config("zamba2-1.2b")
+    rwkv6_f32 = dataclasses.replace(rwkv6, compute_dtype=SSM_F32)
+    rwkv6_cut = dataclasses.replace(rwkv6, n_layers=RWKV6_BF16_LAYERS)
+    step("rwkv6", decoder_serving, out, rwkv6, "rwkv6", dev=dev)
+    step("rwkv6_f32", replay_vs_prefill, rwkv6_f32, out, "rwkv6_replay_f32",
+         2, 64, dev)
+    step("rwkv6_chunked", rwkv_chunked_vs_scan, rwkv6_f32, out,
+         "rwkv6_chunked_vs_scan_f32", dev=dev)
+    step("rwkv6_bf16_cut", rwkv_chunked_vs_scan, rwkv6_cut, out,
+         "rwkv6_chunked_vs_scan_bf16_cut", dev=dev)
+    step("rwkv6_bf16_cut_replay", replay_vs_prefill, rwkv6_cut, out,
+         "rwkv6_replay_bf16_cut", 2, 64, dev)
+    step("zamba2", decoder_serving, out, zamba2, "zamba2", dev=dev)
+    step("zamba2_f32", replay_vs_prefill, dataclasses.replace(
+        zamba2, compute_dtype=SSM_F32), out, "zamba2_replay_f32", 2, 64, dev)
+    step("zamba2_bf16_cut", replay_vs_prefill, dataclasses.replace(
+        zamba2, n_layers=ZAMBA2_BF16_LAYERS), out, "zamba2_replay_bf16_cut",
+         2, 64, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    patches = torch.randn((1, llava.num_patches, llava.d_model),
+                          device=dev, generator=gen) * PATCH_STD
+    step("llava", prefill_and_steps, llava, out, "llava",
+         {"tokens": _seeded_tokens(llava, 1, llava.num_patches + LLAVA_TEXT,
+                                   dev), "patch_embeds": patches},
+         LLAVA_STEPS, dev)
+    print("   families steps: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in step_s.items()), flush=True)
 
 
 def flash_kernel_row(batch: int = 2, frames: int = 8192) -> dict:
@@ -3370,7 +3672,8 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--queries", type=int, default=1000)
     ap.add_argument("--phases",
-                    default="parity,main,shard,serve,mutate,kernels,lm")
+                    default="parity,main,shard,serve,mutate,kernels,lm,"
+                    "families")
     ap.add_argument("--lm-frames", type=int, default=8192,
                     help="frames of each encoder prefill (lm phase)")
     ap.add_argument("--lm-batch", type=int, default=2,
@@ -3444,6 +3747,8 @@ def main(argv=None) -> int:
         for k in kernels:
             if k["name"] == "flash_attention":
                 k["launches"] = launches
+    if "families" in phases:
+        timed("families", phase_families, report)
     # profiler sessions that device_ms read empty and read again
     report["profiler_empty_sessions"] = dict(EMPTY_SESSIONS)
     print(f"profiler sessions read empty and read again: "

@@ -29,7 +29,13 @@ from repro_torch.storage import (DeltaTier, FaultPlan, GraphAdjacencyLayout,
 
 def _t(x, device, dtype=None) -> torch.Tensor:
     arr = np.array(np.asarray(x), copy=True)
-    t = torch.as_tensor(arr, device=device)
+    if arr.dtype.name == "bfloat16":
+        # numpy's bfloat16 (ml_dtypes) has no torch counterpart to convert
+        # from: carry the bits through uint16, no value changes
+        t = torch.as_tensor(arr.view(np.uint16), device=device).view(
+            torch.bfloat16)
+    else:
+        t = torch.as_tensor(arr, device=device)
     return t if dtype is None else t.to(dtype)
 
 
@@ -207,7 +213,8 @@ def mutable_index(index, wal_path: str, ckpt_dir: str,
 def lm_params(params, device="cuda"):
     """A reference model's parameter pytree (nested dicts of arrays, layers
     stacked (L, ...) or (G, group, ...)) as the port's nested dicts of
-    tensors, same keys, shapes and dtypes (float32 and integer arrays)."""
+    tensors, same keys, shapes, dtypes and bits (float32, bfloat16 and
+    integer arrays)."""
     dev = resolve_device(device)
     if isinstance(params, dict):
         return {k: lm_params(v, dev) for k, v in params.items()}

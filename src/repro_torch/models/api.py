@@ -6,10 +6,11 @@
   cache  = bundle.init_cache(batch, seq_len, device)  # decode state
   logits, cache = bundle.decode(params, cache, batch, pos)
 
-The counterpart of the reference's `models/api.py` for the families the
-port serves so far: "dense" and "encoder".  `loss` raises until training
-is ported (ROADMAP 1.14d); the other families raise in `build_model`,
-naming their ROADMAP items.
+The counterpart of the reference's `models/api.py`, every family: dense
+and MoE decoders, the VLM backbone, the encoder, RWKV (ssm) and the
+Zamba2 hybrid.  `batch` holds "tokens" ("patch_embeds" too for the VLM's
+prefill, "frames" for the encoder's).  `loss` raises until training is
+ported (ROADMAP 1.14d).
 """
 from __future__ import annotations
 
@@ -20,15 +21,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
-from repro_torch.models import encoder, transformer as tfm
+from repro_torch.models import encoder, hybrid, rwkv, transformer as tfm, vlm
 
 TRAINING_ITEM = "training waits for ROADMAP 1.14d (optim, train, losses)"
-FAMILY_ITEMS = {
-    "moe": tfm.MOE_ITEM,
-    "ssm": "the ssm family (rwkv) waits for ROADMAP 1.14c",
-    "hybrid": "the hybrid family (zamba2) waits for ROADMAP 1.14c",
-    "vlm": "the vlm family (llava) waits for ROADMAP 1.14c",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,31 +59,44 @@ def _no_loss(params, batch):
     raise NotImplementedError(TRAINING_ITEM)
 
 
+def _bundle(cfg: ArchConfig, init, prefill, init_cache=None,
+            decode=None) -> ModelBundle:
+    return ModelBundle(
+        cfg=cfg,
+        init=lambda key, device="cuda": init(generator(key, device), cfg),
+        loss=_no_loss, prefill=prefill,
+        init_cache=None if init_cache is None else
+        lambda bsz, s, device="cuda": init_cache(cfg, bsz, s, device),
+        decode=None if decode is None else
+        lambda p, c, b, pos: decode(p, c, b["tokens"], pos, cfg))
+
+
 def build_model(cfg: ArchConfig) -> ModelBundle:
     fam = cfg.family
-    if fam in FAMILY_ITEMS:
-        raise NotImplementedError(FAMILY_ITEMS[fam])
-    if fam == "dense":
-        return ModelBundle(
-            cfg=cfg,
-            init=lambda key, device="cuda": tfm.init_lm(
-                generator(key, device), cfg),
-            loss=_no_loss,
-            prefill=lambda p, b: tfm.prefill(p, cfg, tokens=b["tokens"]),
-            init_cache=lambda bsz, s, device="cuda": tfm.init_cache(
-                cfg, bsz, s, device),
-            decode=lambda p, c, b, pos: tfm.decode_step(
-                p, c, b["tokens"], pos, cfg),
-        )
+    if fam in ("dense", "moe"):
+        return _bundle(
+            cfg, tfm.init_lm,
+            lambda p, b: tfm.prefill(p, cfg, tokens=b["tokens"]),
+            tfm.init_cache, tfm.decode_step)
+    if fam == "vlm":
+        return _bundle(
+            cfg, vlm.init_vlm,
+            lambda p, b: vlm.vlm_prefill(p, cfg, b["tokens"],
+                                         b["patch_embeds"]),
+            tfm.init_cache, tfm.decode_step)
     if fam == "encoder":
-        return ModelBundle(
-            cfg=cfg,
-            init=lambda key, device="cuda": encoder.init_encoder(
-                generator(key, device), cfg),
-            loss=_no_loss,
-            prefill=lambda p, b: encoder.encode(p, b["frames"], cfg,
-                                                allow_pallas=True),
-            init_cache=None,
-            decode=None,
-        )
+        return _bundle(
+            cfg, encoder.init_encoder,
+            lambda p, b: encoder.encode(p, b["frames"], cfg,
+                                        allow_pallas=True))
+    if fam == "ssm":
+        return _bundle(
+            cfg, rwkv.init_rwkv_lm,
+            lambda p, b: rwkv.rwkv_prefill(p, cfg, b["tokens"]),
+            rwkv.init_rwkv_cache, rwkv.rwkv_decode_step)
+    if fam == "hybrid":
+        return _bundle(
+            cfg, hybrid.init_hybrid,
+            lambda p, b: hybrid.hybrid_prefill(p, cfg, b["tokens"]),
+            hybrid.init_hybrid_cache, hybrid.hybrid_decode_step)
     raise ValueError(f"unknown family {fam!r}")

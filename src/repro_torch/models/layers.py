@@ -16,10 +16,14 @@ Conventions:
     models run on one card with no mesh, where the reference's constraint
     is a no-op too, so it returns x.  `act_spec` keeps the reference's
     activation templates.
+  * the MoE block routes as the reference does, tie for tie (a stable
+    sort where the reference takes `lax.top_k` and `argsort`), and sums
+    each token's expert outputs in the order the reference's scatter-add
+    applies them, so the card and the CPU add the same terms in the same
+    order.  Its EP combine (`_ep_local_combine`) runs on the shard
+    collectives of `core.collectives`.
 
-Left out: `init_moe`, `moe_block` and `_ep_local_combine` wait for the
-MoE slice (ROADMAP 1.14b); `softmax_xent` waits for training (ROADMAP
-1.14d).
+Left out: `softmax_xent` waits for training (ROADMAP 1.14d).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.collectives import GroupShards, StackedShards
 
 
 BATCH_AXES = ("pod", "data")
@@ -304,7 +309,7 @@ def attention_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLP / MoE
 # ---------------------------------------------------------------------------
 
 def init_mlp(gen: torch.Generator, cfg: ArchConfig,
@@ -326,6 +331,204 @@ def mlp_block(params: dict, x: torch.Tensor,
     g = F.silu(h @ params["wg"].to(h.dtype))
     u = h @ params["wu"].to(h.dtype)
     return (g * u) @ params["wd"].to(h.dtype)
+
+
+def init_moe(gen: torch.Generator, cfg: ArchConfig, lead: tuple = ()
+             ) -> dict:
+    """Router (f32) and the experts' gate, up and down weights, stacked
+    (E, ...) behind `lead`.  The experts are drawn in the param dtype
+    directly: a bf16 model's (E, d, f) slabs need no f32 copy."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    dt = pdtype(cfg)
+
+    def normal(shape, std):
+        return torch.empty(lead + shape, dtype=dt, device=gen.device
+                           ).normal_(0.0, std, generator=gen)
+
+    return {
+        "router": init_dense(gen, d, e, torch.float32, lead=lead),
+        "wg": normal((e, d, f), 1.0 / np.sqrt(d)),
+        "wu": normal((e, d, f), 1.0 / np.sqrt(d)),
+        "wd": normal((e, f, d), 1.0 / np.sqrt(f)),
+        "norm": torch.ones(lead + (d,), dtype=torch.float32,
+                           device=gen.device),
+    }
+
+
+def moe_capacity(n_g: int, cfg: ArchConfig) -> int:
+    """Slots an expert holds in a group of n_g tokens, in Python ints as
+    the reference computes it: ceil(n_g k / e * cf) rounded up to a
+    multiple of 8, at least 8."""
+    cap = int(np.ceil(n_g * cfg.moe_top_k / cfg.n_experts
+                      * cfg.capacity_factor))
+    return max(8, -(-cap // 8) * 8)
+
+
+def moe_route(params: dict, x: torch.Tensor, cfg: ArchConfig,
+              groups: int = 32):
+    """The routing half of `moe_block`.  Returns (xt (G, n_g, d) normed
+    tokens, gate (G, n_g, k), route, cap); route = (sorted_e, rank, keep,
+    tok, order), each (G, n_g k): the (token, choice) pairs of a group in
+    the stable order of their expert, the pair's rank among its expert's,
+    whether it is within capacity, its token and its flat index.
+
+    Ties: the top k is a stable descending sort (`lax.top_k` gives the
+    lower expert first) and the expert order a stable sort (`jnp.argsort`
+    is stable), so the dropped pairs are the reference's."""
+    b, t, d = x.shape
+    e, k = cfg.n_experts, cfg.moe_top_k
+    g_ = int(np.gcd(b, groups))
+    h = rmsnorm(x, params["norm"])
+    xt = h.reshape(g_, (b // g_) * t, d)                    # (G, n_g, d)
+    n_g = xt.shape[1]
+    probs = torch.softmax(xt.to(torch.float32) @ params["router"], dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, sel = top.values[..., :k], top.indices[..., :k]   # (G, n_g, k)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    cap = moe_capacity(n_g, cfg)
+
+    e_flat = sel.reshape(g_, n_g * k)
+    order = torch.argsort(e_flat, dim=-1, stable=True)
+    sorted_e = torch.gather(e_flat, 1, order)
+    # each group's expert counts (the reference's bincount) by an integer
+    # scatter-add: exact, and no read of the largest id back to the host
+    counts = torch.zeros((g_, e), dtype=e_flat.dtype, device=x.device
+                         ).scatter_add_(1, e_flat, torch.ones_like(e_flat))
+    seg_start = torch.cumsum(counts, dim=1) - counts
+    rank = torch.arange(n_g * k, device=x.device) \
+        - torch.gather(seg_start, 1, sorted_e)
+    keep = rank < cap
+    tok = torch.div(order, k, rounding_mode="floor")
+    return xt, gate, (sorted_e, rank, keep, tok, order), cap
+
+
+def _dispatch(xt: torch.Tensor, route, e: int, cap: int) -> torch.Tensor:
+    """(G, E, cap, d) expert buffers: each kept pair's token row at its
+    (expert, rank) slot, zeros elsewhere.  A kept slot is written once, so
+    no write is summed; dropped pairs go to a spare row that is cut off
+    (the reference adds zeros to slot cap - 1), with no device sync."""
+    sorted_e, rank, keep, tok, _ = route
+    g_, n_g, d = xt.shape
+    gi = torch.arange(g_, device=xt.device)[:, None]
+    slot = (gi * e + sorted_e) * cap + torch.clamp(rank, max=cap - 1)
+    slot = torch.where(keep, slot, g_ * e * cap)
+    rows = xt.reshape(g_ * n_g, d)[(gi * n_g + tok).reshape(-1)]
+    buf = xt.new_zeros((g_ * e * cap + 1, d))
+    buf[slot.reshape(-1)] = rows
+    return buf[:-1].reshape(g_, e, cap, d)
+
+
+def _combine(vals: torch.Tensor, w: torch.Tensor, ok: torch.Tensor,
+             order: torch.Tensor, k: int) -> torch.Tensor:
+    """(G, n_g, d): each token's k terms where(ok, vals * w, 0), from pairs
+    in route order, summed from zero in that order, the order in which the
+    reference's scatter-add applies them.  No atomics: the card and the
+    CPU add the same terms in the same order."""
+    g_, nk, d = vals.shape
+    terms = torch.where(ok[..., None], vals * w[..., None].to(vals.dtype),
+                        0)
+    # the route position of each (token, choice), then a token's k
+    # positions in ascending (arrival) order
+    pos = torch.empty_like(order)
+    pos.scatter_(1, order, torch.arange(nk, device=order.device
+                                        ).expand(g_, nk))
+    arrival = torch.sort(pos.reshape(g_, nk // k, k), dim=-1).values
+    out = vals.new_zeros((g_, nk // k, d))
+    for c in range(k):
+        idx = arrival[..., c, None].expand(-1, -1, d)
+        out = out + torch.gather(terms, 1, idx)
+    return out
+
+
+def _model_axis_size(mesh=None) -> int:
+    """The size of the mesh's `model` axis; 1 without a mesh or without
+    that axis (the port's models name their mesh: there is no ambient
+    one)."""
+    if mesh is None or "model" not in mesh.axis_names:
+        return 1
+    return mesh.shape["model"]
+
+
+def moe_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
+              groups: int = 32, mesh=None) -> torch.Tensor:
+    """Token-choice top-k routing with grouped capacity-factor dispatch.
+
+    Tokens are split into G = gcd(B, groups) groups along the batch dim;
+    routing and rank assignment are per group, capacity ceil(n_g k / E *
+    cf) rounded up to 8.  Expert compute is the batched (G, E, C, d) x
+    (E, d, f) products.  With `cfg.moe_local_combine` and a mesh whose
+    `model` axis is larger than 1, the combine is the EP one
+    (`_ep_local_combine`, a partial sum a shard of experts); else the
+    plain combine, as the reference whenever its `model` axis is 1.  A
+    mesh with a process group attached holds one rank a model-axis shard:
+    its other axes are 1 (a larger one raises)."""
+    b, t, d = x.shape
+    e, k = cfg.n_experts, cfg.moe_top_k
+    xt, gate, route, cap = moe_route(params, x, cfg, groups)
+    buf = _dispatch(xt, route, e, cap)                      # (G, E, C, d)
+    gg = torch.einsum("gecd,edf->gecf", buf, params["wg"].to(buf.dtype))
+    uu = torch.einsum("gecd,edf->gecf", buf, params["wu"].to(buf.dtype))
+    oo = torch.einsum("gecf,efd->gecd", F.silu(gg) * uu,
+                      params["wd"].to(buf.dtype))
+    s = _model_axis_size(mesh)
+    if cfg.moe_local_combine and s > 1:
+        if e % s:
+            raise ValueError(f"{e} experts do not split over a model axis "
+                             f"of {s}")
+        shards = StackedShards(s) if mesh.group is None \
+            else GroupShards(mesh.group)
+        if shards.num_shards != s:
+            # the partials add over the model axis only: a group that
+            # spans other axes too would add across them as well
+            raise ValueError(f"the EP combine needs one rank a model-axis "
+                             f"shard: a process group of "
+                             f"{shards.num_shards} ranks for the mesh "
+                             f"{mesh.shape}")
+        held = oo.unflatten(1, (s, e // s))[:, list(shards.local)]
+        out = _ep_local_combine(held.flatten(1, 2), gate, route, cap,
+                                shards)
+    else:
+        sorted_e, rank, keep, tok, order = route
+        vals = _gather_slots(oo, sorted_e, rank, cap)
+        w = torch.gather(gate.reshape(gate.shape[0], -1), 1, order)
+        out = _combine(vals, w, keep, order, k)
+    return out.reshape(b, t, d)
+
+
+def _gather_slots(oo: torch.Tensor, e_idx: torch.Tensor, rank: torch.Tensor,
+                  cap: int) -> torch.Tensor:
+    """(G, n_g k, d): oo[g, e_idx, min(rank, cap - 1)] for each pair."""
+    g_, e, _, d = oo.shape
+    flat = e_idx * cap + torch.clamp(rank, max=cap - 1)
+    return torch.gather(oo.reshape(g_, e * cap, d), 1,
+                        flat[..., None].expand(-1, -1, d))
+
+
+def _ep_local_combine(oo: torch.Tensor, gate: torch.Tensor, route,
+                      cap: int, shards) -> torch.Tensor:
+    """EP combine with a partial sum a shard of experts.
+
+    The expert axis is split into `shards.num_shards` equal shards; `oo`
+    (G, E_held, C, d) holds the expert outputs of this process's shards
+    (`shards.local`, in that order).  Each shard adds, for every token,
+    the terms of its own experts (the same arrival order as the plain
+    combine, the other terms zero), and `shards.sum` adds the (G, n_g, d)
+    partials: on a process group that moves k times fewer bytes than
+    gathering every (token, choice) output.  Stacked, every shard runs
+    here and the sum is over the stack."""
+    sorted_e, rank, keep, tok, order = route
+    k = gate.shape[-1]
+    w = torch.gather(gate.reshape(gate.shape[0], -1), 1, order)
+    e_loc = oo.shape[1] // len(shards.local)
+    parts = []
+    for row, ax in enumerate(shards.local):
+        lo = ax * e_loc
+        mine = oo[:, row * e_loc:(row + 1) * e_loc]
+        in_shard = (sorted_e >= lo) & (sorted_e < lo + e_loc) & keep
+        vals = _gather_slots(mine, torch.clamp(sorted_e - lo, 0, e_loc - 1),
+                             rank, cap)
+        parts.append(_combine(vals, w, in_shard, order, k))
+    return shards.sum(torch.stack(parts))
 
 
 # ---------------------------------------------------------------------------

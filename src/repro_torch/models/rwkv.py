@@ -1,0 +1,73 @@
+"""RWKV6 ("Finch") language model: attention-free, data-dependent decay.
+
+The counterpart of the reference's `models/rwkv.py`.  The layers are
+stacked (L, ...) and run in a Python loop.  The decode cache holds one
+O(1) state a layer (independent of the sequence length); a decode step
+writes it in place and returns the same tensors.  `rwkv_loss` waits for
+training (ROADMAP 1.14d).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import (cdtype, embed_tokens, init_embeddings,
+                                       layer_params, lm_logits)
+from repro_torch.models.ssm import (init_rwkv_cmix, init_rwkv_tmix,
+                                    rwkv_cmix, rwkv_init_state, rwkv_tmix)
+
+
+def init_rwkv_lm(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    lead = (cfg.n_layers,)
+    return {"embed": init_embeddings(gen, cfg),
+            "layers": {"tmix": init_rwkv_tmix(gen, cfg, lead),
+                       "cmix": init_rwkv_cmix(gen, cfg, lead)}}
+
+
+def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor
+            ) -> torch.Tensor:
+    """Full-sequence forward.  Returns (B, T, D)."""
+    x = embed_tokens(params["embed"], tokens, cfg).to(cdtype(cfg))
+    for li in range(cfg.n_layers):
+        lp = layer_params(params["layers"], li)
+        t, _ = rwkv_tmix(lp["tmix"], x, cfg)
+        x = x + t
+        c, _ = rwkv_cmix(lp["cmix"], x, cfg)
+        x = x + c
+    return x
+
+
+def init_rwkv_cache(cfg: ArchConfig, batch: int, seq_len: int,
+                    device="cuda") -> dict:
+    """One zero state a layer, stacked (L, ...), whatever `seq_len`."""
+    return rwkv_init_state(cfg, batch, (cfg.n_layers,), device)
+
+
+def _write(cache: dict, state: dict) -> None:
+    for key, value in state.items():
+        if isinstance(value, dict):
+            _write(cache[key], value)
+        else:
+            cache[key].copy_(value)
+
+
+def rwkv_decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos,
+                     cfg: ArchConfig):
+    """One-token decode.  tokens: (B, 1).  Returns (logits (B, 1, V),
+    cache), each layer's state written in place."""
+    x = embed_tokens(params["embed"], tokens, cfg).to(cdtype(cfg))
+    for li in range(cfg.n_layers):
+        lp = layer_params(params["layers"], li)
+        st = layer_params(cache, li)
+        t, ts = rwkv_tmix(lp["tmix"], x, cfg, state=st["tmix"])
+        x = x + t
+        c, cs = rwkv_cmix(lp["cmix"], x, cfg, state=st["cmix"])
+        x = x + c
+        _write(st, {"tmix": ts, "cmix": cs})
+    return lm_logits(params["embed"], x, cfg), cache
+
+
+def rwkv_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    x = forward(params, cfg, tokens)
+    return lm_logits(params["embed"], x[:, -1:], cfg)

@@ -1,0 +1,383 @@
+"""State-space / linear-recurrence layers: Mamba2 (SSD) and RWKV6.
+
+The counterpart of the reference's `models/ssm.py`.  Mamba2 runs the
+chunked SSD formulation over a sequence (intra-chunk masked products plus
+a carried inter-chunk state) and the one-token recurrence on a decode
+state.  RWKV6 ("Finch": data-dependent per-channel decay) has the
+reference's two sequence paths, chosen by `cfg.rwkv_mode`:
+
+  * `scan`    the token-by-token recurrence;
+  * `chunked` the GLA-style chunked form (per-chunk cumulative log-decay
+              clipped to [-60, 0]).
+
+A decode step runs the recurrence on the carried state in either mode.
+Python loops take the place of `lax.scan` (over chunks in the chunked
+forms, over tokens in the RWKV scan).  The dtypes are the reference's:
+the SSM and WKV states, r/k/v/w and the recurrences in f32, the conv state
+and the block outputs in the compute dtype.
+
+Three-operand contractions are written as a product and one matmul-shaped
+contraction, in the order each comment gives, so no (b, nc, Q, Q, h, p)
+intermediate is built; products of f32 and compute-dtype operands run in
+f32, as the reference's `preferred_element_type=f32` einsums do.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.types import resolve_device
+from repro_torch.models.layers import cdtype, init_dense, pdtype, rmsnorm
+
+MAMBA_HEAD_DIM = 64
+RWKV_HEAD_DIM = 64
+LORA_RANK = 32
+
+f32 = torch.float32
+
+
+def _normal(gen: torch.Generator, shape: tuple, std: float, dtype
+            ) -> torch.Tensor:
+    return torch.empty(shape, dtype=f32, device=gen.device).normal_(
+        0.0, std, generator=gen).to(dtype)
+
+
+def _full(lead: tuple, shape: tuple, value: float, device) -> torch.Tensor:
+    return torch.full(lead + shape, value, dtype=f32, device=device)
+
+
+def _shift(h: torch.Tensor) -> torch.Tensor:
+    """h shifted one token later along axis 1, zeros first."""
+    return F.pad(h, (0, 0, 1, 0))[:, :h.shape[1]]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD)
+# ---------------------------------------------------------------------------
+
+def mamba_dims(cfg: ArchConfig) -> tuple[int, int, int]:
+    d_inner = 2 * cfg.d_model
+    n_heads = d_inner // MAMBA_HEAD_DIM
+    return d_inner, n_heads, cfg.ssm_state
+
+
+def init_mamba(gen: torch.Generator, cfg: ArchConfig, lead: tuple = ()
+               ) -> dict:
+    d_inner, n_heads, n_state = mamba_dims(cfg)
+    dt, dev = pdtype(cfg), gen.device
+    return {
+        "norm": _full(lead, (cfg.d_model,), 1.0, dev),
+        "in_proj": init_dense(gen, cfg.d_model,
+                              2 * d_inner + 2 * n_state + n_heads, dt,
+                              lead=lead),
+        "conv": _normal(gen, lead + (4, d_inner), 0.2, dt),
+        "a_log": _full(lead, (n_heads,), 0.0, dev),      # A = -exp(a_log)
+        "d_skip": _full(lead, (n_heads,), 1.0, dev),
+        "dt_bias": _full(lead, (n_heads,), 0.0, dev),
+        "out_proj": init_dense(gen, d_inner, cfg.d_model, dt, lead=lead),
+    }
+
+
+def _ssd_chunked(x, a_log, bm, cm, chunk: int,
+                 init_state: Optional[torch.Tensor] = None):
+    """Chunked SSD.  x: (B, T, H, P); a_log: (B, T, H) (<= 0); bm, cm:
+    (B, T, N).  Returns (y (B, T, H, P) in x's dtype, final_state (B, H,
+    P, N) f32)."""
+    b, t, h, p = x.shape
+    n = bm.shape[-1]
+    pad = (-t) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        a_log, bm, cm = (F.pad(a, (0, 0, 0, pad)) for a in (a_log, bm, cm))
+    nc = x.shape[1] // chunk
+    xc = x.reshape(b, nc, chunk, h, p).to(f32)
+    ac = a_log.reshape(b, nc, chunk, h)
+    bc = bm.reshape(b, nc, chunk, n)
+    cc = cm.reshape(b, nc, chunk, n)
+
+    ca = torch.cumsum(ac, dim=2)                     # (b,nc,Q,h) inclusive
+    # intra-chunk: L[t, i] = exp(ca_t - ca_i) for i <= t (per head)
+    diff = ca[:, :, :, None, :] - ca[:, :, None, :, :]     # (b,nc,Q,Q,h)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    L = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
+    cb = torch.einsum("bcqn,bckn->bcqk", cc, bc)
+    # bcqk,bcqkh,bckhp->bcqhp as (cb * L), then a product over k per
+    # (b, c, h)
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", cb[..., None] * L, xc)
+
+    # chunk summaries: S_c = sum_i exp(ca_Q - ca_i) x_i (x) B_i
+    decay_out = torch.exp(ca[:, :, -1:, :] - ca)           # (b,nc,Q,h)
+    # bcqh,bcqhp,bcqn->bchpn as (decay_out * x), then a product over q
+    s_c = torch.einsum("bcqhp,bcqn->bchpn", decay_out[..., None] * xc, bc)
+    a_tot = torch.exp(ca[:, :, -1, :])                      # (b,nc,h)
+
+    s = torch.zeros((b, h, p, n), dtype=f32, device=x.device) \
+        if init_state is None else init_state.to(f32)
+    s_prevs = []
+    for c in range(nc):
+        s_prevs.append(s)
+        s = s * a_tot[:, c, :, None, None] + s_c[:, c]
+    s_prev = torch.stack(s_prevs, dim=1)                    # (b,nc,h,p,n)
+    decay_in = torch.exp(ca)                                # (b,nc,Q,h)
+    # bcqn,bchpn,bcqh->bcqhp as a product over n, then times decay_in
+    y_inter = torch.einsum("bcqn,bchpn->bcqhp", cc, s_prev) \
+        * decay_in[..., None]
+    y = (y_intra + y_inter).reshape(b, nc * chunk, h, p)[:, :t]
+    return y.to(x.dtype), s
+
+
+def mamba_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                state: Optional[dict] = None):
+    """Mamba2 block.  Over a sequence: chunked SSD over T.  Decode: state
+    holds {"conv": (B, 3, d_inner), "ssm": (B, H, P, N)} and x is (B, 1,
+    D).  Returns (out, new_state); new_state is None over a sequence."""
+    b, t, _ = x.shape
+    d_inner, n_heads, n_state = mamba_dims(cfg)
+    h = rmsnorm(x, params["norm"])
+    zxbcdt = h @ params["in_proj"].to(h.dtype)
+    z, xin, bm, cm, dt = torch.split(
+        zxbcdt, [d_inner, d_inner, n_state, n_state, n_heads], dim=-1)
+    dt = F.softplus(dt.to(f32) + params["dt_bias"])        # (b,t,H)
+    a = -torch.exp(params["a_log"])                        # (H,)
+    d_skip = params["d_skip"][None, None, :, None]
+    w = params["conv"].to(xin.dtype)
+
+    if state is None:
+        # causal depthwise conv (kernel 4): each product and each partial
+        # sum in the compute dtype, in tap order, as the reference's
+        xp = F.pad(xin, (0, 0, 3, 0))
+        conv = sum(xp[:, i:i + t] * w[i] for i in range(4))
+        xs = F.silu(conv)
+        xh = xs.reshape(b, t, n_heads, MAMBA_HEAD_DIM)
+        xdt = xh * dt[..., None].to(xh.dtype)
+        y, _ = _ssd_chunked(xdt, dt * a, bm.to(f32), cm.to(f32),
+                            cfg.ssm_chunk)
+        y = y + xh * d_skip.to(xh.dtype)
+        new_state = None
+    else:
+        conv_buf = torch.cat([state["conv"], xin], dim=1)  # (b,4,di)
+        # the reference's dot over the 4 taps: products summed in f32 in
+        # tap order and rounded once
+        conv = sum(conv_buf[:, i:i + 1].to(f32) * w[i].to(f32)
+                   for i in range(4))
+        xs = F.silu(conv.to(xin.dtype))
+        xh = xs.reshape(b, 1, n_heads, MAMBA_HEAD_DIM)
+        xdt = (xh * dt[..., None].to(xh.dtype))[:, 0]       # (b,H,P)
+        decay = torch.exp(dt[:, 0] * a)                     # (b,H)
+        s = state["ssm"] * decay[:, :, None, None] \
+            + xdt.to(f32)[..., None] * bm[:, 0].to(f32)[:, None, None, :]
+        y = torch.einsum("bhpn,bn->bhp", s, cm[:, 0].to(f32))
+        y = y.reshape(b, 1, n_heads, MAMBA_HEAD_DIM).to(xh.dtype)
+        y = y + xh * d_skip.to(xh.dtype)
+        new_state = {"conv": conv_buf[:, 1:], "ssm": s}
+
+    y = y.reshape(b, t, d_inner) * F.silu(z)
+    return y @ params["out_proj"].to(y.dtype), new_state
+
+
+def mamba_init_state(cfg: ArchConfig, batch: int, lead: tuple = (),
+                     device="cuda") -> dict:
+    """Zero decode state, one per `lead` position (real tensors, written
+    in place by the decode steps)."""
+    dev = resolve_device(device)
+    d_inner, n_heads, n_state = mamba_dims(cfg)
+    return {"conv": torch.zeros(lead + (batch, 3, d_inner),
+                                dtype=cdtype(cfg), device=dev),
+            "ssm": torch.zeros(lead + (batch, n_heads, MAMBA_HEAD_DIM,
+                                       n_state), dtype=f32, device=dev)}
+
+
+# ---------------------------------------------------------------------------
+# RWKV6
+# ---------------------------------------------------------------------------
+
+def rwkv_dims(cfg: ArchConfig) -> tuple[int, int]:
+    return cfg.d_model // RWKV_HEAD_DIM, RWKV_HEAD_DIM
+
+
+def init_rwkv_tmix(gen: torch.Generator, cfg: ArchConfig, lead: tuple = ()
+                   ) -> dict:
+    d = cfg.d_model
+    dt, dev = pdtype(cfg), gen.device
+    return {
+        "norm": _full(lead, (d,), 1.0, dev),
+        "mu": torch.rand(lead + (5, d), dtype=f32, device=dev,
+                         generator=gen),          # r, k, v, g, w lerp base
+        "lora_a": init_dense(gen, d, LORA_RANK * 5, dt, 0.1, lead=lead),
+        "lora_b": _normal(gen, lead + (5, LORA_RANK, d), 0.01, dt),
+        "wr": init_dense(gen, d, d, dt, lead=lead),
+        "wk": init_dense(gen, d, d, dt, lead=lead),
+        "wv": init_dense(gen, d, d, dt, lead=lead),
+        "wg": init_dense(gen, d, d, dt, lead=lead),
+        "wo": init_dense(gen, d, d, dt, lead=lead),
+        "w0": _full(lead, (d,), -0.6, dev),              # decay bias
+        "wlora_a": init_dense(gen, d, LORA_RANK, dt, 0.1, lead=lead),
+        "wlora_b": _normal(gen, lead + (LORA_RANK, d), 0.01, dt),
+        "u": _full(lead, (d,), 0.0, dev),                # current-token bonus
+        "ln_w": _full(lead, (d,), 1.0, dev),             # per-head groupnorm
+    }
+
+
+def _rwkv_mix(params, x, x_prev):
+    """RWKV6 ddlerp: 5 data-dependent token-shift mixes -> the r, k, v, g,
+    w inputs.  x: (B, T, D); x_prev: (B, T, D) (token-shifted x)."""
+    delta = x_prev - x
+    lora = torch.tanh(x @ params["lora_a"].to(x.dtype))       # (B,T,5R)
+    b_, t_, _ = lora.shape
+    lora = lora.reshape(b_, t_, 5, LORA_RANK)
+    dyn = torch.einsum("btfr,frd->btfd", lora,
+                       params["lora_b"].to(x.dtype))          # (B,T,5,D)
+    mixed = x[:, :, None] + delta[:, :, None] * (
+        params["mu"][None, None].to(x.dtype) + dyn)
+    return [mixed[:, :, i] for i in range(5)]
+
+
+def _rwkv_scan(r, k, v, w_log, u, init_state=None):
+    """Token-recurrent WKV.  r, k, v: (B, T, H, C); w_log: (B, T, H, C)
+    (<= 0); u: (H, C).  Returns (out (B, T, H, C), final_state (B, H, C,
+    C)), f32."""
+    b, t, h, c = r.shape
+    r, k, v, w = (a.to(f32) for a in (r, k, v, w_log))
+    s = torch.zeros((b, h, c, c), dtype=f32, device=r.device) \
+        if init_state is None else init_state
+    bonus = u[None, :, :, None]
+    outs = []
+    for i in range(t):
+        kv = k[:, i, :, :, None] * v[:, i, :, None, :]      # (b,h,c,c)
+        outs.append(torch.einsum("bhc,bhcd->bhd", r[:, i], s + bonus * kv))
+        s = torch.exp(w[:, i])[..., None] * s + kv
+    return torch.stack(outs, dim=1), s
+
+
+def _rwkv_chunked(r, k, v, w_log, u, chunk: int, init_state=None):
+    """GLA-style chunked WKV with per-channel decay.
+
+    Numerics: the per-chunk cumulative log-decay is clipped to >= -60
+    before exponentiation (contributions below e^-60 are zero in f32
+    anyway), and pairs at or after the query are masked with -inf."""
+    b, t, h, c = r.shape
+    pad = (-t) % chunk
+    if pad:
+        r, k, v, w_log = (F.pad(a, (0, 0, 0, 0, 0, pad))
+                          for a in (r, k, v, w_log))
+    nc = r.shape[1] // chunk
+    rc, kc, vc, wc = (a.reshape(b, nc, chunk, h, c).to(f32)
+                      for a in (r, k, v, w_log))
+    cw = torch.cumsum(wc, dim=2)                    # (b,nc,Q,h,c) inclusive
+    cw_ex = cw - wc                                 # exclusive (up to q-1)
+    # scan semantics: out_q reads S_{q-1}, so kv_i decays by
+    # prod_{j=i+1..q-1} w_j = exp(cw_{q-1} - cw_i) = exp(cw_ex_q - cw_i)
+    diff = cw_ex[:, :, :, None] - cw[:, :, None, :, :]      # (b,nc,Q,Q,h,c)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), diagonal=-1)
+    ldec = torch.where(tri[None, None, :, :, None, None],
+                       torch.clamp(diff, -60.0, 0.0), float("-inf"))
+    # bcqhd,bcqkhd,bckhd->bcqkh: the decay term exp(ldec) couples q, k
+    # and d, so it is the product of all three, summed over d
+    scores = (rc[:, :, :, None] * torch.exp(ldec) * kc[:, :, None]).sum(-1)
+    y_intra = torch.einsum("bcqkh,bckhd->bcqhd", scores, vc)
+    # current-token bonus (i == q uses u instead of the state)
+    y_bonus = (rc * (u[None, None, None] * kc)).sum(-1)[..., None] * vc
+    # inter-chunk: y_q += r_q * exp(cw_{q-1}) . S_prev (same exclusive rule)
+    dec_in = torch.exp(torch.clamp(cw_ex, -60.0, 0.0))
+    # chunk summary: S_c = sum_i exp(cw_Q - cw_i) k_i (x) v_i
+    dec_out = torch.exp(torch.clamp(cw[:, :, -1:] - cw, -60.0, 0.0))
+    s_c = torch.einsum("bcqhd,bcqhe->bchde", kc * dec_out, vc)
+    a_tot = torch.exp(torch.clamp(cw[:, :, -1], -60.0, 0.0))  # (b,nc,h,c)
+
+    s = torch.zeros((b, h, c, c), dtype=f32, device=r.device) \
+        if init_state is None else init_state
+    s_prevs = []
+    for i in range(nc):
+        s_prevs.append(s)
+        s = a_tot[:, i, ..., None] * s + s_c[:, i]
+    s_prev = torch.stack(s_prevs, dim=1)                    # (b,nc,h,c,c)
+    y_inter = torch.einsum("bcqhd,bchde->bcqhe", rc * dec_in, s_prev)
+    y = (y_intra + y_bonus + y_inter).reshape(b, nc * chunk, h, c)[:, :t]
+    return y, s
+
+
+def rwkv_tmix(params: dict, x: torch.Tensor, cfg: ArchConfig,
+              state: Optional[dict] = None):
+    """RWKV6 time-mix.  state (decode): {"x_prev": (B, 1, D), "wkv": (B,
+    H, C, C)}.  Returns (out, new_state)."""
+    b, t, d = x.shape
+    n_heads, hd = rwkv_dims(cfg)
+    h = rmsnorm(x, params["norm"])
+    h_prev = _shift(h) if state is None else state["x_prev"]
+    xr, xk, xv, xg, xw = _rwkv_mix(params, h, h_prev)
+    r = (xr @ params["wr"].to(h.dtype)).reshape(b, t, n_heads, hd)
+    k = (xk @ params["wk"].to(h.dtype)).reshape(b, t, n_heads, hd)
+    v = (xv @ params["wv"].to(h.dtype)).reshape(b, t, n_heads, hd)
+    g = F.silu(xg @ params["wg"].to(h.dtype))
+    wl = params["w0"] + torch.tanh(
+        xw @ params["wlora_a"].to(h.dtype)).to(f32) \
+        @ params["wlora_b"].to(f32)
+    w_log = -torch.exp(wl.to(f32)).reshape(b, t, n_heads, hd)   # <= 0
+    u = params["u"].reshape(n_heads, hd)
+
+    if state is None:
+        if cfg.rwkv_mode == "chunked":
+            y, _ = _rwkv_chunked(r, k, v, w_log, u, cfg.ssm_chunk)
+        else:
+            y, _ = _rwkv_scan(r, k, v, w_log, u)
+        new_state = None
+    else:
+        y, s = _rwkv_scan(r, k, v, w_log, u, init_state=state["wkv"])
+        new_state = {"x_prev": h, "wkv": s}
+
+    y = y.reshape(b, t, d).to(x.dtype)
+    y = rmsnorm(y.reshape(b, t, n_heads, hd),
+                params["ln_w"].reshape(n_heads, hd)).reshape(b, t, d)
+    return (y * g) @ params["wo"].to(x.dtype), new_state
+
+
+def init_rwkv_cmix(gen: torch.Generator, cfg: ArchConfig, lead: tuple = ()
+                   ) -> dict:
+    d = cfg.d_model
+    dt = pdtype(cfg)
+    return {
+        "norm": _full(lead, (d,), 1.0, gen.device),
+        "mu": torch.rand(lead + (2, d), dtype=f32, device=gen.device,
+                         generator=gen),
+        "wk": init_dense(gen, d, cfg.d_ff, dt, lead=lead),
+        "wv": init_dense(gen, cfg.d_ff, d, dt, lead=lead),
+        "wr": init_dense(gen, d, d, dt, lead=lead),
+    }
+
+
+def rwkv_cmix(params: dict, x: torch.Tensor, cfg: ArchConfig,
+              state: Optional[dict] = None):
+    """RWKV6 channel-mix.  state (decode): {"x_prev": (B, 1, D)}."""
+    h = rmsnorm(x, params["norm"])
+    if state is None:
+        h_prev, new_state = _shift(h), None
+    else:
+        h_prev, new_state = state["x_prev"], {"x_prev": h}
+    delta = h_prev - h
+    mu = params["mu"].to(h.dtype)
+    xk = h + delta * mu[0]
+    xr = h + delta * mu[1]
+    kk = torch.square(F.relu(xk @ params["wk"].to(h.dtype)))
+    vv = kk @ params["wv"].to(h.dtype)
+    return torch.sigmoid(xr @ params["wr"].to(h.dtype)) * vv, new_state
+
+
+def rwkv_init_state(cfg: ArchConfig, batch: int, lead: tuple = (),
+                    device="cuda") -> dict:
+    """Zero decode state, one per `lead` position (real tensors)."""
+    dev = resolve_device(device)
+    n_heads, hd = rwkv_dims(cfg)
+
+    def prev():
+        return torch.zeros(lead + (batch, 1, cfg.d_model), dtype=cdtype(cfg),
+                           device=dev)
+
+    return {"tmix": {"x_prev": prev(),
+                     "wkv": torch.zeros(lead + (batch, n_heads, hd, hd),
+                                        dtype=f32, device=dev)},
+            "cmix": {"x_prev": prev()}}

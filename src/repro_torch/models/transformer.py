@@ -1,17 +1,19 @@
-"""Decoder-only LM, dense family: init, forward, prefill and decode.
+"""Decoder-only LM, dense and MoE (and the VLM backbone): init, forward,
+prefill and decode.
 
-The counterpart of the reference's `models/transformer.py` for
-`family == "dense"`.  Layer stacking follows the reference:
+The counterpart of the reference's `models/transformer.py`.  Layer
+stacking follows the reference:
   * homogeneous archs: params stacked (L, ...);
   * gemma3-style local:global mixes: params stacked (G, group, ...) where
     each group holds `global_every - 1` local layers and 1 global layer,
     so local layers get window-sized KV caches and global layers full ones.
 A Python loop over the layers takes the place of `lax.scan`.  Decode caches
 are ring buffers for windowed layers (slot = pos mod capacity); a decode
-step writes its slot in place and returns the same cache tensors.
+step writes its slot in place and returns the same cache tensors.  A MoE
+layer's feed-forward is `moe_block` (family "moe"), a dense one's
+`mlp_block`.
 
-`family == "moe"` waits for ROADMAP 1.14b; `lm_loss` for training
-(ROADMAP 1.14d).
+`lm_loss` waits for training (ROADMAP 1.14d).
 """
 from __future__ import annotations
 
@@ -24,18 +26,15 @@ from repro_torch.core.types import resolve_device
 from repro_torch.models.layers import (apply_rope, attention_block, cdtype,
                                        embed_tokens, flash_attention,
                                        init_attention, init_embeddings,
-                                       init_mlp, layer_params, lm_logits,
-                                       mlp_block, rmsnorm)
-
-MOE_ITEM = "the MoE family waits for ROADMAP 1.14b (init_moe, moe_block)"
+                                       init_mlp, init_moe, layer_params,
+                                       lm_logits, mlp_block, moe_block,
+                                       rmsnorm)
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family == "moe":
-        raise NotImplementedError(MOE_ITEM)
-    if cfg.family != "dense":
-        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not the "
-                         "dense decoder")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} is not a "
+                         "decoder of this module")
 
 
 def _grouped(cfg: ArchConfig) -> bool:
@@ -52,8 +51,9 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> dict:
     _check_family(cfg)
     embed = init_embeddings(gen, cfg)
     lead = _lead(cfg)
+    ffn = init_moe if cfg.family == "moe" else init_mlp
     layers = {"attn": init_attention(gen, cfg, lead),
-              "ffn": init_mlp(gen, cfg, lead=lead)}
+              "ffn": ffn(gen, cfg, lead=lead)}
     return {"embed": embed, "layers": layers}
 
 
@@ -63,7 +63,12 @@ def _layer(p, x, cfg: ArchConfig, is_global: bool, cache=None, pos=None,
                                    cache=cache, pos=pos,
                                    use_windowed_kernel=use_windowed_kernel)
     x = x + a
-    return x + mlp_block(p["ffn"], x, cfg), new_cache
+    return x + _ffn(p["ffn"], x, cfg), new_cache
+
+
+def _ffn(p, x, cfg: ArchConfig):
+    return moe_block(p, x, cfg) if cfg.family == "moe" \
+        else mlp_block(p, x, cfg)
 
 
 def _layers_in_order(cfg: ArchConfig):
@@ -152,7 +157,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos,
         kc, vc = _layer_cache(cfg, cache, idx)
         a, _ = _decode_attn(lp["attn"], x, kc, vc, cfg, is_global, pos)
         x = x + a
-        x = x + mlp_block(lp["ffn"], x, cfg)
+        x = x + _ffn(lp["ffn"], x, cfg)
     return lm_logits(params["embed"], x, cfg), cache
 
 
