@@ -8,6 +8,7 @@ check it, end to end.
     python3 chip_smoke.py --phases main,serve            # the serving path
     python3 chip_smoke.py --phases main,shard            # the sharded tiers
     python3 chip_smoke.py --phases families    # MoE, RWKV6, Zamba2, LLaVA
+    python3 chip_smoke.py --phases train       # training
 
 Phases:
   device    the card's name and power limit; the kernels' build time
@@ -118,6 +119,22 @@ Phases:
             llava-next-mistral-7b's prefill of 2,880 patch embeddings + 128
             tokens and 16 text-only decode steps.  No decoder launches the
             flash kernel
+  train     (after families) training, no hand kernel on its path (the
+            launch and route counts must not move): every architecture's
+            smoke model trained 4 steps (Trainer.run, f32) on the CPU and
+            the card from the same seed-0 weights, and llama3.2-3b with 2
+            microbatches and int8 compression, each step's loss and grad
+            norm and the final params within max(1e-4, 5 x a one-ulp
+            weight move's reading); the crash-at-7, resume-from-6 replay
+            (f32 and bf16 AdamW states) allclose to the straight run;
+            granite-moe-1b-a400m at its published widths and depth:
+            directional derivatives of five parts against central
+            differences (f32, 1 x 256, routing held) within 1e-2 and two
+            planted faults above it, one step at remat none / dots / full
+            (loss bit-equal), 2 x (2 x 512) microbatches against 4 x 512 at
+            capacity_factor 32, and 12 steps of 4 x 512 (bf16 compute,
+            remat dots, f32 AdamW states): tokens/s, the median step, peak
+            memory, the busy share of 2 profiled steps, a falling loss
   profile   (only when named in --phases) one search per method under
             torch.profiler: the device's busy share and its top kernels
 
@@ -3568,6 +3585,611 @@ def phase_families(report: dict, dev="cuda") -> None:
         f"{k} {v:.1f} s" for k, v in step_s.items()), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# train: the training path (optim, train, the losses with remat); no hand
+# kernel lies on it (the reference's losses never reach a Pallas kernel)
+# ---------------------------------------------------------------------------
+
+TRAIN_SMOKE_STEPS = 4
+# smoke training, f32, card against CPU from the same weights: each step's
+# loss and grad norm, and each final param leaf (relative L2), within
+# max(TRAIN_SMOKE_TOL, TRAIN_SMOKE_RATIO x the CPU run's own reading
+# against a CPU run from weights moved by one ulp, w (1 + eps_f32 N(0,1))).
+# The two sides sum each product and the global norm in another order;
+# AdamW divides each element by its own root second moment, which lifts
+# an element's relative error over its leaf's.  Some smoke models are
+# ill-conditioned at their seed-0 weights: rwkv6-3b's gradient norm
+# moves by 6.2e-4 (its `u` 9.6e-4) under that one-ulp move on the CPU,
+# and the card reads 6.7e-4 (`u` 1.0e-3); a well-conditioned model's
+# one-ulp reading is ~1e-6, so its limit stays TRAIN_SMOKE_TOL
+TRAIN_SMOKE_TOL = 1e-4
+TRAIN_SMOKE_RATIO = 5.0
+# the crash-restart replay against the uninterrupted run (the reference
+# test's allclose)
+TRAIN_RESTART_ATOL = 1e-6
+# granite-moe-1b-a400m at its published widths and depth
+TRAIN_FULL_ARCH = "granite-moe-1b-a400m"
+TRAIN_FULL_STEPS, TRAIN_FULL_BATCH, TRAIN_FULL_SEQ = 12, 4, 512
+TRAIN_FULL_LR, TRAIN_FULL_WARMUP = 3e-4, 2
+TRAIN_PROFILED_STEPS = 2
+# the directional-derivative check: f32 compute, 1 x 256 tokens, the MoE
+# routing of the point held fixed on both sides of it (a top-k or
+# capacity choice that flips under the step is a jump of the loss that
+# no derivative sees).  A part's direction v is a random r ~ N(0,
+# rms(leaf)^2) elementwise plus the part's gradient scaled to |r|: a
+# purely random direction's projection on g is ~|g| |v| / sqrt(N) (N up
+# to 1.2e9 elements), below the f32 loss's noise floor.  The step eps is
+# set so that the first-order change of the loss is GRADCHECK_STEP each
+# side (far above f32 noise, ~1e-6, and small enough that the third-order
+# term of the central difference stays under 1e-3: at 2 layers on the
+# CPU the readings were 2e-5 to 1e-3).  Reading: |FD - <g, v>| /
+# max(|FD|, |<g, v>|)
+GRADCHECK_TOKENS = 256
+GRADCHECK_STEP = 0.01
+GRADCHECK_LIMIT = 1e-2
+GRADCHECK_PARTS = {
+    "embeddings and head": (("embed", "tok"), ("embed", "unembed")),
+    "attention": tuple(("layers", "attn", w) for w in
+                       ("wq", "wk", "wv", "wo")),
+    "router": (("layers", "ffn", "router"),),
+    "experts": tuple(("layers", "ffn", w) for w in ("wg", "wu", "wd")),
+    "norms": (("embed", "final_norm"), ("layers", "attn", "norm"),
+              ("layers", "ffn", "norm")),
+}
+# one step at each remat mode: the loss bit-equal, the grad norm and the
+# updated params within this (the embedding's backward adds with atomics)
+TRAIN_REMAT_TOL = 1e-5
+# two microbatches of 2 x 512 against one batch of 4 x 512 at
+# capacity_factor = n_experts (no pair dropped), bf16 compute
+TRAIN_MICRO_TOL = 1e-3
+
+
+def _train_smoke_config(arch: str):
+    from repro_torch import configs as C
+    cfg = C.smoke_config(arch)
+    if arch == "gemma3-12b":           # two 5:1 groups, the window wraps
+        cfg = dataclasses.replace(cfg, n_layers=12, window=8)
+    return cfg
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _tree_rel(got, want) -> float:
+    """The largest relative L2 error over the leaves."""
+    from repro_torch.optim.adamw import tree_leaves
+    return max(_rel(a, b.to(a.device)) for a, b in
+               zip(tree_leaves(got), tree_leaves(want)))
+
+
+def _one_ulp(tree, seed: int = 5):
+    """Each float leaf times (1 + eps N(0, 1)), eps its dtype's."""
+    import torch
+    from repro_torch.optim.adamw import tree_map
+    gen = torch.Generator().manual_seed(seed)
+    return tree_map(lambda t: t * (1 + torch.finfo(t.dtype).eps
+                                   * torch.randn(t.shape, generator=gen,
+                                                 dtype=t.dtype)), tree)
+
+
+def train_card_vs_cpu(cfg, label: str, out: dict, dev="cuda",
+                      **train_kw) -> None:
+    """TRAIN_SMOKE_STEPS steps of Trainer.run from seed-0 weights made on
+    the CPU, on the CPU, on the card and on the CPU from the weights moved
+    by one ulp: each step's loss and grad norm and the final params, card
+    against CPU, within max(TRAIN_SMOKE_TOL, TRAIN_SMOKE_RATIO x the
+    one-ulp run's reading)."""
+    from repro_torch.launch.specs import make_smoke_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_map
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.loop import init_opt_state
+
+    bundle = build_model(cfg)
+    base = bundle.init(0, "cpu")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100)
+    tc = TrainConfig(steps=TRAIN_SMOKE_STEPS, log_every=1, **train_kw)
+    mb = tc.microbatches
+    runs = []
+    for d, start in (("cpu", base), (dev, base), ("cpu", _one_ulp(base))):
+        def batch_fn(step, d=d):
+            b = make_smoke_batch(cfg, 2 * mb, 32, "train", seed=step,
+                                 device=d)
+            if mb > 1:
+                b = {k: v.reshape((mb, 2) + tuple(v.shape[1:]))
+                     for k, v in b.items()}
+            return b
+        tr = Trainer(bundle, opt, tc, batch_fn)
+        # a copy on each side: the run writes its params in place
+        params = tree_map(lambda t, d=d: t.to(d, copy=True), start)
+        params, _ = tr.run(params, init_opt_state(bundle, params, opt, tc))
+        runs.append((tr.history, params))
+
+    def readings(got, want):
+        (hg, pg), (hw, pw) = got, want
+        return (max(abs(a["loss"] / b["loss"] - 1) for a, b in zip(hg, hw)),
+                max(abs(a["grad_norm"] / b["grad_norm"] - 1)
+                    for a, b in zip(hg, hw)),
+                _tree_rel(pg, pw))
+
+    card = readings(runs[1], runs[0])
+    ulp = readings(runs[2], runs[0])
+    limit = tuple(max(TRAIN_SMOKE_TOL, TRAIN_SMOKE_RATIO * u) for u in ulp)
+    hd = runs[1][0]
+    names = ("loss", "grad norm", "params")
+    out[label] = {"card_vs_cpu": dict(zip(names, card)),
+                  "one_ulp_vs_cpu": dict(zip(names, ulp)),
+                  "limit": dict(zip(names, limit)),
+                  "losses": [h["loss"] for h in hd]}
+    print(f"   train smoke {label}: {TRAIN_SMOKE_STEPS} steps card vs CPU "
+          + ", ".join(f"{n} {c:.3g} (one ulp {u:.3g}, limit {m:.3g})"
+                      for n, c, u, m in zip(names, card, ulp, limit))
+          + "; losses " + " ".join(f"{h['loss']:.4f}" for h in hd),
+          flush=True)
+    check(len(hd) == TRAIN_SMOKE_STEPS and all(
+        math.isfinite(h["loss"]) for h in hd), f"train smoke {label}: "
+          "a loss is not finite")
+    check(all(c <= m for c, m in zip(card, limit)),
+          f"train smoke {label}: card vs CPU {card}, limits {limit}")
+
+
+def train_smoke(out: dict, dev="cuda") -> None:
+    from repro_torch import configs as C
+    for arch in C.ARCH_IDS:
+        train_card_vs_cpu(_train_smoke_config(arch), arch, out, dev)
+    train_card_vs_cpu(_train_smoke_config("llama3.2-3b"),
+                      "llama3.2-3b microbatches 2, int8 compression", out,
+                      dev, microbatches=2, grad_compression=True)
+
+
+def train_restart(out: dict, dev="cuda") -> None:
+    """The reference test's crash-restart replay on the card: 10 steps with
+    a checkpoint every 3 straight, against a crash at step 7 and a resume
+    from step 6; f32 and bf16 optimizer states."""
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.launch.specs import make_smoke_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import TrainConfig, Trainer
+
+    cfg = _train_smoke_config("llama3.2-3b")
+    bundle = build_model(cfg)
+
+    def batch_fn(step):
+        return make_smoke_batch(cfg, 2, 32, "train", seed=step, device=dev)
+
+    root = tempfile.mkdtemp(prefix="train_restart_")
+    try:
+        for sdt in ("float32", "bfloat16"):
+            opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=100,
+                              state_dtype=sdt)
+
+            def trainer(name):
+                return Trainer(bundle, opt, TrainConfig(
+                    steps=10, checkpoint_every=3, log_every=100,
+                    checkpoint_dir=os.path.join(root, sdt, name)), batch_fn)
+
+            tr = trainer("straight")
+            straight, _ = tr.run(*tr.init_or_restore(1, dev)[:2])
+            tr = trainer("crash")
+            try:
+                tr.run(*tr.init_or_restore(1, dev)[:2], fail_at=7)
+                crashed = False
+            except RuntimeError as e:
+                crashed = "injected failure" in str(e)
+            tr.ckpt.wait()
+            tr = trainer("crash")
+            params, state, start = tr.init_or_restore(1, dev)
+            check(crashed and start == 6, f"train restart {sdt}: crashed "
+                  f"{crashed}, resumed at {start}")
+            check(state["adamw"]["m"]["embed"]["tok"].dtype
+                  == getattr(torch, sdt), f"train restart {sdt}: states "
+                  "restored in another dtype")
+            resumed, _ = tr.run(params, state, start)
+            pairs = list(zip(tree_leaves(resumed), tree_leaves(straight)))
+            close = all(bool(torch.allclose(a, b, atol=TRAIN_RESTART_ATOL))
+                        for a, b in pairs)
+            equal = all(bool(torch.equal(a, b)) for a, b in pairs)
+            worst = max(float((a - b).abs().max()) for a, b in pairs)
+            out[f"restart_{sdt}"] = {"allclose": close, "bit_equal": equal,
+                                     "max_abs_diff": worst}
+            print(f"   train restart ({sdt} states): crash at 7, resume "
+                  f"from 6: allclose (atol {TRAIN_RESTART_ATOL}) {close}, "
+                  f"bit-equal {equal}, max |diff| {worst:.3g}", flush=True)
+            check(close, f"train restart {sdt}: resumed params differ by "
+                  f"{worst}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class _FrozenRouting:
+    """Stands in for `layers.moe_route`: records each call's choices (which
+    experts, which pairs kept) and, on `replay`, hands them back in the
+    same order with the gate values recomputed from the router at the
+    current weights, so the loss is a smooth function of the weights
+    around the recorded point."""
+
+    def __init__(self, real):
+        self.real = real
+        self.routes = []
+        self.replay = False
+        self.at = 0
+
+    def __call__(self, params, x, cfg, groups=32):
+        import torch
+        from repro_torch.models.layers import rmsnorm
+        if not self.replay:
+            out = self.real(params, x, cfg, groups)
+            self.routes.append(out[2:])
+            return out
+        route, cap = self.routes[self.at]
+        self.at += 1
+        sorted_e, _, _, _, order = route
+        b, t, d = x.shape
+        g_ = sorted_e.shape[0]
+        xt = rmsnorm(x, params["norm"]).reshape(g_, (b // g_) * t, d)
+        probs = torch.softmax(xt.to(torch.float32) @ params["router"],
+                              dim=-1)
+        sel = torch.empty_like(sorted_e).scatter_(1, order, sorted_e)
+        gate = torch.gather(probs, -1, sel.reshape(g_, xt.shape[1], -1))
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+        return xt, gate, route, cap
+
+
+def _directional(grads, v) -> float:
+    return sum(float((_leaf(grads, path).double() * d.double()).sum())
+               for path, d in v.items())
+
+
+def _derivative_reading(bundle, params, batch, frozen, grads, paths, seed,
+                        eps=None) -> dict:
+    """<g, v> against the central difference along v (see GRADCHECK_STEP)
+    for one part; `eps` None sets the step from <g, v>."""
+    import torch
+    dev = _leaf(params, paths[0]).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    v = {}
+    for path in paths:
+        p = _leaf(params, path)
+        scale = float(p.float().pow(2).mean().sqrt())
+        v[path] = torch.randn(p.shape, generator=gen, device=dev,
+                              dtype=torch.float32) * scale
+    r_norm = math.sqrt(sum(float(t.double().pow(2).sum())
+                           for t in v.values()))
+    g_norm = math.sqrt(sum(float(_leaf(grads, p).double().pow(2).sum())
+                           for p in paths))
+    if g_norm > 0:
+        for p in paths:
+            v[p] += _leaf(grads, p) * (r_norm / g_norm)
+    an = _directional(grads, v)
+    if eps is None:
+        eps = GRADCHECK_STEP / abs(an)
+    keep = {p: _leaf(params, p).clone() for p in paths}
+    side = []
+    with torch.no_grad():
+        for sign in (1.0, -1.0):
+            for p, d in v.items():
+                _leaf(params, p).copy_(keep[p] + sign * eps * d)
+            frozen.at = 0
+            side.append(float(bundle.loss(params, batch)))
+        for p in paths:
+            _leaf(params, p).copy_(keep[p])
+    fd = (side[0] - side[1]) / (2 * eps)
+    scale = max(abs(fd), abs(an))
+    return {"reading": abs(fd - an) / scale if scale > 0 else 1.0,
+            "directional": an, "central_difference": fd, "eps": eps}
+
+
+def gradient_check(cfg, out: dict, dev="cuda") -> None:
+    """<g, v> from autograd against (L(θ + εv) − L(θ − εv)) / 2ε for five
+    directions, each confined to one part (GRADCHECK_STEP), at f32
+    compute on a 1 x GRADCHECK_TOKENS batch, routing held fixed; then two
+    planted faults (the gate detached in the combine, the expert
+    gradients halved) must read above GRADCHECK_LIMIT in their parts."""
+    import torch
+    from repro_torch.data import DataConfig, batch_for_step
+    from repro_torch.models import build_model, layers
+    from repro_torch.train.loop import value_and_grad
+
+    cfg = dataclasses.replace(cfg, compute_dtype="float32", remat="none")
+    bundle = build_model(cfg)
+    params = bundle.init(0, dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch_for_step(
+        DataConfig(cfg.vocab, GRADCHECK_TOKENS, 1), 0).items()}
+    frozen = _FrozenRouting(layers.moe_route)
+    real_route, real_combine = layers.moe_route, layers._combine
+    layers.moe_route = frozen
+    try:
+        loss, grads = value_and_grad(bundle.loss, params, batch)
+        # planted: the gate detached in the combine (the router learns
+        # nothing) ...
+        layers._combine = lambda vals, w, ok, order, k: real_combine(
+            vals, w.detach(), ok, order, k)
+        _, detached = value_and_grad(bundle.loss, params, batch)
+        layers._combine = real_combine
+        # ... and the expert gradients halved
+        halved = {"embed": grads["embed"], "layers": {
+            "attn": grads["layers"]["attn"],
+            "ffn": dict(grads["layers"]["ffn"])}}
+        for w in ("wg", "wu", "wd"):
+            halved["layers"]["ffn"][w] = grads["layers"]["ffn"][w] * 0.5
+        frozen.replay = True
+        readings = {}
+        for seed, (part, paths) in enumerate(GRADCHECK_PARTS.items()):
+            readings[part] = _derivative_reading(bundle, params, batch,
+                                                 frozen, grads, paths, seed)
+            planted = {"router": ("planted: gate detached", detached),
+                       "experts": ("planted: expert grads halved", halved)}
+            if part in planted:
+                name, faulty = planted[part]
+                readings[name] = _derivative_reading(
+                    bundle, params, batch, frozen, faulty, paths, seed,
+                    eps=readings[part]["eps"])
+    finally:
+        layers.moe_route, layers._combine = real_route, real_combine
+    out["gradient_check"] = {"step": GRADCHECK_STEP,
+                             "limit": GRADCHECK_LIMIT, "loss": float(loss),
+                             "readings": readings}
+    print(f"   gradient check ({cfg.name}, {cfg.n_layers} layers, f32, 1 x "
+          f"{GRADCHECK_TOKENS}, routing held, first-order step "
+          f"{GRADCHECK_STEP}, limit {GRADCHECK_LIMIT}): " + "; ".join(
+              f"{k} {r['reading']:.3g} (<g,v> {r['directional']:.5g}, FD "
+              f"{r['central_difference']:.5g}, eps {r['eps']:.3g})"
+              for k, r in readings.items()), flush=True)
+    for part, r in readings.items():
+        if part.startswith("planted"):
+            check(r["reading"] > GRADCHECK_LIMIT, f"gradient check: {part} "
+                  f"reads {r['reading']}, within the limit")
+        else:
+            check(r["reading"] <= GRADCHECK_LIMIT,
+                  f"gradient check {part}: {r}")
+    del params, grads, detached, halved
+
+
+def _full_batch(cfg, step: int, batch: int, dev):
+    import torch
+    from repro_torch.data import DataConfig, batch_for_step
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch_for_step(
+        DataConfig(cfg.vocab, TRAIN_FULL_SEQ, batch), step).items()}
+
+
+def remat_check(cfg, out: dict, dev="cuda") -> None:
+    """One step from the same params and batch at remat "none", "dots"
+    and "full": the loss bit-equal, the grad norm and the updated params
+    within TRAIN_REMAT_TOL; the peak memory of each."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import (TrainConfig, init_opt_state,
+                                        make_train_step)
+
+    opt, tc = AdamWConfig(lr=TRAIN_FULL_LR, warmup_steps=TRAIN_FULL_WARMUP,
+                          total_steps=TRAIN_FULL_STEPS), TrainConfig()
+    params = build_model(cfg).init(0, dev)
+    state = init_opt_state(None, params, opt, tc)
+    batch = _full_batch(cfg, 0, TRAIN_FULL_BATCH, dev)
+    rec, base = {}, None
+    for mode in ("none", "dots", "full"):
+        bundle = build_model(dataclasses.replace(cfg, remat=mode))
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        secs = []
+        for _ in range(2):          # the first call, then a warm one
+            new = m = None
+            step_out, sec = _timed(make_train_step(bundle, opt, tc,
+                                                   donate=False),
+                                   params, state, batch, dev=dev)
+            secs.append(sec)
+            new, m = step_out[0], step_out[2]
+            del step_out            # the new moments: not compared
+        peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+        rec[mode] = {"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]), "s": secs,
+                     "peak_gib": peak / 2**30}
+        if base is None:
+            base = (m["loss"], float(m["grad_norm"]), new)
+        else:
+            rec[mode]["loss_bit_equal"] = bool(torch.equal(m["loss"],
+                                                           base[0]))
+            rec[mode]["grad_norm_rel"] = abs(float(m["grad_norm"])
+                                             / base[1] - 1)
+            rec[mode]["params_rel"] = _tree_rel(new, base[2])
+        del new, m
+        _free_cuda(dev)
+    out["remat"] = rec
+    print("   remat, one step 4 x 512 bf16: " + "; ".join(
+        f"{k}: loss {r['loss']:.6f}, {r['s'][0]:.2f} s then "
+        f"{r['s'][1]:.2f} s, peak "
+        f"{r['peak_gib']:.2f} GiB"
+        + (f", loss bit-equal {r['loss_bit_equal']}, grad norm "
+           f"{r['grad_norm_rel']:.3g}, params {r['params_rel']:.3g}"
+           if "params_rel" in r else "") for k, r in rec.items()),
+        flush=True)
+    for mode in ("dots", "full"):
+        r = rec[mode]
+        check(r["loss_bit_equal"] and r["grad_norm_rel"] <= TRAIN_REMAT_TOL
+              and r["params_rel"] <= TRAIN_REMAT_TOL,
+              f"remat {mode} against none: {r}")
+    del params, state, base
+
+
+def microbatch_check(cfg, out: dict, dev="cuda") -> None:
+    """At capacity_factor = n_experts (no pair dropped), two microbatches
+    of 2 x 512 against one batch of 4 x 512: the loss within
+    TRAIN_MICRO_TOL (bf16 compute); the grad norm recorded."""
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import (TrainConfig, init_opt_state,
+                                        make_train_step)
+
+    cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    bundle = build_model(cfg)
+    opt = AdamWConfig(lr=TRAIN_FULL_LR, warmup_steps=TRAIN_FULL_WARMUP,
+                      total_steps=TRAIN_FULL_STEPS)
+    params = bundle.init(0, dev)
+    big = _full_batch(cfg, 0, TRAIN_FULL_BATCH, dev)
+    metrics = {}
+    for micro in (1, 2):
+        tc = TrainConfig(microbatches=micro)
+        state = init_opt_state(bundle, params, opt, tc)
+        batch = big if micro == 1 else {
+            k: v.reshape((micro, -1) + tuple(v.shape[1:]))
+            for k, v in big.items()}
+        _, _, m = make_train_step(bundle, opt, tc, donate=False)(
+            params, state, batch)
+        metrics[micro] = (float(m["loss"]), float(m["grad_norm"]))
+        del state, m
+        _free_cuda(dev)
+    loss_rel = abs(metrics[2][0] / metrics[1][0] - 1)
+    gn_rel = abs(metrics[2][1] / metrics[1][1] - 1)
+    out["microbatch"] = {"capacity_factor": cfg.capacity_factor,
+                         "loss": metrics, "loss_rel": loss_rel,
+                         "grad_norm_rel": gn_rel}
+    print(f"   microbatches at capacity_factor {cfg.capacity_factor:g}: "
+          f"2 x (2 x 512) loss {metrics[2][0]:.6f} vs 4 x 512 "
+          f"{metrics[1][0]:.6f}: relative {loss_rel:.3g} (limit "
+          f"{TRAIN_MICRO_TOL}); grad norm {gn_rel:.3g}", flush=True)
+    check(loss_rel <= TRAIN_MICRO_TOL, f"microbatches: loss {loss_rel}")
+    del params
+
+
+def train_run(cfg, out: dict, dev="cuda") -> None:
+    """TRAIN_FULL_STEPS steps of Trainer.run on batch_for_step batches,
+    then TRAIN_PROFILED_STEPS more under torch.profiler: tokens/s, the
+    median step, peak memory, the device's busy share; every loss finite
+    and the last below the first."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import TrainConfig, Trainer
+
+    bundle = build_model(cfg)
+    opt = AdamWConfig(lr=TRAIN_FULL_LR, warmup_steps=TRAIN_FULL_WARMUP,
+                      total_steps=TRAIN_FULL_STEPS)
+    tr = Trainer(bundle, opt, TrainConfig(steps=TRAIN_FULL_STEPS,
+                                          log_every=1),
+                 lambda step: _full_batch(cfg, step, TRAIN_FULL_BATCH, dev))
+    params, state, _ = tr.init_or_restore(0, dev)
+    leaves = tree_leaves(params)
+    n_params = sum(int(t.numel()) for t in leaves)
+    state_bytes = sum(int(t.numel()) * t.element_size()
+                      for t in leaves + tree_leaves(state))
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    (params, state), wall = _timed(tr.run, params, state, dev=dev)
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    hist = tr.history
+    tokens = TRAIN_FULL_STEPS * TRAIN_FULL_BATCH * TRAIN_FULL_SEQ
+    median_ms = 1e3 * statistics.median(h["sec"] for h in hist[2:])
+    prof_rec = {}
+    if dev == "cuda":
+        batch = _full_batch(cfg, TRAIN_FULL_STEPS, TRAIN_FULL_BATCH, dev)
+        # device activity only: a step launches ~10^4 kernels, and the
+        # host ops' events would multiply the trace's post-processing
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_PROFILED_STEPS):
+                params, state, _ = tr.step_fn(params, state, batch)
+            sync(dev)
+            prof_wall = (time.perf_counter() - t0) * 1e3
+        per_name = device_us_by_name(prof)
+        dev_ms = sum(per_name.values()) / 1e3
+        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+        check(dev_ms > 0, "train run: the profiler recorded no device "
+              "time")
+        prof_rec = {"wall_ms": prof_wall, "device_ms": dev_ms,
+                    "busy_share": dev_ms / prof_wall,
+                    "top": [(k[:80], v / 1e3) for k, v in top]}
+    first, last = hist[0], hist[-1]
+    out["run"] = {
+        "config": f"{cfg.name}, {cfg.n_layers} layers, {cfg.compute_dtype} "
+                  f"compute, remat {cfg.remat}, f32 params and AdamW "
+                  "states",
+        "params": n_params, "state_bytes": state_bytes,
+        "batch": f"{TRAIN_FULL_BATCH} x {TRAIN_FULL_SEQ}",
+        "steps": TRAIN_FULL_STEPS, "wall_s": wall,
+        "tokens_per_s": tokens / wall, "median_step_ms_3_12": median_ms,
+        "step_s": [h["sec"] for h in hist], "peak_gib": peak / 2**30,
+        "losses": [h["loss"] for h in hist],
+        "grad_norms": [h["grad_norm"] for h in hist],
+        "profiled": prof_rec}
+    print(f"   train run {cfg.name} ({n_params / 1e9:.3f} B params, params "
+          f"+ AdamW states {state_bytes / 2**30:.2f} GiB): "
+          f"{TRAIN_FULL_STEPS} steps of {TRAIN_FULL_BATCH} x "
+          f"{TRAIN_FULL_SEQ} in {wall:.2f} s = {tokens / wall:.0f} "
+          f"tokens/s; median step (3-{TRAIN_FULL_STEPS}) {median_ms:.1f} "
+          f"ms (first {1e3 * hist[0]['sec']:.1f}); peak {peak / 2**30:.2f} "
+          f"GiB; loss {first['loss']:.4f} -> {last['loss']:.4f}, grad norm "
+          f"{first['grad_norm']:.3f} -> {last['grad_norm']:.3f}",
+          flush=True)
+    if prof_rec:
+        print(f"   {TRAIN_PROFILED_STEPS} profiled steps: wall "
+              f"{prof_rec['wall_ms']:.1f} ms, device "
+              f"{prof_rec['device_ms']:.1f} ms (busy "
+              f"{prof_rec['busy_share']:.3f}); top: " + "; ".join(
+                  f"{k[:50]} {v:.1f} ms" for k, v in prof_rec["top"][:5]),
+              flush=True)
+    check(all(math.isfinite(h["loss"]) for h in hist)
+          and len(hist) == TRAIN_FULL_STEPS,
+          f"train run: losses {[h['loss'] for h in hist]}")
+    check(last["loss"] < first["loss"], f"train run: the loss went from "
+          f"{first['loss']} to {last['loss']}")
+    del params, state, tr
+
+
+def phase_train(report: dict, dev="cuda", full_cfg=None) -> None:
+    """Training: smoke models card against CPU (every architecture), the
+    crash-restart replay on the card, then granite-moe-1b-a400m at its
+    published widths and depth (`full_cfg` stands in for it in a
+    rehearsal): the gradient check, remat, microbatches and the training
+    run.  No hand kernel may launch on the path."""
+    from repro_torch import configs as C
+    from repro_torch.kernels import ops
+
+    print("== train: AdamW, the losses with remat, the Trainer; "
+          f"{TRAIN_FULL_ARCH} at full width ==", flush=True)
+    out = report["train"] = {}
+    step_s = out["step_s"] = {}
+    cfg = C.get_config(TRAIN_FULL_ARCH) if full_cfg is None else full_cfg
+    before = (dict(ops.launches()), dict(ops.routes()))
+
+    def step(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        fn(*a, **kw)
+        _free_cuda(dev)
+        step_s[name] = time.perf_counter() - t0
+
+    _free_cuda(dev)
+    step("smoke", train_smoke, out, dev)
+    step("restart", train_restart, out, dev)
+    step("gradient_check", gradient_check, cfg, out, dev)
+    step("remat", remat_check, cfg, out, dev)
+    step("microbatch", microbatch_check, cfg, out, dev)
+    step("run", train_run, cfg, out, dev)
+    after = (dict(ops.launches()), dict(ops.routes()))
+    out["hand_kernel_launches"] = {k: after[0][k] - before[0].get(k, 0)
+                                   for k in after[0]}
+    print("   train steps: " + ", ".join(f"{k} {v:.1f} s"
+                                         for k, v in step_s.items())
+          + f"; hand-kernel launches on the path: "
+          f"{sum(out['hand_kernel_launches'].values())}", flush=True)
+    check(after == before, f"train: hand kernels launched on the training "
+          f"path: {before} -> {after}")
+
+
 def flash_kernel_row(batch: int = 2, frames: int = 8192) -> dict:
     """flash_attention at the encoder's shape, q, k, v (batch, frames, 16,
     80) bf16, non-causal, through the tensor-core route, against its plain
@@ -3673,7 +4295,7 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=1000)
     ap.add_argument("--phases",
                     default="parity,main,shard,serve,mutate,kernels,lm,"
-                    "families")
+                    "families,train")
     ap.add_argument("--lm-frames", type=int, default=8192,
                     help="frames of each encoder prefill (lm phase)")
     ap.add_argument("--lm-batch", type=int, default=2,
@@ -3749,6 +4371,8 @@ def main(argv=None) -> int:
                 k["launches"] = launches
     if "families" in phases:
         timed("families", phase_families, report)
+    if "train" in phases:
+        timed("train", phase_train, report)
     # profiler sessions that device_ms read empty and read again
     report["profiler_empty_sessions"] = dict(EMPTY_SESSIONS)
     print(f"profiler sessions read empty and read again: "

@@ -63,10 +63,49 @@ def leaf_paths(tree: Any) -> list[tuple[str, Any]]:
             for path, leaf in _flatten(tree)]
 
 
+# a bfloat16 leaf's .npy: its uint16 bits under the descr numpy writes for
+# the reference's (ml_dtypes) bfloat16 arrays; np.load reads it as |V2
+_BF16_DESCR = "<V2"
+
+
+def _is_bf16_bits(arr: np.ndarray) -> bool:
+    return arr.dtype.kind == "V" and arr.dtype.itemsize == 2
+
+
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            # numpy has no bfloat16: carry the bits, as the reference's
+            # np.save of an ml_dtypes array writes them
+            return leaf.view(torch.int16).numpy().view(np.dtype("V2"))
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def _save_npy(f, arr: np.ndarray) -> None:
+    """np.save, but bfloat16 bits go under the reference's descr, so the
+    file is byte for byte the one the reference writes."""
+    if not _is_bf16_bits(arr):
+        np.save(f, arr)
+        return
+    arr = np.ascontiguousarray(arr)
+    np.lib.format.write_array_header_1_0(
+        f, {"descr": _BF16_DESCR, "fortran_order": False,
+            "shape": arr.shape})
+    f.write(arr.tobytes())
+
+
+def _leaf_tensor(name: str, arr: np.ndarray, like: torch.Tensor,
+                 device) -> torch.Tensor:
+    dev = like.device if device is None else device
+    if not _is_bf16_bits(arr):
+        return torch.as_tensor(arr, device=dev)
+    if like.dtype != torch.bfloat16:
+        raise ValueError(f"checkpoint leaf {name!r} holds bfloat16 bits "
+                         f"(|V2) but restores into a {like.dtype} tensor")
+    return torch.as_tensor(arr.view(np.int16), device=dev).view(
+        torch.bfloat16)
 
 
 def _fsync_file(f) -> None:
@@ -91,11 +130,12 @@ def save_checkpoint(directory: str, step: int, tree: Any,
     for name, leaf in leaf_paths(tree):
         arr = _host(leaf)
         with open(os.path.join(tmp, name + ".npy"), "wb") as f:
-            np.save(f, arr)
+            _save_npy(f, arr)
             if fsync:
                 _fsync_file(f)
         manifest["leaves"][name] = {
-            "shape": list(arr.shape), "dtype": str(arr.dtype),
+            "shape": list(arr.shape),
+            "dtype": "bfloat16" if _is_bf16_bits(arr) else str(arr.dtype),
             "bytes": int(arr.nbytes)}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -137,7 +177,9 @@ def restore_checkpoint(directory: str, step: int, tree_like: Any,
                        device=None) -> tuple[Any, dict]:
     """Restore into the structure of `tree_like`.  A leaf whose `like` is
     a tensor comes back as a tensor on `device` (default: that tensor's
-    device); any other leaf comes back as a numpy array.  Returns (tree,
+    device); any other leaf comes back as a numpy array.  A bfloat16
+    leaf's bits (a |V2 array, either package's writing) restore only
+    into a bfloat16 tensor.  Returns (tree,
     the manifest's `extra`)."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
@@ -149,8 +191,7 @@ def restore_checkpoint(directory: str, step: int, tree_like: Any,
         if arr.nbytes != meta["bytes"]:
             raise IOError(f"integrity check failed for {name}")
         if isinstance(like, torch.Tensor):
-            leaves.append(torch.as_tensor(
-                arr, device=like.device if device is None else device))
+            leaves.append(_leaf_tensor(name, arr, like, device))
         else:
             leaves.append(arr)
     return _unflatten(tree_like, leaves), manifest["extra"]

@@ -2,15 +2,17 @@
 
   bundle = build_model(cfg)
   params = bundle.init(seed_or_generator, device)
+  loss   = bundle.loss(params, batch)                 # training objective
   logits = bundle.prefill(params, batch)              # inference prefill
   cache  = bundle.init_cache(batch, seq_len, device)  # decode state
   logits, cache = bundle.decode(params, cache, batch, pos)
 
 The counterpart of the reference's `models/api.py`, every family: dense
 and MoE decoders, the VLM backbone, the encoder, RWKV (ssm) and the
-Zamba2 hybrid.  `batch` holds "tokens" ("patch_embeds" too for the VLM's
-prefill, "frames" for the encoder's).  `loss` raises until training is
-ported (ROADMAP 1.14d).
+Zamba2 hybrid.  `batch` layouts per family are those of
+`repro_torch.launch.specs.input_specs`: "tokens" ("patch_embeds" too for
+the VLM, "frames" for the encoder), and for the loss "targets" and
+"mask" ("mask_positions" for the encoder).
 """
 from __future__ import annotations
 
@@ -22,9 +24,6 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
 from repro_torch.models import encoder, hybrid, rwkv, transformer as tfm, vlm
-
-TRAINING_ITEM = "training waits for ROADMAP 1.14d (optim, train, losses)"
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
@@ -55,16 +54,12 @@ def params_to(params, device):
     return params.to(device)
 
 
-def _no_loss(params, batch):
-    raise NotImplementedError(TRAINING_ITEM)
-
-
-def _bundle(cfg: ArchConfig, init, prefill, init_cache=None,
+def _bundle(cfg: ArchConfig, init, loss, prefill, init_cache=None,
             decode=None) -> ModelBundle:
     return ModelBundle(
         cfg=cfg,
         init=lambda key, device="cuda": init(generator(key, device), cfg),
-        loss=_no_loss, prefill=prefill,
+        loss=lambda p, b: loss(p, b, cfg), prefill=prefill,
         init_cache=None if init_cache is None else
         lambda bsz, s, device="cuda": init_cache(cfg, bsz, s, device),
         decode=None if decode is None else
@@ -75,28 +70,28 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
     fam = cfg.family
     if fam in ("dense", "moe"):
         return _bundle(
-            cfg, tfm.init_lm,
+            cfg, tfm.init_lm, tfm.lm_loss,
             lambda p, b: tfm.prefill(p, cfg, tokens=b["tokens"]),
             tfm.init_cache, tfm.decode_step)
     if fam == "vlm":
         return _bundle(
-            cfg, vlm.init_vlm,
+            cfg, vlm.init_vlm, vlm.vlm_loss,
             lambda p, b: vlm.vlm_prefill(p, cfg, b["tokens"],
                                          b["patch_embeds"]),
             tfm.init_cache, tfm.decode_step)
     if fam == "encoder":
         return _bundle(
-            cfg, encoder.init_encoder,
+            cfg, encoder.init_encoder, encoder.encoder_loss,
             lambda p, b: encoder.encode(p, b["frames"], cfg,
                                         allow_pallas=True))
     if fam == "ssm":
         return _bundle(
-            cfg, rwkv.init_rwkv_lm,
+            cfg, rwkv.init_rwkv_lm, rwkv.rwkv_loss,
             lambda p, b: rwkv.rwkv_prefill(p, cfg, b["tokens"]),
             rwkv.init_rwkv_cache, rwkv.rwkv_decode_step)
     if fam == "hybrid":
         return _bundle(
-            cfg, hybrid.init_hybrid,
+            cfg, hybrid.init_hybrid, hybrid.hybrid_loss,
             lambda p, b: hybrid.hybrid_prefill(p, cfg, b["tokens"]),
             hybrid.init_hybrid_cache, hybrid.hybrid_decode_step)
     raise ValueError(f"unknown family {fam!r}")

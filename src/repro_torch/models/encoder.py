@@ -3,9 +3,8 @@
 The counterpart of the reference's `models/encoder.py`.  The conv waveform
 frontend is a stub, as there: the input is precomputed frame embeddings
 (B, T, D), and a learned linear adapter stands in for the feature
-projection.  `encoder_loss` (the masked-unit objective) waits for training
-(ROADMAP 1.14d); the reference's `_remat` is training-only and has no
-counterpart here.
+projection.  `encoder_loss` is the masked-unit objective: cross-entropy
+over `num_classes` codebook units at the masked frames.
 """
 from __future__ import annotations
 
@@ -15,7 +14,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (attention_block, cdtype,
                                        init_attention, init_dense, init_mlp,
                                        layer_params, mlp_block, pdtype,
-                                       rmsnorm)
+                                       rmsnorm, softmax_xent)
+from repro_torch.models.transformer import _remat
 
 
 def init_encoder(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -46,10 +46,24 @@ def encode(params: dict, frames: torch.Tensor, cfg: ArchConfig,
     if mask_positions is not None:
         x = torch.where(mask_positions[..., None],
                         params["mask_embed"].to(x.dtype), x)
-    for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
+
+    def layer_fn(x, lp):
         a, _ = attention_block(lp["attn"], x, cfg, is_global=True,
                                allow_pallas=allow_pallas)
         x = x + a
-        x = x + mlp_block(lp["ffn"], x, cfg)
+        return x + mlp_block(lp["ffn"], x, cfg)
+
+    body = _remat(layer_fn, cfg)
+    for i in range(cfg.n_layers):
+        x = body(x, layer_params(params["layers"], i))
     return rmsnorm(x, params["final_norm"])
+
+
+def encoder_loss(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Masked-prediction cross-entropy at the masked frames (HuBERT's
+    objective); the attention is the plain version (no kernel)."""
+    x = encode(params, batch["frames"], cfg,
+               mask_positions=batch["mask_positions"])
+    logits = x @ params["head"].to(x.dtype)
+    m = batch["mask_positions"].to(torch.float32)
+    return softmax_xent(logits, batch["targets"], m)

@@ -8,8 +8,9 @@ reference's layout: `mamba_groups` (G, attn_every, ...), `mamba_tail`
 (tail, ...), `shared_attn` and `shared_mlp` unstacked.  Each
 shared-attention call site has its OWN KV cache (weights shared, state
 not), a ring buffer of min(shared_attn_window, seq_len) slots.  A decode
-step writes every state and cache slot in place.  `hybrid_loss` waits for
-training (ROADMAP 1.14d).
+step writes every state and cache slot in place.  `hybrid_loss` is the
+training objective; a group (not the tail) is the unit of remat, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -20,9 +21,9 @@ from repro_torch.core.types import resolve_device
 from repro_torch.models.layers import (attention_block, cdtype, embed_tokens,
                                        init_attention, init_embeddings,
                                        init_mlp, layer_params, lm_logits,
-                                       mlp_block)
+                                       mlp_block, softmax_xent)
 from repro_torch.models.ssm import init_mamba, mamba_block, mamba_init_state
-from repro_torch.models.transformer import _decode_attn
+from repro_torch.models.transformer import _decode_attn, _remat
 
 
 def _group_counts(cfg: ArchConfig) -> tuple[int, int]:
@@ -46,19 +47,29 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor
     """Full-sequence forward.  Returns (B, T, D)."""
     x = embed_tokens(params["embed"], tokens, cfg).to(cdtype(cfg))
     g, tail = _group_counts(cfg)
-    for gi in range(g):
+
+    def group_fn(x, gp):
         for i in range(cfg.attn_every):
-            m, _ = mamba_block(layer_params(params["mamba_groups"], gi, i),
-                               x, cfg)
+            m, _ = mamba_block(layer_params(gp, i), x, cfg)
             x = x + m
         a, _ = attention_block(params["shared_attn"], x, cfg,
                                is_global=True)
         x = x + a
-        x = x + mlp_block(params["shared_mlp"], x, cfg)
+        return x + mlp_block(params["shared_mlp"], x, cfg)
+
+    body = _remat(group_fn, cfg)
+    for gi in range(g):
+        x = body(x, layer_params(params["mamba_groups"], gi))
     for li in range(tail):
         m, _ = mamba_block(layer_params(params["mamba_tail"], li), x, cfg)
         x = x + m
     return x
+
+
+def hybrid_loss(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    x = forward(params, cfg, batch["tokens"])
+    logits = lm_logits(params["embed"], x, cfg)
+    return softmax_xent(logits, batch["targets"], batch["mask"])
 
 
 def init_hybrid_cache(cfg: ArchConfig, batch: int, seq_len: int,

@@ -22,8 +22,7 @@ Conventions:
     applies them, so the card and the CPU add the same terms in the same
     order.  Its EP combine (`_ep_local_combine`) runs on the shard
     collectives of `core.collectives`.
-
-Left out: `softmax_xent` waits for training (ROADMAP 1.14d).
+  * `softmax_xent` is the training objective's cross-entropy.
 """
 from __future__ import annotations
 
@@ -560,3 +559,20 @@ def lm_logits(params: dict, x: torch.Tensor, cfg: ArchConfig
     w = params["tok"].T if cfg.tie_embeddings else params["unembed"]
     return h @ w.to(h.dtype)
 
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean cross-entropy in f32, as the reference's: the row max
+    held out of the gradient, the loss divided by max(mask.sum(), 1).  The
+    label's log-prob is a gather where the reference takes an einsum
+    against a one-hot: the same single term, exact, without a (B, T, V)
+    one-hot."""
+    logits = logits.to(torch.float32)
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    shifted = logits - m
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
+    ll = torch.gather(shifted, -1, targets.long()[..., None])[..., 0] \
+        + m[..., 0]
+    loss = (lse - ll) * mask
+    return loss.sum() / torch.clamp(mask.sum(), min=1.0)

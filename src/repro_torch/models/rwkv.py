@@ -3,8 +3,8 @@
 The counterpart of the reference's `models/rwkv.py`.  The layers are
 stacked (L, ...) and run in a Python loop.  The decode cache holds one
 O(1) state a layer (independent of the sequence length); a decode step
-writes it in place and returns the same tensors.  `rwkv_loss` waits for
-training (ROADMAP 1.14d).
+writes it in place and returns the same tensors.  `rwkv_loss` is the
+training objective.
 """
 from __future__ import annotations
 
@@ -12,9 +12,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (cdtype, embed_tokens, init_embeddings,
-                                       layer_params, lm_logits)
+                                       layer_params, lm_logits, softmax_xent)
 from repro_torch.models.ssm import (init_rwkv_cmix, init_rwkv_tmix,
                                     rwkv_cmix, rwkv_init_state, rwkv_tmix)
+from repro_torch.models.transformer import _remat
 
 
 def init_rwkv_lm(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -28,13 +29,23 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor
             ) -> torch.Tensor:
     """Full-sequence forward.  Returns (B, T, D)."""
     x = embed_tokens(params["embed"], tokens, cfg).to(cdtype(cfg))
-    for li in range(cfg.n_layers):
-        lp = layer_params(params["layers"], li)
+
+    def layer_fn(x, lp):
         t, _ = rwkv_tmix(lp["tmix"], x, cfg)
         x = x + t
         c, _ = rwkv_cmix(lp["cmix"], x, cfg)
-        x = x + c
+        return x + c
+
+    body = _remat(layer_fn, cfg)
+    for li in range(cfg.n_layers):
+        x = body(x, layer_params(params["layers"], li))
     return x
+
+
+def rwkv_loss(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    x = forward(params, cfg, batch["tokens"])
+    logits = lm_logits(params["embed"], x, cfg)
+    return softmax_xent(logits, batch["targets"], batch["mask"])
 
 
 def init_rwkv_cache(cfg: ArchConfig, batch: int, seq_len: int,

@@ -13,13 +13,17 @@ step writes its slot in place and returns the same cache tensors.  A MoE
 layer's feed-forward is `moe_block` (family "moe"), a dense one's
 `mlp_block`.
 
-`lm_loss` waits for training (ROADMAP 1.14d).
+`lm_loss` is the training objective.  `_remat` wraps a layer (or group)
+body as the reference's `jax.checkpoint` does, by the config's `remat`.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
@@ -28,7 +32,30 @@ from repro_torch.models.layers import (apply_rope, attention_block, cdtype,
                                        init_attention, init_embeddings,
                                        init_mlp, init_moe, layer_params,
                                        lm_logits, mlp_block, moe_block,
-                                       rmsnorm)
+                                       rmsnorm, softmax_xent)
+
+# the plain matmuls: what `checkpoint_dots_with_no_batch_dims` saves (a
+# batched product, attention's or the experts', is recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ArchConfig):
+    """`fn` recomputed in the backward pass: "none" keeps every
+    activation, "dots" keeps the plain matmuls' outputs, any other value
+    keeps only the inputs.  Without autograd (serving) `fn` runs as it
+    is."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -88,16 +115,46 @@ def forward(params: dict, cfg: ArchConfig,
             tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
             use_windowed_kernel: bool = False) -> torch.Tensor:
-    """Full-sequence forward (prefill hidden states).  Returns (B, T, D)."""
+    """Full-sequence forward (training, prefill hidden states).  Returns
+    (B, T, D)."""
     _check_family(cfg)
     use_windowed_kernel = use_windowed_kernel or cfg.windowed_kernel
     x = embeds if embeds is not None else embed_tokens(params["embed"],
                                                        tokens, cfg)
     x = x.to(cdtype(cfg))
-    for idx, is_global in _layers_in_order(cfg):
-        x, _ = _layer(layer_params(params["layers"], *idx), x, cfg,
-                      is_global, use_windowed_kernel=use_windowed_kernel)
+    if _grouped(cfg):
+        per = cfg.global_every
+
+        def group_fn(x, gp):
+            for i in range(per):
+                x, _ = _layer(layer_params(gp, i), x, cfg, i == per - 1,
+                              use_windowed_kernel=use_windowed_kernel)
+            return x
+
+        body = _remat(group_fn, cfg)
+        for gi in range(cfg.n_layers // per):
+            x = body(x, layer_params(params["layers"], gi))
+        return x
+    window_only = cfg.window > 0 and cfg.global_every == 0
+
+    def layer_fn(x, lp):
+        return _layer(lp, x, cfg, not window_only,
+                      use_windowed_kernel=use_windowed_kernel)[0]
+
+    body = _remat(layer_fn, cfg)
+    for li in range(cfg.n_layers):
+        x = body(x, layer_params(params["layers"], li))
     return x
+
+
+def lm_loss(params: dict, batch: dict, cfg: ArchConfig,
+            use_windowed_kernel: bool = False) -> torch.Tensor:
+    x = forward(params, cfg, tokens=batch.get("tokens"),
+                embeds=batch.get("embeds"),
+                use_windowed_kernel=use_windowed_kernel
+                or cfg.windowed_kernel)
+    logits = lm_logits(params["embed"], x, cfg)
+    return softmax_xent(logits, batch["targets"], batch["mask"])
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,7 @@ a stub: the caller passes precomputed patch embeddings (B, P, d_model),
 already projected, which replace the first P token positions (prefix
 layout); `tokens` spans them, so T >= P.  The backbone is the dense
 decoder of `models/transformer.py`; decode is its text-only
-`decode_step`.  `vlm_loss` waits for training (ROADMAP 1.14d).
+`decode_step`.  `vlm_loss` leaves the patch prefix out of the LM loss.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import embed_tokens
+from repro_torch.models.layers import embed_tokens, lm_logits, softmax_xent
 
 
 def init_vlm(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -28,6 +28,19 @@ def splice_embeds(params: dict, tokens: torch.Tensor,
     x = embed_tokens(params["embed"], tokens, cfg)
     p = patch_embeds.shape[1]
     return torch.cat([patch_embeds.to(x.dtype), x[:, p:]], dim=1)
+
+
+def vlm_loss(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    embeds = splice_embeds(params, batch["tokens"], batch["patch_embeds"],
+                           cfg)
+    x = tfm.forward(params, cfg, embeds=embeds)
+    logits = lm_logits(params["embed"], x, cfg)
+    # the image-prefix positions are masked out of the LM loss, on a copy:
+    # the caller's mask stays as it is
+    p = batch["patch_embeds"].shape[1]
+    mask = batch["mask"].clone()
+    mask[:, :p] = 0.0
+    return softmax_xent(logits, batch["targets"], mask)
 
 
 def vlm_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,

@@ -115,3 +115,55 @@ def test_checkpoint_manager_retention(tmp_path):
     assert torch.equal(got["w"], torch.full((3,), 4.0))
     assert int(got["s"][0]) == 4
     assert CK.latest_step(str(tmp_path / "missing")) is None
+
+
+def _bf16_tree():
+    return {"p": torch.tensor([1.0, -2.5, 3.140625, 1e-3]).to(
+        torch.bfloat16), "w": torch.arange(3, dtype=torch.float32)}
+
+
+def test_bf16_leaf_round_trip(tmp_path):
+    tree = _bf16_tree()
+    CK.save_checkpoint(str(tmp_path), 1, tree)
+    assert CK.read_manifest(str(tmp_path), 1)["leaves"]["p"]["dtype"] == \
+        "bfloat16"
+    got, _ = CK.restore_checkpoint(str(tmp_path), 1, _bf16_tree())
+    assert got["p"].dtype == torch.bfloat16
+    assert torch.equal(got["p"].view(torch.int16),
+                       tree["p"].view(torch.int16))
+    # the async manager writes the same
+    mgr = CK.CheckpointManager(str(tmp_path / "m"))
+    mgr.save_async(2, tree)
+    mgr.wait()
+    got, _ = CK.restore_checkpoint(str(tmp_path / "m"), 2, _bf16_tree())
+    assert torch.equal(got["p"], tree["p"])
+
+
+def test_bf16_files_are_the_references_bytes(tmp_path):
+    # the reference writes a bfloat16 leaf as its bits under |V2; the
+    # port's file is the same bytes, and it restores the reference's
+    import ml_dtypes
+    bits = _bf16_tree()["p"].view(torch.int16).numpy()
+    ref_tree = {"p": bits.view(ml_dtypes.bfloat16)}
+    RCK.save_checkpoint(str(tmp_path / "ref"), 1, ref_tree)
+    CK.save_checkpoint(str(tmp_path / "port"), 1, {"p": _bf16_tree()["p"]})
+    ref_file = (tmp_path / "ref" / "step_00000001" / "p.npy").read_bytes()
+    port_file = (tmp_path / "port" / "step_00000001" / "p.npy").read_bytes()
+    assert ref_file == port_file
+    assert np.load(tmp_path / "ref" / "step_00000001" / "p.npy").dtype.str \
+        == "|V2"
+    assert RCK.read_manifest(str(tmp_path / "ref"), 1)["leaves"] == \
+        CK.read_manifest(str(tmp_path / "port"), 1)["leaves"]
+    got, _ = CK.restore_checkpoint(str(tmp_path / "ref"), 1,
+                                   {"p": torch.zeros(4,
+                                                     dtype=torch.bfloat16)})
+    assert torch.equal(got["p"], _bf16_tree()["p"])
+
+
+@pytest.mark.parametrize("like", [torch.zeros(4), torch.zeros(4, dtype=
+                                                              torch.int16),
+                                  torch.zeros(4, dtype=torch.float16)])
+def test_bf16_file_refused_into_another_dtype(tmp_path, like):
+    CK.save_checkpoint(str(tmp_path), 1, {"p": _bf16_tree()["p"]})
+    with pytest.raises(ValueError, match="'p'.*bfloat16"):
+        CK.restore_checkpoint(str(tmp_path), 1, {"p": like})

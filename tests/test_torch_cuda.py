@@ -1385,3 +1385,96 @@ def test_drift_sharded_executor_on_card_matches_cpu(cuda, E):
         x = getattr(a.stats, f.name).cpu().double().mean()
         y = getattr(b.stats, f.name).double().mean()
         assert abs(x - y) <= 0.01 * max(abs(float(y)), 1e-9), f.name
+
+
+# ---------------------------------------------------------------------------
+# training (no hand kernel on its path): the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _train_tree(device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return {"a": {"w": torch.randn((300, 70), generator=gen),
+                  "b": torch.randn((70,), generator=gen)},
+            "h": torch.randn((40, 33), generator=gen).to(torch.bfloat16)}
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_adamw_update_on_card_matches_cpu(cuda, state_dtype):
+    """Three AdamW steps, clip active, card against CPU: f32 leaves within
+    1e-5 relative (the global norm sums in another order), bf16 leaves
+    within one ulp."""
+    from repro_torch.models import params_to
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=10,
+                      grad_clip=0.05, state_dtype=state_dtype)
+    trees = {}
+    for dev in ("cpu", cuda):
+        p = params_to(_train_tree("cpu"), dev)
+        s = adamw_init(p, cfg)
+        for step in range(3):
+            g = params_to(_train_tree("cpu", 10 + step), dev)
+            p, s, m = adamw_update(p, g, s, cfg, donate=step == 1)
+        trees[str(dev)] = (p, s, m)
+    (pc, sc, mc), (pg, sg, mg) = trees["cpu"], trees["cuda"]
+    assert abs(float(mg["lr"]) - float(mc["lr"])) <= 1e-6 * float(mc["lr"])
+    for a, b in zip(tree_leaves(pg) + tree_leaves(sg),
+                    tree_leaves(pc) + tree_leaves(sc)):
+        a = a.cpu()
+        if b.dtype == torch.bfloat16:
+            assert torch.allclose(a.float(), b.float(), rtol=2 ** -7,
+                                  atol=0)
+        elif b.is_floating_point():
+            assert rel_l2(a, b)[0] <= (1e-5 if state_dtype == "float32"
+                                       else 1e-4)
+        else:
+            assert torch.equal(a, b)
+
+
+def test_ef_compress_grads_on_card_matches_cpu(cuda):
+    """The int8 codes the card makes are the CPU's: the error buffers and
+    the round-tripped grads bit-equal (the scale divides by a tensor)."""
+    from repro_torch.models import params_to
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.optim.compression import (ef_compress_grads,
+                                               init_error_buffers)
+    out = {}
+    for dev in ("cpu", cuda):
+        err = init_error_buffers(params_to(_train_tree("cpu"), dev))
+        for step in range(3):
+            g, err = ef_compress_grads(
+                params_to(_train_tree("cpu", 20 + step), dev), err)
+        out[str(dev)] = tree_leaves(g) + tree_leaves(err)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_smoke_training_step_on_card_matches_cpu(cuda):
+    """One training step of llama3.2-3b's smoke model (f32), card against
+    CPU from the same weights: loss and grad norm within 1e-5 relative,
+    params within a relative L2 of 1e-5; no hand kernel launched."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.specs import make_smoke_batch
+    from repro_torch.models import build_model, params_to
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.loop import (TrainConfig, init_opt_state,
+                                        make_train_step)
+    cfg = smoke_config("llama3.2-3b")
+    bundle = build_model(cfg)
+    opt, tc = AdamWConfig(lr=1e-3, warmup_steps=2), TrainConfig()
+    base = bundle.init(0, "cpu")
+    batch = make_smoke_batch(cfg, 2, 32, seed=0, device="cpu")
+    step = make_train_step(bundle, opt, tc, donate=False)
+    want = step(base, init_opt_state(bundle, base, opt, tc), batch)
+    ops.reset_launches()
+    on = params_to(base, cuda)
+    got = step(on, init_opt_state(bundle, on, opt, tc),
+               params_to(batch, cuda))
+    torch.cuda.synchronize()
+    assert sum(ops.launches().values()) == 0
+    for key in ("loss", "grad_norm"):
+        assert abs(float(got[2][key]) - float(want[2][key])) <= \
+            1e-5 * abs(float(want[2][key]))
+    for a, b in zip(tree_leaves(got[0]), tree_leaves(want[0])):
+        assert rel_l2(a.cpu(), b)[0] <= 1e-5

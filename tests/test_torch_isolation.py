@@ -87,7 +87,10 @@ def test_entry_points_default_to_the_card():
     from repro_torch.core.distributed import (ShardedGraphExecutor,
                                               build_sharded_scann)
     from repro_torch.data import make_dataset_streamed
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.specs import make_smoke_batch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, Trainer
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import build_model
     from repro_torch.serving import ServeEngine
@@ -119,6 +122,14 @@ def test_entry_points_default_to_the_card():
                                     "data", num_leaves=4),
         lambda: ShardedGraphExecutor(graph, store, 2),
         lambda: interop.lm_params({"w": np.ones(2, np.float32)}),
+        lambda: Trainer(build_model(smoke_config("llama3.2-3b")),
+                        AdamWConfig(), TrainConfig(steps=1),
+                        lambda step: {}).init_or_restore(0),
+        lambda: train.main(["--arch", "llama3.2-3b", "--steps", "1"]),
+        lambda: build_model(smoke_config("llama3.2-3b")).loss(
+            build_model(smoke_config("llama3.2-3b")).init(0),
+            make_smoke_batch(smoke_config("llama3.2-3b"), 1, 4, seed=0)),
+        lambda: make_smoke_batch(smoke_config("llama3.2-3b"), 1, 4),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -182,3 +193,18 @@ def test_mutability_modules_are_covered_and_default_to_the_card(tmp_path):
     # the host state alone needs no device
     assert DeltaTier(base_n=0, capacity=4, dim=2).device_vectors is None
     assert Tombstones(64).device_words is None
+
+
+def test_training_modules_are_covered():
+    # the import blocker and the import-first check walk these too
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.optim.compression", "repro_torch.train",
+            "repro_torch.train.loop", "repro_torch.data.pipeline",
+            "repro_torch.launch.specs", "repro_torch.launch.train"} <= names
+    import repro_torch.models.api as api
+    assert not hasattr(api, "TRAINING_ITEM")

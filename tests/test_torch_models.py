@@ -54,7 +54,7 @@ def smoke(arch: str, **over):
 @functools.lru_cache(maxsize=None)
 def weights(cfg):
     """(reference params, the port's copy) for one smoke config."""
-    jp = japi.build_model(cfg).init(jax.random.PRNGKey(0))
+    jp = jax.jit(japi.build_model(cfg).init)(jax.random.PRNGKey(0))
     return jp, interop.lm_params(jax.tree.map(np.asarray, jp), "cpu")
 
 
@@ -237,28 +237,37 @@ def test_init_is_seeded():
                                   "rwkv6-3b", "zamba2-1.2b",
                                   "llava-next-mistral-7b"])
 def test_other_families_raise_naming_their_roadmap_item(arch):
-    # the families of ROADMAP 1.14b / 1.14c build and initialise; only
-    # their loss waits, for training (ROADMAP 1.14d)
-    cfg = TC.smoke_config(arch)
-    bundle = tapi.build_model(cfg)
-    params = bundle.init(0, "cpu")
-    assert params["embed"]["tok"].shape == (cfg.vocab, cfg.d_model)
+    # the families of ROADMAP 1.14b / 1.14c build and initialise, and
+    # their loss (ROADMAP 1.14d, done) is finite and the reference's
+    from repro.launch.specs import make_smoke_batch as ref_batch
+    from repro_torch.launch.specs import make_smoke_batch
+    cfg = RC.smoke_config(arch)
+    jp, tp = weights(cfg)
+    bundle = tapi.build_model(interop.arch_config(cfg))
+    assert tp["embed"]["tok"].shape == (cfg.vocab, cfg.d_model)
     assert bundle.decode is not None and bundle.init_cache is not None
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.14d"):
-        bundle.loss(params, {})
+    want = jax.jit(japi.build_model(cfg).loss)(jp,
+                                               ref_batch(cfg, 2, 24, seed=5))
+    got = bundle.loss(tp, make_smoke_batch(bundle.cfg, 2, 24, seed=5,
+                                           device="cpu"))
+    assert bool(torch.isfinite(got))
+    _close(got, want)
 
 
 def test_moe_in_the_transformer_and_loss_raise():
     # the transformer initialises the MoE family's experts; every
-    # bundle's loss names ROADMAP 1.14d, and the transformer refuses a
-    # family that is not a decoder of it
+    # bundle's loss is finite on its smoke batch, and the transformer
+    # refuses a family that is not a decoder of it
+    from repro_torch.launch.specs import make_smoke_batch
     moe = TC.smoke_config("granite-moe-1b-a400m")
     params = ttfm.init_lm(torch.Generator(), moe)
     assert params["layers"]["ffn"]["wg"].shape == \
         (moe.n_layers, moe.n_experts, moe.d_model, moe.d_ff)
     for arch in TC.ARCH_IDS:
-        bundle = tapi.build_model(TC.smoke_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP 1.14d"):
-            bundle.loss({}, {})
+        cfg = TC.smoke_config(arch)
+        bundle = tapi.build_model(cfg)
+        loss = bundle.loss(bundle.init(0, "cpu"), make_smoke_batch(
+            cfg, 2, 20, seed=1, device="cpu"))
+        assert bool(torch.isfinite(loss)) and loss.shape == (), arch
     with pytest.raises(ValueError, match="not a decoder"):
         ttfm.init_lm(torch.Generator(), TC.smoke_config("rwkv6-3b"))
