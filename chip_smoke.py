@@ -8,7 +8,7 @@ check it, end to end.
     python3 chip_smoke.py --phases main,serve            # the serving path
     python3 chip_smoke.py --phases main,shard            # the sharded tiers
     python3 chip_smoke.py --phases families    # MoE, RWKV6, Zamba2, LLaVA
-    python3 chip_smoke.py --phases train       # training
+    python3 chip_smoke.py --phases train       # training, mesh training
 
 Phases:
   device    the card's name and power limit; the kernels' build time
@@ -134,7 +134,22 @@ Phases:
             (loss bit-equal), 2 x (2 x 512) microbatches against 4 x 512 at
             capacity_factor 32, and 12 steps of 4 x 512 (bf16 compute,
             remat dots, f32 AdamW states): tokens/s, the median step, peak
-            memory, the busy share of 2 profiled steps, a falling loss
+            memory, the busy share of 2 profiled steps, a falling loss;
+            then the mesh step: `launch.train --mesh` on the smoke MoE
+            (6 steps; the losses of `--mesh single` and of a crash at
+            step 4 under it resumed under `--mesh multi` against the run
+            without a mesh, allclose 1e-6), the step-3 checkpoint placed
+            by `param_specs` / `opt_specs` on both production meshes
+            (every leaf bit-equal to its .npy, on the card), the bytes a
+            position of three configs under the specs (arithmetic), and
+            granite-moe-1b-a400m at its published widths with the EP
+            combine on the single-pod mesh (16 stacked shards of 2
+            experts) against the plain combine, 3 steps of 4 x 512 at
+            f32 (held: both combines' loss and grad norm from each
+            step's params of the plain run within 1e-5; the two runs'
+            first step within 1e-5, every step and the final params
+            within max(1e-5, 5 x a one-ulp weight move's reading)) and
+            at bf16 (recorded): ms a step, peak memory
   profile   (only when named in --phases) one search per method under
             torch.profiler: the device's busy share and its top kernels
 
@@ -3666,13 +3681,16 @@ def _tree_rel(got, want) -> float:
 
 
 def _one_ulp(tree, seed: int = 5):
-    """Each float leaf times (1 + eps N(0, 1)), eps its dtype's."""
+    """Each float leaf times (1 + eps N(0, 1)), eps its dtype's; the
+    draws on the leaves' device."""
     import torch
-    from repro_torch.optim.adamw import tree_map
-    gen = torch.Generator().manual_seed(seed)
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    dev = tree_leaves(tree)[0].device
+    gen = torch.Generator(device=dev).manual_seed(seed)
     return tree_map(lambda t: t * (1 + torch.finfo(t.dtype).eps
                                    * torch.randn(t.shape, generator=gen,
-                                                 dtype=t.dtype)), tree)
+                                                 dtype=t.dtype,
+                                                 device=dev)), tree)
 
 
 def train_card_vs_cpu(cfg, label: str, out: dict, dev="cuda",
@@ -4150,12 +4168,353 @@ def train_run(cfg, out: dict, dev="cuda") -> None:
     del params, state, tr
 
 
+# the mesh step: launch.train --mesh on the smoke MoE (the shipped
+# configs leave the EP combine off, so a mesh run is the one-device run),
+# a crash under one production mesh resumed under the other, the
+# checkpoint laid out by the partition rules, then the EP combine at the
+# published widths
+MESH_SMOKE_ARGS = ("--arch", "granite-moe-1b-a400m", "--steps", "6",
+                   "--batch", "4", "--seq", "64", "--log-every", "1")
+MESH_CKPT_EVERY, MESH_FAIL_AT = 3, 4
+# granite-moe at its published widths and depth with moe_local_combine on
+# the single-pod mesh (model axis 16: 2 experts a stacked shard) against
+# the plain combine, 3 steps of 4 x 512 each.  At f32 compute the two
+# differ only in the order of the additions.  Held within MESH_EP_TOL:
+# at each step of the plain run, the loss and grad norm of both combines
+# from that step's params and batch.  The two training runs, each on its
+# own combine, part further: AdamW divides each element by its own root
+# second moment, which lifts a rounding difference of one step's
+# gradient in the next steps' (on an H100 the grad norm of step 3 read
+# 1.78e-5 apart, and 1.77e-5 against a plain run from the weights moved
+# by one ulp).  So their first step (the same weights on both sides) is
+# held within MESH_EP_TOL, and every step and the final params (relative
+# L2, the worst leaf) within max(MESH_EP_TOL, TRAIN_SMOKE_RATIO x that
+# one-ulp run's reading), the smoke training's rule.  At the published
+# bf16 compute each shard's partial rounds to bf16 (CPU, 2 layers,
+# 2 x 256: loss 1.3e-4, grad norm 3.4e-3 apart): recorded only
+MESH_EP_STEPS = 3
+MESH_EP_TOL = 1e-5
+MESH_BYTES_ARCHS = ("granite-moe-1b-a400m", "granite-8b",
+                    "kimi-k2-1t-a32b")
+
+
+def mesh_launcher(out: dict, dev="cuda") -> None:
+    """`launch.train.main` on the smoke granite-moe, 6 steps: without a
+    mesh, under `--mesh single` (allclose TRAIN_RESTART_ATOL), and killed
+    at step 4 under `--mesh single` with a checkpoint every 3, resumed
+    under `--mesh multi` (the resumed losses against the uninterrupted
+    run's); then the step-3 checkpoint restored with
+    `shardings=to_named(param_specs(...))` on both production meshes,
+    every leaf bit-equal to its .npy and on the card."""
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import leaf_paths, restore_checkpoint
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.loop import TrainConfig, init_opt_state
+
+    def run(*args):
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                hist = launch_train.main([*MESH_SMOKE_ARGS, "--device", dev,
+                                          *args])
+        finally:
+            lines = buf.getvalue().splitlines()
+        return [h["loss"] for h in hist], [h["step"] for h in hist], lines
+
+    def close(a, b):
+        return len(a) == len(b) and bool(np.allclose(
+            a, b, rtol=0, atol=TRAIN_RESTART_ATOL))
+
+    root = tempfile.mkdtemp(prefix="mesh_launcher_")
+    try:
+        straight, _, _ = run()
+        single, _, lines = run("--mesh", "single")
+        print("   " + lines[0], flush=True)
+        check(lines[0].startswith("mesh data=16 model=16") and close(
+            single, straight), f"mesh: --mesh single losses {single} "
+              f"against {straight}")
+        ck = os.path.join(root, "ck")
+        resume = ("--checkpoint-dir", ck, "--checkpoint-every",
+                  str(MESH_CKPT_EVERY))
+        try:
+            run("--mesh", "single", *resume, "--fail-at", str(MESH_FAIL_AT))
+            crashed = False
+        except RuntimeError as e:
+            crashed = "injected failure" in str(e)
+        resumed, steps, lines = run("--mesh", "multi", *resume)
+        want = straight[MESH_FAIL_AT - 1:]
+        worst = max(abs(a - b) for a, b in zip(resumed, want))
+        out["launcher"] = {
+            "straight": straight, "single": single,
+            "single_bit_equal": single == straight, "resumed": resumed,
+            "resumed_steps": steps, "resumed_bit_equal": resumed == want,
+            "resumed_max_abs_diff": worst}
+        print(f"   mesh launcher: smoke {MESH_SMOKE_ARGS[1]} 6 steps, "
+              f"--mesh single vs none bit-equal {single == straight}; crash "
+              f"at {MESH_FAIL_AT} under single, resumed under multi at "
+              f"steps {steps}: max |diff| {worst:.3g} (bit-equal "
+              f"{resumed == want}); {lines[0]}", flush=True)
+        check(crashed and steps == list(range(MESH_FAIL_AT, 7))
+              and lines[0].startswith("mesh pod=2 data=16 model=16")
+              and close(resumed, want), f"mesh: resumed {steps} "
+              f"{resumed} against {want}")
+
+        # the step-3 checkpoint laid out by the partition rules
+        from repro_torch.configs import smoke_config
+        cfg = smoke_config(MESH_SMOKE_ARGS[1])
+        bundle = build_model(cfg)
+        shapes = bundle.init(0, "meta")
+        like = {"params": shapes, "opt": init_opt_state(
+            bundle, shapes, AdamWConfig(), TrainConfig())}
+        step_dir = os.path.join(ck, f"step_{MESH_CKPT_EVERY:08d}")
+        files = {n: np.load(os.path.join(step_dir, n + ".npy"))
+                 for n, _ in leaf_paths(like)}
+        placed = {}
+        for name in ("single", "multi"):
+            mesh = make_production_mesh(multi_pod=name == "multi")
+            pspec = SH.param_specs(cfg, shapes, mesh)
+            shd = {"params": SH.to_named(pspec, mesh),
+                   "opt": SH.to_named(SH.opt_specs(cfg, like["opt"], pspec,
+                                                   mesh), mesh)}
+            tree, _ = restore_checkpoint(ck, MESH_CKPT_EVERY, like,
+                                         shardings=shd)
+            leaves = leaf_paths(tree)
+            equal = sum(t.cpu().numpy().tobytes() == files[n].tobytes()
+                        for n, t in leaves)
+            on_card = sum(t.device.type == torch.device(dev).type
+                          for _, t in leaves)
+            split = sum(any(a is not None for a in s.spec)
+                        for _, s in leaf_paths(shd))
+            placed[name] = {"leaves": len(leaves), "bit_equal": equal,
+                            "on_device": on_card, "sharded_specs": split}
+            check(equal == on_card == len(leaves) == len(files),
+                  f"mesh: placement on {name}: {placed[name]}")
+        out["placement"] = placed
+        print(f"   mesh placement of the step-{MESH_CKPT_EVERY} checkpoint "
+              f"(shardings from param_specs / opt_specs): " + "; ".join(
+                  f"{k}: {v['bit_equal']} / {v['leaves']} leaves bit-equal "
+                  f"on {dev}, {v['sharded_specs']} specs name an axis"
+                  for k, v in placed.items()), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def mesh_ep_combine(cfg, out: dict, dev="cuda") -> None:
+    """`cfg` (granite-moe-1b-a400m at its published widths and depth)
+    trained MESH_EP_STEPS steps of TRAIN_FULL_BATCH x TRAIN_FULL_SEQ with
+    the plain combine and with the EP combine on the single-pod mesh
+    (stacked), at f32 and at bf16 compute, and at f32 the plain combine
+    from the weights moved by one ulp: loss and grad norm a step, ms a
+    step, peak GiB, the final params against the plain run's; first, at
+    f32, both combines' loss and grad norm from each step's params of the
+    plain run.  f32 held (see MESH_EP_TOL)."""
+    import statistics
+
+    import torch
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.loop import value_and_grad
+
+    mesh = make_production_mesh()
+    opt = AdamWConfig(lr=TRAIN_FULL_LR, warmup_steps=TRAIN_FULL_WARMUP,
+                      total_steps=TRAIN_FULL_STEPS)
+    rec = out["ep_combine"] = {}
+
+    def train(c, m, ulp=False):
+        tr = Trainer(build_model(c, m), opt, TrainConfig(
+            steps=MESH_EP_STEPS, log_every=1), lambda step: _full_batch(
+                c, step, TRAIN_FULL_BATCH, dev))
+        # the peak above what earlier runs still hold (the plain run's
+        # params, kept for the comparison)
+        held = torch.cuda.memory_allocated() if dev == "cuda" else 0
+        params, state, _ = tr.init_or_restore(0, dev)
+        if ulp:
+            params = _one_ulp(params)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        params, state = tr.run(params, state)
+        peak = torch.cuda.max_memory_allocated() - held \
+            if dev == "cuda" else 0
+        hist = tr.history
+        del state, tr
+        _free_cuda(dev)
+        return params, {"losses": [h["loss"] for h in hist],
+                "grad_norms": [h["grad_norm"] for h in hist],
+                "step_ms": [1e3 * h["sec"] for h in hist],
+                "median_ms_2_on": 1e3 * statistics.median(
+                    h["sec"] for h in hist[1:]),
+                "peak_gib": peak / 2**30}
+
+    def norm(grads) -> float:
+        return math.sqrt(sum(float(torch.sum(torch.square(g.float())))
+                             for g in tree_leaves(grads)))
+
+    def same_params(c, ep_c) -> dict:
+        """At each step of the plain run, the EP combine's loss and grad
+        norm against the plain one's from that step's params and batch."""
+        plain_b, ep_b = build_model(c), build_model(ep_c, mesh)
+        params = plain_b.init(0, dev)
+        state = adamw_init(params, opt)
+        got = {"losses": [], "grad_norms": []}
+        for step in range(MESH_EP_STEPS):
+            batch = _full_batch(c, step, TRAIN_FULL_BATCH, dev)
+            le, grads = value_and_grad(ep_b.loss, params, batch)
+            ne = norm(grads)
+            del grads
+            lp, grads = value_and_grad(plain_b.loss, params, batch)
+            got["losses"].append(abs(float(le) / float(lp) - 1))
+            got["grad_norms"].append(abs(ne / norm(grads) - 1))
+            params, state, _ = adamw_update(params, grads, state, opt,
+                                            donate=True)
+            del grads
+        del params, state
+        _free_cuda(dev)
+        return got
+
+    def rels(got, want):
+        (gp, got), (wp, want) = got, want
+        out = {k: [abs(a / b - 1) for a, b in zip(got[k], want[k])]
+               for k in ("losses", "grad_norms")}
+        out["params"] = [_tree_rel(gp, wp)]
+        return out
+
+    for compute in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, compute_dtype=compute)
+        ep_c = dataclasses.replace(c, moe_local_combine=True)
+        r = rec[compute] = {}
+        if compute == "float32":
+            r["same_params"] = same_params(c, ep_c)
+            print(f"   mesh EP combine {cfg.name} f32, from each step's "
+                  f"params of the plain run: loss rel " + " ".join(
+                      f"{x:.3g}" for x in r["same_params"]["losses"])
+                  + ", grad norm rel " + " ".join(
+                      f"{x:.3g}" for x in r["same_params"]["grad_norms"])
+                  + f" (limit {MESH_EP_TOL})", flush=True)
+        plain = train(c, None)
+        ep = train(ep_c, mesh)
+        p, e = plain[1], ep[1]
+        r.update({"plain": p, "ep": e, "ep_vs_plain": rels(ep, plain)})
+        del ep
+        if compute == "float32":
+            r["one_ulp_vs_plain"] = rels(train(c, None, ulp=True), plain)
+        del plain
+        _free_cuda(dev)
+        print(f"   mesh EP combine {cfg.name} ({cfg.n_layers} layers, "
+              f"{compute} compute, model axis 16: "
+              f"{cfg.n_experts // 16} experts a stacked shard), "
+              f"{MESH_EP_STEPS} steps of {TRAIN_FULL_BATCH} x "
+              f"{TRAIN_FULL_SEQ}: EP vs plain loss rel "
+              + " ".join(f"{x:.3g}" for x in r["ep_vs_plain"]["losses"])
+              + ", grad norm rel " + " ".join(
+                  f"{x:.3g}" for x in r["ep_vs_plain"]["grad_norms"])
+              + f", final params rel {r['ep_vs_plain']['params'][0]:.3g}"
+              + ("; one ulp vs plain loss rel " + " ".join(
+                  f"{x:.3g}" for x in r["one_ulp_vs_plain"]["losses"])
+                 + ", grad norm rel " + " ".join(
+                  f"{x:.3g}" for x in r["one_ulp_vs_plain"]["grad_norms"])
+                 + ", final params rel "
+                 f"{r['one_ulp_vs_plain']['params'][0]:.3g}"
+                 if "one_ulp_vs_plain" in r else "")
+              + f"; ms a step (median of 2-{MESH_EP_STEPS}) plain "
+              f"{p['median_ms_2_on']:.1f}, EP {e['median_ms_2_on']:.1f}; "
+              f"peak GiB plain {p['peak_gib']:.2f}, EP "
+              f"{e['peak_gib']:.2f}; losses plain " + " ".join(
+                  f"{x:.4f}" for x in p["losses"]) + ", EP " + " ".join(
+                  f"{x:.4f}" for x in e["losses"]), flush=True)
+        check(all(math.isfinite(x) for x in e["losses"] + p["losses"]),
+              f"mesh EP combine {compute}: a loss is not finite")
+    f32 = rec["float32"]
+    limit = {k: max(MESH_EP_TOL, TRAIN_SMOKE_RATIO * max(v))
+             for k, v in f32["one_ulp_vs_plain"].items()}
+    f32["limit"] = limit
+    check(all(max(v) <= MESH_EP_TOL for v in f32["same_params"].values()),
+          f"mesh EP combine f32, from the same params: "
+          f"{f32['same_params']} (limit {MESH_EP_TOL})")
+    first = {k: f32["ep_vs_plain"][k][0] for k in ("losses", "grad_norms")}
+    check(max(first.values()) <= MESH_EP_TOL,
+          f"mesh EP combine f32, first step: {first} (limit {MESH_EP_TOL})")
+    check(all(max(v) <= limit[k] for k, v in f32["ep_vs_plain"].items()),
+          f"mesh EP combine f32: {f32['ep_vs_plain']}, limits {limit}")
+
+
+def mesh_spec_bytes(out: dict) -> None:
+    """Arithmetic on the shapes, not a measurement: the bytes one
+    position of each production mesh would hold of params and AdamW
+    states (bf16 states for bf16 params, as the reference's dry run
+    chooses) laid out by param_specs / opt_specs."""
+    from repro_torch import configs as C
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train.loop import TrainConfig, init_opt_state
+
+    rec = out["spec_bytes"] = {}
+    for arch in MESH_BYTES_ARCHS:
+        cfg = C.get_config(arch)
+        bundle = build_model(cfg)
+        shapes = bundle.init(0, "meta")
+        opt = AdamWConfig(state_dtype="bfloat16" if cfg.param_dtype
+                          == "bfloat16" else "float32")
+        states = init_opt_state(bundle, shapes, opt, TrainConfig())
+        for multi in (False, True):
+            mesh = make_production_mesh(multi_pod=multi)
+            pspec = SH.param_specs(cfg, shapes, mesh)
+            ospec = SH.opt_specs(cfg, states, pspec, mesh)
+            whole = sum(t.numel() * t.element_size()
+                        for t in tree_leaves(shapes))
+            got = {"params_gib": SH.per_position_bytes(
+                       shapes, pspec, mesh) / 2**30,
+                   "adamw_gib": SH.per_position_bytes(
+                       states, ospec, mesh) / 2**30,
+                   "params_whole_gib": whole / 2**30}
+            key = f"{arch} {'multi' if multi else 'single'}"
+            rec[key] = got
+            print(f"   spec arithmetic (not a measurement) {key} "
+                  f"({mesh.devices.size} positions): params "
+                  f"{got['params_gib']:.3f} GiB a position (whole "
+                  f"{got['params_whole_gib']:.1f}), AdamW states "
+                  f"{got['adamw_gib']:.3f} GiB a position", flush=True)
+
+
+def mesh_step(cfg, out: dict, dev="cuda") -> None:
+    """The mesh step of the train phase; its own hand-kernel launches
+    must be 0."""
+    from repro_torch.kernels import ops
+    rec = out["mesh"] = {}
+    before = dict(ops.launches())
+    mesh_launcher(rec, dev)
+    mesh_spec_bytes(rec)
+    mesh_ep_combine(cfg, rec, dev)
+    after = dict(ops.launches())
+    rec["hand_kernel_launches"] = {k: after[k] - before.get(k, 0)
+                                   for k in after}
+    check(not any(rec["hand_kernel_launches"].values()),
+          f"mesh: hand kernels launched: {rec['hand_kernel_launches']}")
+
+
 def phase_train(report: dict, dev="cuda", full_cfg=None) -> None:
     """Training: smoke models card against CPU (every architecture), the
     crash-restart replay on the card, then granite-moe-1b-a400m at its
     published widths and depth (`full_cfg` stands in for it in a
     rehearsal): the gradient check, remat, microbatches and the training
-    run.  No hand kernel may launch on the path."""
+    run; then the mesh step (`launch.train --mesh`, the elastic restart,
+    placement by the partition rules, the EP combine at the published
+    widths, the specs' per-position bytes).  No hand kernel may launch on
+    the path."""
     from repro_torch import configs as C
     from repro_torch.kernels import ops
 
@@ -4179,6 +4538,7 @@ def phase_train(report: dict, dev="cuda", full_cfg=None) -> None:
     step("remat", remat_check, cfg, out, dev)
     step("microbatch", microbatch_check, cfg, out, dev)
     step("run", train_run, cfg, out, dev)
+    step("mesh", mesh_step, cfg, out, dev)
     after = (dict(ops.launches()), dict(ops.routes()))
     out["hand_kernel_launches"] = {k: after[0][k] - before[0].get(k, 0)
                                    for k in after[0]}

@@ -13,6 +13,11 @@ outside [A-Za-z0-9_.-] replaced by "_" and the ends stripped: {"base": x}
 in sorted order and None is an empty subtree, as there.  With the same
 names and the same .npy bytes, a checkpoint directory written by either
 package restores in the other.
+
+Restore takes an optional `shardings` tree, as the reference's does:
+each leaf is placed on a device or laid out on a mesh
+(`launch.sharding.NamedSharding`), which may differ from the writer's
+(elastic re-mesh).
 """
 from __future__ import annotations
 
@@ -29,38 +34,40 @@ import torch
 _SAFE = re.compile(r"[^A-Za-z0-9_.-]+")
 
 
-def _flatten(tree: Any, path: str = "") -> list[tuple[str, Any]]:
-    """(keystr, leaf) pairs in the reference's flattening order."""
+def flatten_with_path(tree: Any, path: str = "") -> list[tuple[str, Any]]:
+    """(keystr, leaf) pairs in the reference's flattening order: the
+    paths the checkpoint names and the partition rules match."""
     if tree is None:
         return []
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
-            out += _flatten(tree[k], f"{path}[{k!r}]")
+            out += flatten_with_path(tree[k], f"{path}[{k!r}]")
         return out
     if isinstance(tree, (list, tuple)):
         out = []
         for i, v in enumerate(tree):
-            out += _flatten(v, f"{path}[{i}]")
+            out += flatten_with_path(v, f"{path}[{i}]")
         return out
     return [(path, tree)]
 
 
-def _unflatten(like: Any, leaves: list) -> Any:
-    """Rebuild `like`'s structure from leaves in flattening order."""
+def unflatten(like: Any, leaves: list) -> Any:
+    """Rebuild `like`'s structure from leaves in flattening order (the
+    list is consumed)."""
     if like is None:
         return None
     if isinstance(like, dict):
-        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+        return {k: unflatten(like[k], leaves) for k in sorted(like)}
     if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(v, leaves) for v in like)
+        return type(like)(unflatten(v, leaves) for v in like)
     return leaves.pop(0)
 
 
 def leaf_paths(tree: Any) -> list[tuple[str, Any]]:
     """(file name, leaf) for every leaf of `tree`, in order."""
     return [(_SAFE.sub("_", path).strip("_"), leaf)
-            for path, leaf in _flatten(tree)]
+            for path, leaf in flatten_with_path(tree)]
 
 
 # a bfloat16 leaf's .npy: its uint16 bits under the descr numpy writes for
@@ -173,28 +180,54 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _placements(like: Any, shardings: Any) -> list:
+    """One placement a leaf of `like`, in flattening order: the leaf of
+    `shardings` (like's structure) at its path.  A None or a single
+    placement where `like` has a subtree covers all of its leaves."""
+    if like is None:
+        return []
+    if isinstance(like, (dict, list, tuple)):
+        keys = sorted(like) if isinstance(like, dict) else range(len(like))
+        nested = isinstance(shardings, (dict, list, tuple))
+        return [p for k in keys for p in _placements(
+            like[k], shardings[k] if nested else shardings)]
+    return [shardings]
+
+
 def restore_checkpoint(directory: str, step: int, tree_like: Any,
-                       device=None) -> tuple[Any, dict]:
+                       device=None, shardings: Optional[Any] = None
+                       ) -> tuple[Any, dict]:
     """Restore into the structure of `tree_like`.  A leaf whose `like` is
     a tensor comes back as a tensor on `device` (default: that tensor's
     device); any other leaf comes back as a numpy array.  A bfloat16
     leaf's bits (a |V2 array, either package's writing) restore only
-    into a bfloat16 tensor.  Returns (tree,
-    the manifest's `extra`)."""
+    into a bfloat16 tensor.
+
+    `shardings` (tree_like's structure; the reference's elastic
+    reshard) places a leaf instead: None keeps the rule above, a
+    `torch.device` puts the tensor there, and a
+    `launch.sharding.NamedSharding` lays it out on its mesh (whole on the
+    positions' device when the mesh runs stacked, this rank's block when
+    a process group is attached).  The mesh may differ from the writer's.
+    Returns (tree, the manifest's `extra`)."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     leaves = []
-    for name, like in leaf_paths(tree_like):
+    for (name, like), shd in zip(leaf_paths(tree_like),
+                                 _placements(tree_like, shardings)):
         meta = manifest["leaves"][name]
         arr = np.load(os.path.join(path, name + ".npy"))
         if arr.nbytes != meta["bytes"]:
             raise IOError(f"integrity check failed for {name}")
-        if isinstance(like, torch.Tensor):
-            leaves.append(_leaf_tensor(name, arr, like, device))
+        if shd is None:
+            leaves.append(_leaf_tensor(name, arr, like, device)
+                          if isinstance(like, torch.Tensor) else arr)
+        elif isinstance(shd, torch.device):
+            leaves.append(_leaf_tensor(name, arr, like, shd))
         else:
-            leaves.append(arr)
-    return _unflatten(tree_like, leaves), manifest["extra"]
+            leaves.append(shd.place(_leaf_tensor(name, arr, like, "cpu")))
+    return unflatten(tree_like, leaves), manifest["extra"]
 
 
 class CheckpointManager:
@@ -209,8 +242,8 @@ class CheckpointManager:
                    extra: Optional[dict] = None) -> None:
         self.wait()
         # snapshot on the host before the writer thread starts
-        host = _unflatten(tree, [np.array(_host(leaf), copy=True)
-                                 for _, leaf in _flatten(tree)])
+        host = unflatten(tree, [np.array(_host(leaf), copy=True)
+                                for _, leaf in flatten_with_path(tree)])
 
         def work():
             save_checkpoint(self.directory, step, host, extra)

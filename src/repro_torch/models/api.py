@@ -1,11 +1,16 @@
 """Unified model API: one bundle per architecture family.
 
-  bundle = build_model(cfg)
+  bundle = build_model(cfg[, mesh])
   params = bundle.init(seed_or_generator, device)
   loss   = bundle.loss(params, batch)                 # training objective
   logits = bundle.prefill(params, batch)              # inference prefill
   cache  = bundle.init_cache(batch, seq_len, device)  # decode state
   logits, cache = bundle.decode(params, cache, batch, pos)
+
+On the "meta" device `init` and `init_cache` build the trees' shapes and
+dtypes only (no draw, no allocation): the shape trees of the partition
+rules and of a dry run, the counterpart of the reference's
+`jax.eval_shape(bundle.init, ...)`, at any size.
 
 The counterpart of the reference's `models/api.py`, every family: dense
 and MoE decoders, the VLM backbone, the encoder, RWKV (ssm) and the
@@ -35,10 +40,23 @@ class ModelBundle:
     decode: Optional[Callable[[Any, Any, dict, Any], tuple]]
 
 
+class _ShapeOnly(torch.Generator):
+    """A generator whose draws land on the meta device: a tensor made on
+    `device` and filled from it has its shape and dtype, and nothing is
+    drawn or allocated."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 def generator(key, device="cuda") -> torch.Generator:
     """A torch.Generator from a seed (on `device`) or a given generator,
-    which must lie on `device`."""
+    which must lie on `device`; on "meta" a shape-only one, whatever the
+    key."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return _ShapeOnly()
     if isinstance(key, torch.Generator):
         if key.device.type != dev.type:
             raise ValueError(f"generator on {key.device}, params asked on "
@@ -66,13 +84,21 @@ def _bundle(cfg: ArchConfig, init, loss, prefill, init_cache=None,
         lambda p, c, b, pos: decode(p, c, b["tokens"], pos, cfg))
 
 
-def build_model(cfg: ArchConfig) -> ModelBundle:
+def build_model(cfg: ArchConfig, mesh=None) -> ModelBundle:
+    """The bundle of `cfg`'s family.  `mesh` (a `launch.mesh.Mesh`) is
+    where the reference's ambient mesh reaches the arithmetic: every MoE
+    block of the loss, the prefill and the decode gets it, and runs the
+    EP combine over its `model` axis when `cfg.moe_local_combine` is
+    set.  Nothing else reads it."""
     fam = cfg.family
     if fam in ("dense", "moe"):
         return _bundle(
-            cfg, tfm.init_lm, tfm.lm_loss,
-            lambda p, b: tfm.prefill(p, cfg, tokens=b["tokens"]),
-            tfm.init_cache, tfm.decode_step)
+            cfg, tfm.init_lm,
+            lambda p, b, c: tfm.lm_loss(p, b, c, mesh=mesh),
+            lambda p, b: tfm.prefill(p, cfg, tokens=b["tokens"], mesh=mesh),
+            tfm.init_cache,
+            lambda p, c, t, pos, cf: tfm.decode_step(p, c, t, pos, cf,
+                                                     mesh=mesh))
     if fam == "vlm":
         return _bundle(
             cfg, vlm.init_vlm, vlm.vlm_loss,

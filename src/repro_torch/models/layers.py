@@ -439,6 +439,13 @@ def _combine(vals: torch.Tensor, w: torch.Tensor, ok: torch.Tensor,
     return out
 
 
+EP_GROUP_TRAINING = (
+    "training through the EP combine on a process group is not ported: "
+    "GroupShards.sum all-reduces a copy that autograd does not see, so "
+    "the partials' gradients would be lost; train on a mesh with no "
+    "group (its shards stacked in one process)")
+
+
 def _model_axis_size(mesh=None) -> int:
     """The size of the mesh's `model` axis; 1 without a mesh or without
     that axis (the port's models name their mesh: there is no ambient
@@ -460,7 +467,8 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
     (`_ep_local_combine`, a partial sum a shard of experts); else the
     plain combine, as the reference whenever its `model` axis is 1.  A
     mesh with a process group attached holds one rank a model-axis shard:
-    its other axes are 1 (a larger one raises)."""
+    its other axes are 1 (a larger one raises), and it serves only:
+    training through it raises (`EP_GROUP_TRAINING`)."""
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     xt, gate, route, cap = moe_route(params, x, cfg, groups)
@@ -474,6 +482,8 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
         if e % s:
             raise ValueError(f"{e} experts do not split over a model axis "
                              f"of {s}")
+        if mesh.group is not None and oo.requires_grad:
+            raise NotImplementedError(EP_GROUP_TRAINING)
         shards = StackedShards(s) if mesh.group is None \
             else GroupShards(mesh.group)
         if shards.num_shards != s:

@@ -85,16 +85,16 @@ def init_lm(gen: torch.Generator, cfg: ArchConfig) -> dict:
 
 
 def _layer(p, x, cfg: ArchConfig, is_global: bool, cache=None, pos=None,
-           use_windowed_kernel: bool = False):
+           use_windowed_kernel: bool = False, mesh=None):
     a, new_cache = attention_block(p["attn"], x, cfg, is_global=is_global,
                                    cache=cache, pos=pos,
                                    use_windowed_kernel=use_windowed_kernel)
     x = x + a
-    return x + _ffn(p["ffn"], x, cfg), new_cache
+    return x + _ffn(p["ffn"], x, cfg, mesh), new_cache
 
 
-def _ffn(p, x, cfg: ArchConfig):
-    return moe_block(p, x, cfg) if cfg.family == "moe" \
+def _ffn(p, x, cfg: ArchConfig, mesh=None):
+    return moe_block(p, x, cfg, mesh=mesh) if cfg.family == "moe" \
         else mlp_block(p, x, cfg)
 
 
@@ -114,9 +114,9 @@ def _layers_in_order(cfg: ArchConfig):
 def forward(params: dict, cfg: ArchConfig,
             tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
-            use_windowed_kernel: bool = False) -> torch.Tensor:
+            use_windowed_kernel: bool = False, mesh=None) -> torch.Tensor:
     """Full-sequence forward (training, prefill hidden states).  Returns
-    (B, T, D)."""
+    (B, T, D).  `mesh` goes to every MoE block (`moe_block`)."""
     _check_family(cfg)
     use_windowed_kernel = use_windowed_kernel or cfg.windowed_kernel
     x = embeds if embeds is not None else embed_tokens(params["embed"],
@@ -128,7 +128,8 @@ def forward(params: dict, cfg: ArchConfig,
         def group_fn(x, gp):
             for i in range(per):
                 x, _ = _layer(layer_params(gp, i), x, cfg, i == per - 1,
-                              use_windowed_kernel=use_windowed_kernel)
+                              use_windowed_kernel=use_windowed_kernel,
+                              mesh=mesh)
             return x
 
         body = _remat(group_fn, cfg)
@@ -139,7 +140,8 @@ def forward(params: dict, cfg: ArchConfig,
 
     def layer_fn(x, lp):
         return _layer(lp, x, cfg, not window_only,
-                      use_windowed_kernel=use_windowed_kernel)[0]
+                      use_windowed_kernel=use_windowed_kernel,
+                      mesh=mesh)[0]
 
     body = _remat(layer_fn, cfg)
     for li in range(cfg.n_layers):
@@ -148,11 +150,11 @@ def forward(params: dict, cfg: ArchConfig,
 
 
 def lm_loss(params: dict, batch: dict, cfg: ArchConfig,
-            use_windowed_kernel: bool = False) -> torch.Tensor:
+            use_windowed_kernel: bool = False, mesh=None) -> torch.Tensor:
     x = forward(params, cfg, tokens=batch.get("tokens"),
                 embeds=batch.get("embeds"),
                 use_windowed_kernel=use_windowed_kernel
-                or cfg.windowed_kernel)
+                or cfg.windowed_kernel, mesh=mesh)
     logits = lm_logits(params["embed"], x, cfg)
     return softmax_xent(logits, batch["targets"], batch["mask"])
 
@@ -202,7 +204,8 @@ def _layer_cache(cfg: ArchConfig, cache: dict, idx: tuple):
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos,
-                cfg: ArchConfig, embeds: Optional[torch.Tensor] = None):
+                cfg: ArchConfig, embeds: Optional[torch.Tensor] = None,
+                mesh=None):
     """One-token decode.  tokens: (B, 1); pos: int (uniform batch).
     Returns (logits (B, 1, V), cache), the cache written in place."""
     _check_family(cfg)
@@ -214,7 +217,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos,
         kc, vc = _layer_cache(cfg, cache, idx)
         a, _ = _decode_attn(lp["attn"], x, kc, vc, cfg, is_global, pos)
         x = x + a
-        x = x + _ffn(lp["ffn"], x, cfg)
+        x = x + _ffn(lp["ffn"], x, cfg, mesh)
     return lm_logits(params["embed"], x, cfg), cache
 
 
@@ -245,8 +248,8 @@ def _decode_attn(p, x, k_cache, v_cache, cfg: ArchConfig, is_global: bool,
 
 def prefill(params: dict, cfg: ArchConfig,
             tokens: Optional[torch.Tensor] = None,
-            embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+            embeds: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """Prefill forward: returns the last position's logits (B, 1, V); the
     cache is written by the decode path, as in the reference."""
-    x = forward(params, cfg, tokens=tokens, embeds=embeds)
+    x = forward(params, cfg, tokens=tokens, embeds=embeds, mesh=mesh)
     return lm_logits(params["embed"], x[:, -1:], cfg)

@@ -7,7 +7,8 @@ contract:
     cadence, with the reference's leaf names: a checkpoint written by
     either package's Trainer restores in the other's;
   * on restart the Trainer resumes from the latest step, onto the device
-    it is asked for;
+    it is asked for or laid out by `shardings` on another mesh (elastic:
+    `restore_checkpoint` reshards);
   * a per-step deadline hook flags stragglers, with an injectable clock.
 
 The step is eager PyTorch: the gradients come from `torch.autograd.grad`
@@ -136,9 +137,12 @@ class Trainer:
         self.stragglers: list[int] = []
         self.history: list[dict] = []
 
-    def init_or_restore(self, key, device="cuda"):
+    def init_or_restore(self, key, device="cuda",
+                        shardings: Optional[Any] = None):
         """(params, opt_state, start step): fresh from `key` (a seed or a
-        torch.Generator), or the latest checkpoint's, on `device`."""
+        torch.Generator), or the latest checkpoint's, on `device`; a
+        restore lays its leaves out by `shardings` ({"params": ...,
+        "opt": ...}, see `restore_checkpoint`) where it is given."""
         params = self.bundle.init(key, device)
         opt_state = init_opt_state(self.bundle, params, self.opt_cfg,
                                    self.cfg)
@@ -147,7 +151,8 @@ class Trainer:
             last = latest_step(self.ckpt.directory)
             if last is not None:
                 tree = {"params": params, "opt": opt_state}
-                tree, _ = restore_checkpoint(self.ckpt.directory, last, tree)
+                tree, _ = restore_checkpoint(self.ckpt.directory, last, tree,
+                                             shardings=shardings)
                 params, opt_state = tree["params"], tree["opt"]
                 start = last
         return params, opt_state, start

@@ -126,6 +126,8 @@ def test_entry_points_default_to_the_card():
                         AdamWConfig(), TrainConfig(steps=1),
                         lambda step: {}).init_or_restore(0),
         lambda: train.main(["--arch", "llama3.2-3b", "--steps", "1"]),
+        lambda: train.main(["--arch", "granite-moe-1b-a400m", "--steps", "1",
+                            "--mesh", "single"]),
         lambda: build_model(smoke_config("llama3.2-3b")).loss(
             build_model(smoke_config("llama3.2-3b")).init(0),
             make_smoke_batch(smoke_config("llama3.2-3b"), 1, 4, seed=0)),
@@ -169,7 +171,7 @@ def test_sharding_modules_are_covered():
                                                    "repro_torch.")}
     assert {"repro_torch.core.collectives", "repro_torch.core.shardtypes",
             "repro_torch.core.distributed", "repro_torch.launch.mesh",
-            "repro_torch.launch.serve"} <= names
+            "repro_torch.launch.serve", "repro_torch.launch.sharding"} <= names
 
 
 def test_mutability_modules_are_covered_and_default_to_the_card(tmp_path):

@@ -349,8 +349,17 @@ def test_launcher_prints_the_reference_lines():
     assert len(lines) == 3
 
 
-def test_launcher_refuses_mesh_training():
-    out = _launch("--arch", ARCH, "--steps", "1", "--device", "cpu",
-                  "--mesh", "single")
-    assert out.returncode != 0 and "1.14e" in out.stderr
-    assert "arch=" not in out.stdout
+def test_launcher_trains_on_the_production_mesh():
+    # --mesh: the mesh's shape on a line of its own, then the reference's
+    # lines, the losses those of the run without a mesh
+    args = ("--arch", ARCH, "--steps", "1", "--device", "cpu")
+    out = _launch(*args, "--mesh", "single")
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[0] == "mesh data=16 model=16 (256 positions stacked on cpu)"
+    assert lines[1].startswith(f"arch={ARCH} params=")
+    assert re.fullmatch(r"done: 1 steps, \d+ tok/s, stragglers=0",
+                        lines[3]), lines[3]
+    plain = _launch(*args).stdout.strip().splitlines()
+    assert lines[1] == plain[0]
+    assert lines[2].split()[:6] == plain[1].split()[:6]    # step, loss, gnorm
