@@ -9,6 +9,7 @@ check it, end to end.
     python3 chip_smoke.py --phases main,shard            # the sharded tiers
     python3 chip_smoke.py --phases families    # MoE, RWKV6, Zamba2, LLaVA
     python3 chip_smoke.py --phases train       # training, mesh training
+    python3 chip_smoke.py --phases main,shard,lm,train,cost   # cost counts
 
 Phases:
   device    the card's name and power limit; the kernels' build time
@@ -59,9 +60,13 @@ Phases:
             DistributedScannExecutor over main's index at S = 1, 2, 4, 8
             on A and B (recall@10 >= 0.9, hops and index pages S x nsel,
             one leaf_scan call a search) and card against CPU on a 20,000
-            x 128 store (the parity phase's); distributed k-means (k =
-            256) S = 4 against S = 1; `python -m repro_torch.launch.serve
-            --arch granite-8b --rag`
+            x 128 store (the parity phase's); the cost step: the
+            sharded search at S = 8 (1,000 queries, A) counted by
+            `launch.op_cost` on the card and on meta, equal, its
+            all-gather S x Q x k x 8 bytes, the S = 8 QPS beside the
+            bound of the counted work on one card; distributed k-means
+            (k = 256) S = 4 against S = 1; `python -m
+            repro_torch.launch.serve --arch granite-8b --rag`
   serve     (after main, on its store, SQ8 shadow, graph, index and
             workload A; kernel launches counted from 0) the stepped
             frontier driver against main's one-shot searches bit for bit
@@ -73,7 +78,7 @@ Phases:
             requests at 0.7 x capacity) in both modes: p50 / p99 ticks,
             goodput; the degradation ladder under tests/test_robustness.py's
             fault plan, served twice, deterministic, every serving rung's
-            kernels launched (128 requests: the Python pool replay);
+            kernels launched (64 requests: the Python pool replay);
             deadline admission (a 0.4 x floor request
             rejected) and the dispatch shapes over many deadline buckets;
             retrieval-augmented generation with granite-8b's smoke LM and
@@ -99,7 +104,10 @@ Phases:
             tokens); hubert-xlarge's prefill of 2 x 8,192 frames with every
             layer through the flash kernel (48 launches a prefill, all on
             the tensor-core route, held against the same prefill through
-            the plain version and the jnp-path prefill); granite-8b's
+            the plain version and the jnp-path prefill), one more prefill
+            counted by `op_cost` on the card and on meta (equal; the
+            flash charge the reference's structural formula; its own 48
+            launches left out of the flash row's); granite-8b's
             ServeEngine, 4 prompts x 128 tokens + 32 greedy (no flash
             launch) and its replay against prefill (2 x 64).  The
             kernel's launches on this path fill its `kernels` row
@@ -134,8 +142,10 @@ Phases:
             (loss bit-equal), 2 x (2 x 512) microbatches against 4 x 512 at
             capacity_factor 32, and 12 steps of 4 x 512 (bf16 compute,
             remat dots, f32 AdamW states): tokens/s, the median step, peak
-            memory, the busy share of 2 profiled steps, a falling loss;
-            then the mesh step: `launch.train --mesh` on the smoke MoE
+            memory, the busy share of 2 profiled steps, a falling loss,
+            one more step counted by `op_cost` on the card and on meta
+            (equal) beside the bound on one card; then the mesh step:
+            `launch.train --mesh` on the smoke MoE
             (6 steps; the losses of `--mesh single` and of a crash at
             step 4 under it resumed under `--mesh multi` against the run
             without a mesh, allclose 1e-6), the step-3 checkpoint placed
@@ -150,6 +160,11 @@ Phases:
             first step within 1e-5, every step and the final params
             within max(1e-5, 5 x a one-ulp weight move's reading)) and
             at bf16 (recorded): ms a step, peak memory
+  cost      (after train) `python -m repro_torch.launch.dryrun --arch
+            granite-8b --shape decode_32k --json` and `python -m
+            repro_torch.launch.fvs_dryrun` as subprocesses (exit 0; their
+            roofline lines are arithmetic), and the three counted steps
+            summed up
   profile   (only when named in --phases) one search per method under
             torch.profiler: the device's busy share and its top kernels
 
@@ -171,14 +186,12 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# the H100 SXM's peaks (HBM, FP32 outside the tensor cores, bf16 on them),
+# which the dry runs' roofline reads too
+from repro_torch.hardware import (PEAK_BF16_PER_S,  # noqa: E402
+                                  PEAK_BYTES_PER_S, PEAK_FP32_PER_S)
 from repro_torch.measure import (EMPTY_SESSIONS, cuda_ms,  # noqa: E402
                                  device_ms, device_us_by_name, rel_l2)
-
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bandwidth, FP32 outside
-# the tensor cores, and bf16 on the tensor cores
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_PER_S = 67e12
-PEAK_BF16_PER_S = 989e12
 
 METHODS = ("sweeping", "acorn", "navix", "iterative_scan", "scann",
            "bruteforce")
@@ -1128,12 +1141,12 @@ SERVE_STEPPED = ("sweeping", "acorn", "navix", "iterative_scan",
 STRAGGLER_FRAC, BURST_LEN, SEL_FAST, SEL_SLOW = 0.2, 4, 0.5, 0.02
 TRACE_LOAD, TRACE_SEED, TRACE_REQUESTS = 0.7, 7, 1000
 # tests/test_robustness.py's chaos plan, on a pool of a quarter of the
-# pages.  128 requests, not 1,000: at 1M nearly every request faults down
-# the ladder, ~0.3 s a request, 629 s for two runs of 1,000 on an H100
-# (PERF.md, PR 20)
+# pages.  64 requests (one dispatch batch), not 1,000: at 1M nearly every
+# request faults down the ladder, ~0.4 s a request, 629 s for two runs of
+# 1,000 on an H100 (PERF.md); 128 took 108 s of the time limit
 LADDER_FAULTS = dict(seed=13, read_fail_prob=0.12, max_retries=1,
                      latency_spike_prob=0.05)
-LADDER_REQUESTS = 128
+LADDER_REQUESTS = 64
 ADMISSION_REQUESTS = 256
 
 
@@ -1984,6 +1997,46 @@ def shard_scann(ctx: dict, out: dict, dev="cuda") -> None:
           "by more than 0.01")
 
 
+def shard_cost(ctx: dict, out: dict, dev="cuda") -> None:
+    """The sharded ScaNN search at S = COST_SHARDS on main's queries and
+    workload A, counted by `op_cost` on the card and on meta (the leaf
+    scan charged as its kernel): equal counts, the all-gather S x Q x k x
+    8 bytes; shard_scann's measured QPS at that S beside the bound of
+    the counted work on one card."""
+    from repro_torch.core.distributed import (DistributedScannExecutor,
+                                              shard_index)
+    from repro_torch.launch.mesh import make_mesh
+    p = main_params()
+    mesh = make_mesh((COST_SHARDS,), ("data",))
+    label, bm, _ = ctx["inputs"][0]
+    q = ctx["queries"]
+
+    def search(sh):
+        return lambda q_, b_: DistributedScannExecutor(sh).search(
+            q_, b_, p).ids
+    rec = count_on_both(
+        f"sharded ScaNN S={COST_SHARDS}",
+        search(shard_index(ctx["scann"], ctx["store"], mesh, "data")),
+        (q, bm),
+        search(shard_index(_meta(ctx["scann"]), _meta(ctx["store"]), mesh,
+                           "data")), (_meta(q), _meta(bm)), dev)
+    want = COST_SHARDS * q.shape[0] * p.k * 8.0
+    check(rec["collectives"].get("all-gather") == want,
+          f"cost: the sharded search's all-gather reads "
+          f"{rec['collectives']}, not S x Q x k x 8 = {want}")
+    row = next(r for r in out["scann"] if r["shards"] == COST_SHARDS
+               and r["workload"] == label)
+    b_ms, b_by = bound(rec["bytes"], rec["flops"], PEAK_FP32_PER_S)
+    qps_bound = q.shape[0] / b_ms * 1e3
+    rec.update(qps=row["qps"], bound_ms=b_ms, bound_by=b_by,
+               qps_bound_one_card=qps_bound, share=row["qps"] / qps_bound)
+    out["cost"] = rec
+    print(f"   cost: sharded ScaNN S={COST_SHARDS}, {q.shape[0]} queries "
+          f"on {label}: measured {row['qps']:.1f} QPS, bound on one card "
+          f"{rec['qps_bound_one_card']:.1f} QPS ({b_ms:.4f} ms, {b_by}), "
+          f"share {rec['share']:.4f}", flush=True)
+
+
 def shard_kmeans(ctx: dict, out: dict, dev="cuda") -> None:
     """distributed_kmeans on main's 1M rows, k = 256, 5 iterations: S = 4
     within 1e-3 of S = 1."""
@@ -2048,8 +2101,8 @@ def phase_shard(ctx: dict, report: dict, dev="cuda") -> None:
     ops.reset_launches()
     for name, fn in (("lockstep", shard_lockstep), ("drift", shard_drift),
                      ("storage", shard_storage), ("serving", shard_serving),
-                     ("scann", shard_scann), ("kmeans", shard_kmeans),
-                     ("rag", shard_rag)):
+                     ("scann", shard_scann), ("cost", shard_cost),
+                     ("kmeans", shard_kmeans), ("rag", shard_rag)):
         t0 = time.perf_counter()
         fn(ctx, out, dev)
         secs[name] = time.perf_counter() - t0
@@ -3098,6 +3151,7 @@ def encoder_serving(out: dict, frames: int, batch: int, dev="cuda") -> int:
         check(routes == {"flash_attention.wgmma": 2 * cfg.n_layers * on_card,
                          "flash_attention.fma": 0},
               f"encoder prefill: flash routes {routes}")
+        cost = encoder_cost(bundle, params, x, walls[-1], dev)
         peak = torch.cuda.max_memory_allocated() if on_card else 0
         check(tuple(y.shape) == (batch, frames, cfg.d_model),
               f"encoder output shape {tuple(y.shape)}")
@@ -3155,7 +3209,7 @@ def encoder_serving(out: dict, frames: int, batch: int, dev="cuda") -> int:
         "rel_err_vs_plain_kernel": rel_ref,
         "controls_rel_err_vs_plain_kernel": ctl_ref,
         "controls_rel_err_vs_plain_path": ctl_jnp, "launches": launches,
-        "routes": routes}
+        "routes": routes, "cost": cost}
     print(f"   encoder hubert-xlarge ({n_params / 1e9:.3f} B params, f32 "
           f"weights, bf16 compute): {batch} x {frames} frames, prefill "
           f"{walls[0]:.3f} s then {walls[1]:.3f} s = "
@@ -3167,6 +3221,37 @@ def encoder_serving(out: dict, frames: int, batch: int, dev="cuda") -> int:
     print(f"   encoder jnp-path prefill {plain_s:.3f} s, max |err| against "
           f"it {maxerr:.4g}", flush=True)
     return launches["flash_attention"]
+
+
+def encoder_cost(bundle, params, x, prefill_s: float, dev="cuda") -> dict:
+    """One flash prefill counted on the card and on meta (the kernel
+    charged as the reference charges its pallas_call): equal counts, the
+    flash charge n_layers x 4 x B x H x T x hd x S (the lengths padded to
+    min(512, T)), its own launches read before and after and left out of
+    the flash row's; the measured prefill beside the bound on one card."""
+    from repro_torch.kernels import ops
+    cfg = bundle.cfg
+    before = ops.launches()["flash_attention"]
+    rec = count_on_both("encoder prefill", bundle.prefill,
+                        (params, {"frames": x}), bundle.prefill,
+                        (bundle.init(0, "meta"), {"frames": _meta(x)}), dev)
+    own = ops.launches()["flash_attention"] - before
+    check(own == cfg.n_layers * (dev == "cuda"),
+          f"cost: the counted prefill launched flash {own} times")
+    b, t = x.shape[0], x.shape[1]
+    tp = t + (-t) % min(512, t)
+    want = cfg.n_layers * 4.0 * b * cfg.n_heads * tp * cfg.head_dim * tp
+    got = rec["by_class"]["kernel:flash_attention"][0]
+    check(got == want, f"cost: the flash charge {got} is not the "
+          f"structural formula's {want}")
+    b_ms, b_by = bound(rec["bytes"], rec["flops"], PEAK_BF16_PER_S)
+    rec.update(prefill_ms=prefill_s * 1e3, bound_ms=b_ms, bound_by=b_by,
+               share=b_ms / (prefill_s * 1e3), own_launches=own)
+    print(f"   cost: encoder prefill {b} x {t}: measured "
+          f"{prefill_s * 1e3:.1f} ms, bound on one card {b_ms:.4f} ms "
+          f"({b_by}), share {rec['share']:.4f}; flash charge {got:.6g} "
+          f"FLOPs = the structural formula", flush=True)
+    return rec
 
 
 def _leaves(tree):
@@ -4113,8 +4198,8 @@ def train_run(cfg, out: dict, dev="cuda") -> None:
     tokens = TRAIN_FULL_STEPS * TRAIN_FULL_BATCH * TRAIN_FULL_SEQ
     median_ms = 1e3 * statistics.median(h["sec"] for h in hist[2:])
     prof_rec = {}
+    batch = _full_batch(cfg, TRAIN_FULL_STEPS, TRAIN_FULL_BATCH, dev)
     if dev == "cuda":
-        batch = _full_batch(cfg, TRAIN_FULL_STEPS, TRAIN_FULL_BATCH, dev)
         # device activity only: a step launches ~10^4 kernels, and the
         # host ops' events would multiply the trace's post-processing
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -4131,6 +4216,8 @@ def train_run(cfg, out: dict, dev="cuda") -> None:
         prof_rec = {"wall_ms": prof_wall, "device_ms": dev_ms,
                     "busy_share": dev_ms / prof_wall,
                     "top": [(k[:80], v / 1e3) for k, v in top]}
+    out["cost"] = train_cost(bundle, opt, tr, params, state, batch,
+                             median_ms, dev)
     first, last = hist[0], hist[-1]
     out["run"] = {
         "config": f"{cfg.name}, {cfg.n_layers} layers, {cfg.compute_dtype} "
@@ -4166,6 +4253,27 @@ def train_run(cfg, out: dict, dev="cuda") -> None:
     check(last["loss"] < first["loss"], f"train run: the loss went from "
           f"{first['loss']} to {last['loss']}")
     del params, state, tr
+
+
+def train_cost(bundle, opt, tr, params, state, batch, step_ms: float,
+               dev="cuda") -> dict:
+    """One training step of the run counted on the card and on meta (the
+    run's params, states and batch, and their meta shapes): equal counts;
+    the run's median step beside the bound of the counted work on one
+    card (bf16 compute)."""
+    from repro_torch.train.loop import init_opt_state, make_train_step
+    mp = bundle.init(0, "meta")
+    ms = init_opt_state(bundle, mp, opt, tr.cfg)
+    rec = count_on_both("training step", tr.step_fn, (params, state, batch),
+                        make_train_step(bundle, opt, tr.cfg),
+                        (mp, ms, _meta(batch)), dev)
+    b_ms, b_by = bound(rec["bytes"], rec["flops"], PEAK_BF16_PER_S)
+    rec.update(step_ms=step_ms, bound_ms=b_ms, bound_by=b_by,
+               share=b_ms / step_ms)
+    print(f"   cost: training step: median {step_ms:.1f} ms, bound on one "
+          f"card {b_ms:.4f} ms ({b_by}), share {rec['share']:.4f}",
+          flush=True)
+    return rec
 
 
 # the mesh step: launch.train --mesh on the smoke MoE (the shipped
@@ -4550,6 +4658,112 @@ def phase_train(report: dict, dev="cuda", full_cfg=None) -> None:
           f"path: {before} -> {after}")
 
 
+# ---------------------------------------------------------------------------
+# cost: the op-level cost counter anchored on the card; the dry runs
+# ---------------------------------------------------------------------------
+
+COST_SHARDS = 8
+COST_RUNS = (("dryrun", ("-m", "repro_torch.launch.dryrun", "--arch",
+                         "granite-8b", "--shape", "decode_32k", "--json")),
+             ("fvs_dryrun", ("-m", "repro_torch.launch.fvs_dryrun")))
+
+
+def _meta(x):
+    """`x` with each tensor an empty one of its shape and dtype on the
+    meta device (through dicts, tuples and dataclasses)."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+    if isinstance(x, dict):
+        return {k: _meta(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_meta(v) for v in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: _meta(getattr(x, f.name))
+            for f in dataclasses.fields(x) if f.init})
+    return x
+
+
+def count_on_both(label: str, card_fn, card_args, meta_fn, meta_args,
+                  dev="cuda") -> dict:
+    """`op_cost.step_cost` of one step on the card and of the same step on
+    meta, hand kernels charged as kernels on both: FLOPs, bytes, each
+    class, each collective and the kernel calls must be equal, exactly."""
+    from repro_torch.launch import op_cost
+    runs = {}
+    for where, fn, args in (("card", card_fn, card_args),
+                            ("meta", meta_fn, meta_args)):
+        counter = op_cost.CostCounter(fused_kernels=True)
+        t0 = time.perf_counter()
+        total = op_cost.step_cost(fn, *args, counter=counter)
+        sync(dev if where == "card" else "cpu")
+        runs[where] = {"flops": total.flops, "bytes": total.bytes,
+                       "by_class": {k: (c.flops, c.bytes) for k, c in
+                                    counter.by_class.items()},
+                       "collectives": dict(counter.collectives),
+                       "kernel_calls": dict(counter.kernel_calls),
+                       "count_s": time.perf_counter() - t0}
+    card, meta = runs["card"], runs["meta"]
+    same = all(card[k] == meta[k] for k in ("flops", "bytes", "by_class",
+                                            "collectives", "kernel_calls"))
+    print(f"   cost: {label}: card {card['flops']:.6g} FLOPs "
+          f"{card['bytes']:.6g} bytes, meta {meta['flops']:.6g} FLOPs "
+          f"{meta['bytes']:.6g} bytes, equal: {same}; collectives "
+          f"{card['collectives']}, kernel calls {card['kernel_calls']} "
+          f"(counted in {card['count_s']:.1f} s and "
+          f"{meta['count_s']:.1f} s)", flush=True)
+    check(same, f"cost: {label} is counted differently on the card and on "
+          f"meta: {card} against {meta}")
+    return dict(card, meta_count_s=meta["count_s"])
+
+
+def phase_cost(report: dict) -> None:
+    """The dry runs' entry points run as subprocesses on this machine's
+    installation (exit 0; their roofline lines are arithmetic at the
+    H100's constants, not measurements), and the counted steps of the
+    shard, lm and train phases summed up."""
+    print("== cost: the dry runs (arithmetic on the meta device) and the "
+          "counted steps ==", flush=True)
+    out = report["cost"] = {}
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, *args], cwd=ROOT,
+                                    env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, args in COST_RUNS}       # both at once
+    try:
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            wall = time.perf_counter() - t0
+            if proc.returncode:
+                print(stdout[-2000:] + stderr[-3000:], flush=True)
+            check(proc.returncode == 0, f"cost: {name} exited "
+                  f"{proc.returncode}")
+            rec = json.loads(stdout[stdout.index("{"):])
+            out[name] = {"wall_s": wall, "roofline": rec["roofline"],
+                         "collectives": rec["collectives"]}
+            print(f"   cost: {name} exit 0 in {wall:.1f} s; roofline "
+                  f"(arithmetic, not measured): {rec['roofline']}; "
+                  f"collectives {rec['collectives']}", flush=True)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    anchors = {"sharded ScaNN": report.get("shard", {}).get("cost"),
+               "encoder prefill": report.get("lm", {}).get(
+                   "encoder", {}).get("cost"),
+               "training step": report.get("train", {}).get("cost")}
+    for name, rec in anchors.items():
+        if rec:
+            print(f"   cost: {name}: card = meta, {rec['flops']:.6g} FLOPs "
+                  f"{rec['bytes']:.6g} bytes; bound on one card "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), share of "
+                  f"it reached {rec['share']:.4f}", flush=True)
+    out["anchors"] = {k: v is not None for k, v in anchors.items()}
+
+
 def flash_kernel_row(batch: int = 2, frames: int = 8192) -> dict:
     """flash_attention at the encoder's shape, q, k, v (batch, frames, 16,
     80) bf16, non-causal, through the tensor-core route, against its plain
@@ -4655,7 +4869,7 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=1000)
     ap.add_argument("--phases",
                     default="parity,main,shard,serve,mutate,kernels,lm,"
-                    "families,train")
+                    "families,train,cost")
     ap.add_argument("--lm-frames", type=int, default=8192,
                     help="frames of each encoder prefill (lm phase)")
     ap.add_argument("--lm-batch", type=int, default=2,
@@ -4733,6 +4947,8 @@ def main(argv=None) -> int:
         timed("families", phase_families, report)
     if "train" in phases:
         timed("train", phase_train, report)
+    if "cost" in phases:
+        timed("cost", phase_cost, report)
     # profiler sessions that device_ms read empty and read again
     report["profiler_empty_sessions"] = dict(EMPTY_SESSIONS)
     print(f"profiler sessions read empty and read again: "

@@ -17,10 +17,35 @@ Either way `local` names the global shard index of each row of the stacks
 this process holds, and every reduction returns the same value on every
 shard.  The reductions only select or add: `min` / `max` of owner-masked
 reads return the owner's untouched value.
+
+While a cost counter (`launch.op_cost`) is open, each collective reports
+the bytes of its result on one position by kind ("all-gather" for
+`all_gather`, "all-reduce" for `sum` / `min` / `max`), and its own local
+arithmetic is not charged.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from repro_torch.launch import op_cost
+
+
+def _reported(kind: str):
+    """Report the wrapped collective's result to an open cost counter."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(self, x):
+            counter = op_cost.ACTIVE
+            if counter is None:
+                return fn(self, x)
+            with counter.paused():
+                out = fn(self, x)
+            counter.collective(kind, out)
+            return out
+        return call
+    return wrap
 
 
 class StackedShards:
@@ -32,15 +57,19 @@ class StackedShards:
         self.num_shards = int(num_shards)
         self.local = tuple(range(self.num_shards))
 
+    @_reported("all-reduce")
     def min(self, x: torch.Tensor) -> torch.Tensor:
         return x.amin(0)
 
+    @_reported("all-reduce")
     def max(self, x: torch.Tensor) -> torch.Tensor:
         return x.amax(0)
 
+    @_reported("all-reduce")
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         return x.sum(0)
 
+    @_reported("all-gather")
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """(S, ...) stack of every shard's value (already all here)."""
         return x
@@ -66,18 +95,22 @@ class GroupShards:
         dist.all_reduce(y, op=op, group=self.group)
         return y
 
+    @_reported("all-reduce")
     def min(self, x: torch.Tensor) -> torch.Tensor:
         import torch.distributed as dist
         return self._reduce(x, dist.ReduceOp.MIN)
 
+    @_reported("all-reduce")
     def max(self, x: torch.Tensor) -> torch.Tensor:
         import torch.distributed as dist
         return self._reduce(x, dist.ReduceOp.MAX)
 
+    @_reported("all-reduce")
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         import torch.distributed as dist
         return self._reduce(x, dist.ReduceOp.SUM)
 
+    @_reported("all-gather")
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """(S, ...) stack of every rank's (1, ...) value, in rank order.
         Booleans travel as int32."""

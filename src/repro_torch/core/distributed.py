@@ -196,15 +196,17 @@ def distributed_search_fn(sharded: ShardedFVS, params: SearchParams,
                          store.vectors[safe], store.norms_sq[safe])
         exact = torch.where(ok, exact, torch.full_like(exact, INF))
         ld, lp = topk_smallest(exact, k)                        # (Q, s, k)
+        # ids cross the mesh as int32, as the reference's do
         lids = torch.where(torch.isinf(ld), torch.full_like(lp, -1),
-                           torch.gather(rows, 2, lp))
+                           torch.gather(rows, 2, lp)).to(torch.int32)
         gd = coll.all_gather(ld.permute(1, 0, 2).contiguous())  # (S, Q, k)
         gi = coll.all_gather(lids.permute(1, 0, 2).contiguous())
         gd = gd.permute(1, 0, 2).reshape(qn, -1)
         gi = gi.permute(1, 0, 2).reshape(qn, -1)
         fd, fpos = topk_smallest(gd, k)
-        fids = torch.where(torch.isinf(fd), torch.full_like(fpos, -1),
-                           torch.gather(gi, 1, fpos)).to(torch.int32)
+        fids = torch.where(torch.isinf(fd), torch.full_like(fpos, -1,
+                                                            dtype=gi.dtype),
+                           torch.gather(gi, 1, fpos))
         if not with_stats:
             return fd, fids
         n_reorder = ok.sum(2)

@@ -210,3 +210,45 @@ def test_training_modules_are_covered():
             "repro_torch.launch.specs", "repro_torch.launch.train"} <= names
     import repro_torch.models.api as api
     assert not hasattr(api, "TRAINING_ITEM")
+
+
+_COST_RUN = r"""
+import importlib.abc, sys
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, %(src)r)
+import dataclasses
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.launch import dryrun, fvs_dryrun, op_cost
+full, sm = get_config("granite-8b"), smoke_config("granite-8b")
+over = {f.name: getattr(sm, f.name) for f in dataclasses.fields(sm)
+        if getattr(sm, f.name) != getattr(full, f.name)}
+rec = dryrun.lower_cell("granite-8b", "decode_32k", False, over)
+fvs = fvs_dryrun.run(n=20_000, dim=32, queries=8, leaves_searched=16)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print(rec["flops_per_device"] > 0, fvs["collectives"])
+"""
+
+
+def test_cost_modules_are_covered_and_run_without_jax():
+    # the import blocker and the import-first check walk these too; the
+    # dry runs also run under the blocker
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.hardware", "repro_torch.launch.op_cost",
+            "repro_torch.launch.dryrun",
+            "repro_torch.launch.fvs_dryrun"} <= names
+    out = subprocess.run([sys.executable, "-c",
+                          _COST_RUN % {"src": str(SRC)}],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[0] == "True"
