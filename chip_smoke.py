@@ -8,7 +8,8 @@ check it, end to end.
     python3 chip_smoke.py --phases main,serve            # the serving path
     python3 chip_smoke.py --phases main,shard            # the sharded tiers
     python3 chip_smoke.py --phases families    # MoE, RWKV6, Zamba2, LLaVA
-    python3 chip_smoke.py --phases train       # training, mesh training
+    python3 chip_smoke.py --phases train       # training, mesh, ranks
+    python3 chip_smoke.py --phases examples    # the example entry points
     python3 chip_smoke.py --phases main,shard,lm,train,cost   # cost counts
 
 Phases:
@@ -71,14 +72,14 @@ Phases:
             workload A; kernel launches counted from 0) the stepped
             frontier driver against main's one-shot searches bit for bit
             (five strategies, chunks of 8; per-lane deadlines against the
-            static one); 1,000 requests at t=0 through serve_queue(fifo, 64)
+            static one); 500 requests at t=0 through serve_queue(fifo, 64)
             and ContinuousServer(64, 8) in both modes, bit-equal, with wall,
             QPS, ticks, slot utilization and the queries a frontier launch
-            serves; benchmarks/bench_serving.py's open-loop trace (1,000
+            serves; benchmarks/bench_serving.py's open-loop trace (500
             requests at 0.7 x capacity) in both modes: p50 / p99 ticks,
             goodput; the degradation ladder under tests/test_robustness.py's
             fault plan, served twice, deterministic, every serving rung's
-            kernels launched (64 requests: the Python pool replay);
+            kernels launched (32 requests: the Python pool replay);
             deadline admission (a 0.4 x floor request
             rejected) and the dispatch shapes over many deadline buckets;
             retrieval-augmented generation with granite-8b's smoke LM and
@@ -159,7 +160,22 @@ Phases:
             step's params of the plain run within 1e-5; the two runs'
             first step within 1e-5, every step and the final params
             within max(1e-5, 5 x a one-ulp weight move's reading)) and
-            at bf16 (recorded): ms a step, peak memory
+            at bf16 (recorded): ms a step, peak memory; then the ranks
+            step: 4 gloo ranks spawned on the one card, granite-moe at
+            its published widths and depth with the EP combine on a
+            (data 1, model 2) group of two (16 experts held a rank), 3
+            steps of 4 x 512 at f32 (each step's loss and grad norm
+            within 1e-6 of the stacked (1, 2) step from the same params)
+            and at bf16 (recorded), ms a step and peak GiB a rank; then
+            (data 2, model 1) and (data 2, model 2) cut to 2 layers at
+            f32, 2 steps each, within 1e-5 of the one-process step on the
+            global batch from the same params
+  examples  (after train) the three example entry points' twins at their
+            own shapes: the filtered-search study (12,000 x 128, the 3 x
+            3 grid, five methods), RAG serving over
+            the sharded ScaNN index (4,096 x 64, two predicates), their
+            frontier, distance and leaf-scan launches counted from 0, and
+            train_lm for 20 steps
   cost      (after train) `python -m repro_torch.launch.dryrun --arch
             granite-8b --shape decode_32k --json` and `python -m
             repro_torch.launch.fvs_dryrun` as subprocesses (exit 0; their
@@ -1139,14 +1155,18 @@ SERVE_STEPPED = ("sweeping", "acorn", "navix", "iterative_scan",
 # 4 at selectivity 0.02 (positively correlated), Poisson arrivals (seed 7)
 # at 0.7 x the pool's capacity, SLO 1.5 x the straggler's service ticks
 STRAGGLER_FRAC, BURST_LEN, SEL_FAST, SEL_SLOW = 0.2, 4, 0.5, 0.02
-TRACE_LOAD, TRACE_SEED, TRACE_REQUESTS = 0.7, 7, 1000
+# 500 requests, not the bench's 1,000: cut to make room for the train
+# phase's ranks step (1,000 took 41.6 s on an H100)
+TRACE_LOAD, TRACE_SEED, TRACE_REQUESTS = 0.7, 7, 500
+# the FIFO equivalence on main's first 500 queries (1,000 took 36.4 s)
+FIFO_REQUESTS = 500
 # tests/test_robustness.py's chaos plan, on a pool of a quarter of the
-# pages.  64 requests (one dispatch batch), not 1,000: at 1M nearly every
+# pages.  32 requests (one dispatch batch), not 1,000: at 1M nearly every
 # request faults down the ladder, ~0.4 s a request, 629 s for two runs of
-# 1,000 on an H100 (PERF.md); 128 took 108 s of the time limit
+# 1,000 on an H100 (PERF.md); 128 took 108 s of the time limit, 64 57.8 s
 LADDER_FAULTS = dict(seed=13, read_fail_prob=0.12, max_retries=1,
                      latency_spike_prob=0.05)
-LADDER_REQUESTS = 64
+LADDER_REQUESTS = 32
 ADMISSION_REQUESTS = 256
 
 
@@ -1263,17 +1283,18 @@ def serve_stepped(ctx: dict, out: dict, dev="cuda") -> None:
 
 
 def serve_fifo(ctx: dict, out: dict, dev="cuda") -> None:
-    """1,000 sweeping requests at t=0: serve_queue(fifo, 64) against
-    ContinuousServer(64, 8) in both modes, ids and dists bit-equal."""
+    """FIFO_REQUESTS sweeping requests at t=0: serve_queue(fifo, 64)
+    against ContinuousServer(64, 8) in both modes, ids and dists
+    bit-equal."""
     import numpy as np
     from repro_torch.core import GraphExecutor
     from repro_torch.kernels import ops
     from repro_torch.serving import ContinuousServer, Request, \
         results_in_order
-    store, graph, queries = ctx["store"], ctx["graph"], ctx["queries"]
-    bm = ctx["inputs"][0][1]
+    store, graph = ctx["store"], ctx["graph"]
+    nq = min(FIFO_REQUESTS, ctx["queries"].shape[0])
+    queries, bm = ctx["queries"][:nq], ctx["inputs"][0][1][:nq]
     p = main_params()
-    nq = queries.shape[0]
     ex = GraphExecutor(graph, store, strategy="sweeping")
     rows = out["fifo"] = {}
 
@@ -2129,8 +2150,9 @@ MUTATE_PLANTED = 16
 # (tools_torch/time_graph_build.py, PERF.md), and the phase builds it four
 # times (construction, compaction, two recoveries), ~410 s, over the
 # phase's budget; so the graph methods run on a MutableIndex over the
-# first 100,000 rows of the same store, bruteforce and ScaNN on all of it
-MUTATE_GRAPH_ROWS = 100_000
+# first 50,000 rows of the same store (100,000 until the train phase's
+# ranks step needed the room), bruteforce and ScaNN on all of it
+MUTATE_GRAPH_ROWS = 50_000
 MUTATE_SERVE_MID_TICK = 20     # the mid-flight insert's tick
 
 
@@ -3926,11 +3948,11 @@ class _FrozenRouting:
         self.replay = False
         self.at = 0
 
-    def __call__(self, params, x, cfg, groups=32):
+    def __call__(self, params, x, cfg, groups=32, data=1):
         import torch
         from repro_torch.models.layers import rmsnorm
         if not self.replay:
-            out = self.real(params, x, cfg, groups)
+            out = self.real(params, x, cfg, groups, data)
             self.routes.append(out[2:])
             return out
         route, cap = self.routes[self.at]
@@ -4614,6 +4636,190 @@ def mesh_step(cfg, out: dict, dev="cuda") -> None:
           f"mesh: hand kernels launched: {rec['hand_kernel_launches']}")
 
 
+# granite-moe across the ranks of a gloo process group, every rank on
+# the one card (NCCL refuses two ranks on one GPU; gloo stages CUDA
+# tensors through the host): one spawn of RANKS_WORLD processes.  Ranks
+# 0 and 1 (a subgroup) run the published widths and depth with the EP
+# combine on a (data 1, model 2) mesh, 16 experts held a rank,
+# RANKS_STEPS steps of TRAIN_FULL_BATCH x TRAIN_FULL_SEQ at f32 and at
+# bf16 compute (remat "dots"); at f32, before each step, rank 0 also
+# computes the stacked (1, 2) EP step's loss and grad norm from the same
+# params (the other rank's experts broadcast to it), held within
+# RANKS_TOL (`mesh_ep_combine`'s `same_params` rule; two runs part by
+# AdamW's lift of rounding, see MESH_EP_TOL).  Then (data 2, model 1) on
+# the pair and (data 2, model 2, EP) on all four, cut to RANKS_DP_LAYERS
+# layers (every gradient crosses the host) at f32 compute (a bf16
+# product rounds by the rows a GEMM sees), RANKS_DP_STEPS steps each:
+# rank 0 computes the one-process step (no mesh) on the global batch
+# from the same params, held within RANKS_DP_TOL
+RANKS_WORLD = 4
+RANKS_STEPS = 3
+RANKS_TOL = 1e-6
+RANKS_DP_LAYERS, RANKS_DP_STEPS = 2, 2
+RANKS_DP_TOL = 1e-5
+
+
+def _ranks_run(cfg, mesh, steps: int, dev: str, rank: int,
+               reference=None) -> dict:
+    """`steps` steps of `cfg` through `Trainer` on the ranks of `mesh`
+    (init from seed 0, placed by `RankLayout`; `step_fn` timed to a
+    synchronize, its peak memory a rank); with `reference` (a bundle
+    without a mesh or stacked), rank 0 computes its loss and grad norm on
+    the global batch from the same params before each step."""
+    import statistics
+
+    import torch
+    from repro_torch.data import DataConfig, batch_for_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import _global_norm
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.loop import value_and_grad
+
+    dcfg = DataConfig(cfg.vocab, TRAIN_FULL_SEQ, TRAIN_FULL_BATCH)
+    opt = AdamWConfig(lr=TRAIN_FULL_LR, warmup_steps=TRAIN_FULL_WARMUP,
+                      total_steps=TRAIN_FULL_STEPS)
+    tr = Trainer(build_model(cfg, mesh), opt, TrainConfig(steps=steps),
+                 lambda step: batch_for_step(dcfg, step))
+    params, state, _ = tr.init_or_restore(0, dev)
+    rec = {"held_experts": int(params["layers"]["ffn"]["wg"].shape[-3])
+           if cfg.family == "moe" else None, "losses": [],
+           "grad_norms": [], "step_ms": [], "peak_gib": [],
+           "ref_losses": [], "ref_grad_norms": []}
+    for step in range(steps):
+        batch = batch_for_step(dcfg, step)
+        if reference is not None:
+            whole = tr.ranks.whole(params)
+            if rank == 0:
+                loss, grads = value_and_grad(reference.loss, whole, {
+                    k: torch.as_tensor(v, device=dev)
+                    for k, v in batch.items()})
+                rec["ref_losses"].append(float(loss))
+                rec["ref_grad_norms"].append(float(_global_norm(grads)))
+                del grads
+            del whole
+            _free_cuda(dev)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        sync(dev)
+        t0 = time.perf_counter()
+        params, state, m = tr.step_fn(params, state, batch)
+        sync(dev)
+        rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["peak_gib"].append(torch.cuda.max_memory_allocated() / 2**30
+                               if dev == "cuda" else 0.0)
+        rec["losses"].append(float(m["loss"]))
+        rec["grad_norms"].append(float(m["grad_norm"]))
+    rec["median_ms_2_on"] = statistics.median(rec["step_ms"][1:]
+                                              or rec["step_ms"])
+    del params, state, tr
+    _free_cuda(dev)
+    return rec
+
+
+def ranks_worker(rank: int, world: int, tmp: str, cfg, dev: str) -> None:
+    """One rank of the `ranks` step (spawned; see RANKS_WORLD): writes its
+    records to tmp/rank<r>.json."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/pg",
+                            rank=rank, world_size=world)
+    pair = dist.new_group([0, 1])
+    out = {}
+    try:
+        def on(shape, group):
+            return dataclasses.replace(
+                make_mesh(shape, ("data", "model")), group=group)
+
+        ep = dataclasses.replace(cfg, moe_local_combine=True)
+        if rank < 2:
+            for compute in ("float32", "bfloat16"):
+                c = dataclasses.replace(ep, compute_dtype=compute,
+                                        remat="dots")
+                stacked = build_model(c, on((1, 2), None)) \
+                    if compute == "float32" else None
+                out[f"full_{compute}"] = _ranks_run(
+                    c, on((1, 2), pair), RANKS_STEPS, dev, rank, stacked)
+        dist.barrier()
+        cut = dataclasses.replace(cfg, n_layers=RANKS_DP_LAYERS,
+                                  compute_dtype="float32")
+        if rank < 2:
+            out["dp_2x1"] = _ranks_run(cut, on((2, 1), pair),
+                                       RANKS_DP_STEPS, dev, rank,
+                                       build_model(cut))
+        dist.barrier()
+        cut_ep = dataclasses.replace(cut, moe_local_combine=True)
+        out["dp_2x2"] = _ranks_run(cut_ep, on((2, 2), dist.group.WORLD),
+                                   RANKS_DP_STEPS, dev, rank,
+                                   build_model(cut_ep))
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def ranks_step(cfg, out: dict, dev="cuda") -> None:
+    """The `ranks` step of the train phase (see RANKS_WORLD): spawns the
+    ranks, reads rank 0's records and holds them."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    rec = out["ranks"] = {}
+    _free_cuda(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(ranks_worker, args=(RANKS_WORLD, tmp, cfg, dev),
+                 nprocs=RANKS_WORLD, join=True)
+        rec["spawn_s"] = time.perf_counter() - t0
+        runs = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+                for r in range(RANKS_WORLD)]
+    got = runs[0]
+    rec.update(got)
+
+    def rels(r, a, b):
+        return [abs(x / y - 1) for x, y in zip(r[a], r[b])]
+
+    f32 = got["full_float32"]
+    for name, r in got.items():
+        r["loss_rel"] = rels(r, "losses", "ref_losses")
+        r["grad_norm_rel"] = rels(r, "grad_norms", "ref_grad_norms")
+        print(f"   ranks {name} ({'gloo on one card' if dev == 'cuda' else dev}"
+              f", held experts {r['held_experts']}): losses " + " ".join(
+                  f"{x:.6f}" for x in r["losses"]) + ", grad norms "
+              + " ".join(f"{x:.6f}" for x in r["grad_norms"])
+              + (", against the reference from the same params: loss rel "
+                 + " ".join(f"{x:.3g}" for x in r["loss_rel"])
+                 + ", grad norm rel " + " ".join(
+                     f"{x:.3g}" for x in r["grad_norm_rel"])
+                 + f" (bit-equal: {r['losses'] == r['ref_losses'] and r['grad_norms'] == r['ref_grad_norms']})"
+                 if r["ref_losses"] else " (recorded)")
+              + "; ms a step " + " ".join(f"{x:.1f}" for x in r["step_ms"])
+              + "; peak GiB a rank " + " ".join(
+                  f"{x:.2f}" for x in r["peak_gib"]), flush=True)
+        check(all(math.isfinite(x) for x in r["losses"] + r["grad_norms"]),
+              f"ranks {name}: a loss or grad norm is not finite")
+        for other in runs[1:]:
+            if name in other:
+                check(other[name]["losses"] == r["losses"],
+                      f"ranks {name}: ranks disagree on the loss")
+    check(f32["held_experts"] == cfg.n_experts // 2,
+          f"ranks: {f32['held_experts']} experts held a rank")
+    check(max(f32["loss_rel"] + f32["grad_norm_rel"]) <= RANKS_TOL,
+          f"ranks f32 EP against the stacked (1, 2) step: {f32['loss_rel']}"
+          f", {f32['grad_norm_rel']} (limit {RANKS_TOL})")
+    for name in ("dp_2x1", "dp_2x2"):
+        r = got[name]
+        check(max(r["loss_rel"] + r["grad_norm_rel"]) <= RANKS_DP_TOL,
+              f"ranks {name} against the one-process step: "
+              f"{r['loss_rel']}, {r['grad_norm_rel']} (limit {RANKS_DP_TOL})")
+
+
 def phase_train(report: dict, dev="cuda", full_cfg=None) -> None:
     """Training: smoke models card against CPU (every architecture), the
     crash-restart replay on the card, then granite-moe-1b-a400m at its
@@ -4647,6 +4853,7 @@ def phase_train(report: dict, dev="cuda", full_cfg=None) -> None:
     step("microbatch", microbatch_check, cfg, out, dev)
     step("run", train_run, cfg, out, dev)
     step("mesh", mesh_step, cfg, out, dev)
+    step("ranks", ranks_step, cfg, out, dev)
     after = (dict(ops.launches()), dict(ops.routes()))
     out["hand_kernel_launches"] = {k: after[0][k] - before[0].get(k, 0)
                                    for k in after[0]}
@@ -4656,6 +4863,68 @@ def phase_train(report: dict, dev="cuda", full_cfg=None) -> None:
           f"{sum(out['hand_kernel_launches'].values())}", flush=True)
     check(after == before, f"train: hand kernels launched on the training "
           f"path: {before} -> {after}")
+
+
+# ---------------------------------------------------------------------------
+# examples: the three example entry points' twins at their own shapes
+# ---------------------------------------------------------------------------
+
+EXAMPLES_TRAIN_STEPS = 20
+
+
+def phase_examples(report: dict, dev="cuda") -> None:
+    """`repro_torch.filtered_search_study.main` (12,000 x 128, 48
+    clusters, the 3 x 3 grid, five methods) and `rag_serving.main`
+    (4,096 x 64, two predicates, 12 greedy tokens) at the examples' own
+    shapes, their kernel launches counted from 0, and
+    `train_lm.main` for EXAMPLES_TRAIN_STEPS steps of 8 x 256 (the
+    example's model, a checkpoint every 5 steps)."""
+    import tempfile
+
+    from repro_torch import filtered_search_study, rag_serving, train_lm
+    from repro_torch.kernels import ops
+    print("== examples: the filtered-search study, RAG serving, train_lm "
+          "==", flush=True)
+    out = report["examples"] = {}
+    secs = out["seconds"] = {}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rows = filtered_search_study.main(device=dev)
+    secs["study"] = time.perf_counter() - t0
+    out["study"] = rows
+    t0 = time.perf_counter()
+    rag = rag_serving.main(device=dev)
+    secs["rag"] = time.perf_counter() - t0
+    out["rag"] = {"ids": rag["ids"].tolist(),
+                  "tokens": rag["tokens"].tolist(),
+                  "augmented_len": rag["augmented_len"]}
+    counts = ops.launches()
+    out["launches"] = counts
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.perf_counter()
+        hist = train_lm.main(device=dev, steps=EXAMPLES_TRAIN_STEPS,
+                             checkpoint_dir=ck, log_every=5)
+        secs["train_lm"] = time.perf_counter() - t0
+    out["train_lm"] = hist
+    print(f"   launches on the examples' path: {counts}; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    check(len(rows) == 45 and all(math.isfinite(r["recall"])
+                                  and r["sys_qps"] > 0 for r in rows),
+          "examples: the study's grid is not whole")
+    check({r["method"].split(">")[0] for r in rows}
+          == set(filtered_search_study.METHODS)
+          and all(0.0 <= r["recall"] <= 1.0 for r in rows),
+          "examples: the study's methods or recalls are off")
+    check(rag["ids"].shape == (2, 4) and (rag["ids"] >= 0).all(),
+          f"examples: RAG ids {rag['ids']}")
+    check(len(hist) == EXAMPLES_TRAIN_STEPS // 5
+          and all(math.isfinite(h["loss"]) for h in hist),
+          f"examples: train_lm history {hist}")
+    for k in ("frontier_scan", "distance_matrix"):
+        check(counts[k] > 0, f"kernel {k} was not launched on the examples' "
+              "path")
+    check(counts["leaf_scan_batched"] + counts["leaf_scan"] > 0,
+          "no leaf-scan kernel was launched on the examples' path")
 
 
 # ---------------------------------------------------------------------------
@@ -4869,7 +5138,7 @@ def main(argv=None) -> int:
     ap.add_argument("--queries", type=int, default=1000)
     ap.add_argument("--phases",
                     default="parity,main,shard,serve,mutate,kernels,lm,"
-                    "families,train,cost")
+                    "families,train,examples,cost")
     ap.add_argument("--lm-frames", type=int, default=8192,
                     help="frames of each encoder prefill (lm phase)")
     ap.add_argument("--lm-batch", type=int, default=2,
@@ -4947,6 +5216,8 @@ def main(argv=None) -> int:
         timed("families", phase_families, report)
     if "train" in phases:
         timed("train", phase_train, report)
+    if "examples" in phases:
+        timed("examples", phase_examples, report)
     if "cost" in phases:
         timed("cost", phase_cost, report)
     # profiler sessions that device_ms read empty and read again

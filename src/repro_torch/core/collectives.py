@@ -18,6 +18,27 @@ this process holds, and every reduction returns the same value on every
 shard.  The reductions only select or add: `min` / `max` of owner-masked
 reads return the owner's untouched value.
 
+Training through a group: `GroupShards.sum` is an autograd function
+whose forward is the all-reduce and whose backward is the identity, and
+`GroupShards.copy` the other way round (identity forward, all-reduce of
+the cotangent backward).  Summed partials y = sum_r p_r(x) of an input x
+that every rank holds whole: y and its cotangent c are the same on every
+rank, so rank r's partial gets c (the identity), and x's cotangent is
+sum_r c dp_r/dx, the all-reduce that `copy` puts in front of the
+partials.  That is the reference's `shard_map` transpose: it divides the
+cotangent of an output not split over the axis by the axis size, then
+transposes `psum` to `psum` (net: the identity), and it sums the
+cotangent of an input not split over the axis over it.  An all-reduce in
+`sum`'s backward would multiply every gradient behind it by the group
+size.  `StackedShards.copy` is the identity: autograd sees every shard.
+
+`axis_group(mesh, axes)` is the subgroup of a mesh's process group over
+some of its axes: the ranks that share this rank's coordinates on the
+other axes (a data row's `model` ranks, a model column's `pod` and
+`data` ranks).  `dist.new_group` is collective over the whole group, so
+the first call makes every subgroup of that partition, in one order, on
+every rank; later calls read the cache.
+
 While a cost counter (`launch.op_cost`) is open, each collective reports
 the bytes of its result on one position by kind ("all-gather" for
 `all_gather`, "all-reduce" for `sum` / `min` / `max`), and its own local
@@ -26,7 +47,9 @@ arithmetic is not charged.
 from __future__ import annotations
 
 import functools
+import itertools
 
+import numpy as np
 import torch
 
 from repro_torch.launch import op_cost
@@ -74,6 +97,43 @@ class StackedShards:
         """(S, ...) stack of every shard's value (already all here)."""
         return x
 
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """`x`, held whole by every shard: autograd already adds the
+        shards' cotangents."""
+        return x
+
+
+class _SumRanks(torch.autograd.Function):
+    """all_reduce(SUM) over a group; the cotangent passes as it is (see the
+    module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        y = x.contiguous().clone()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyRanks(torch.autograd.Function):
+    """The identity; the cotangent is all-reduced (SUM) over a group."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
 
 class GroupShards:
     """One shard per rank of a torch.distributed process group: values are
@@ -107,8 +167,13 @@ class GroupShards:
 
     @_reported("all-reduce")
     def sum(self, x: torch.Tensor) -> torch.Tensor:
-        import torch.distributed as dist
-        return self._reduce(x, dist.ReduceOp.SUM)
+        """The ranks' values added; differentiable (identity backward)."""
+        return _SumRanks.apply(x[0], self.group)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """`x`, held whole by every rank, as the input of per-rank
+        partials: its cotangent is all-reduced over the group."""
+        return _CopyRanks.apply(x, self.group)
 
     @_reported("all-gather")
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -121,3 +186,53 @@ class GroupShards:
         dist.all_gather(parts, src, group=self.group)
         out = torch.cat(parts, 0)
         return out.to(torch.bool) if x.dtype == torch.bool else out
+
+
+_SUBGROUPS: dict = {}
+
+
+def _world_pg(group):
+    """The process group object behind `group` (the default one for
+    None / WORLD): the cache key that a re-initialized group changes."""
+    import torch.distributed as dist
+    if group is None or group is dist.group.WORLD:
+        return dist.distributed_c10d._get_default_group()
+    return group
+
+
+def axis_group(mesh, axes) -> object | None:
+    """This rank's subgroup of `mesh.group` over `axes` (names of the
+    mesh; ones it lacks are ignored): None when they hold one position.
+    Ranks are numbered row-major over the mesh's shape, and a subgroup
+    lists its ranks in that order, so a rank's rank in it is its
+    coordinate along `axes` (row-major)."""
+    import torch.distributed as dist
+    names = mesh.axis_names
+    shape = mesh.devices.shape
+    inside = [i for i, a in enumerate(names) if a in axes]
+    size = int(np.prod([shape[i] for i in inside]))
+    if size == 1:
+        return None
+    if size == int(np.prod(shape)):
+        return mesh.group
+    pg = _world_pg(mesh.group)
+    key = (id(pg), shape, names, tuple(inside))
+    hit = _SUBGROUPS.get(key)
+    if hit is None or hit[0] is not pg:
+        ranks = np.arange(int(np.prod(shape))).reshape(shape)
+        outside = [i for i in range(len(names)) if i not in inside]
+        made = {}
+        # every rank makes every subgroup of the partition, in one order
+        for at in itertools.product(*(range(shape[i]) for i in outside)):
+            idx = [slice(None)] * len(names)
+            for i, c in zip(outside, at):
+                idx[i] = c
+            members = sorted(int(r) for r in ranks[tuple(idx)].reshape(-1))
+            if mesh.group not in (None, dist.group.WORLD):
+                members = [dist.get_global_rank(mesh.group, r)
+                           for r in members]
+            made[at] = dist.new_group(members)
+        hit = _SUBGROUPS[key] = (pg, made, outside)
+    _, made, outside = hit
+    coord = np.unravel_index(dist.get_rank(mesh.group), shape)
+    return made[tuple(int(coord[i]) for i in outside)]

@@ -165,10 +165,13 @@ def spec_for_path(cfg: ArchConfig, path: str, ndim: int, data_axis,
     return _dense_fallback(cfg, ndim, data_axis, model_axis)
 
 
-def _map_leaves(fn, tree: Any) -> Any:
-    """`fn(path, leaf)` for every leaf, in `tree`'s structure."""
-    return unflatten(tree, [fn(path, leaf)
-                            for path, leaf in flatten_with_path(tree)])
+def map_leaves(fn, tree: Any, *rest: Any) -> Any:
+    """`fn(path, leaf, *the leaves of `rest` at that path)` for every leaf,
+    in `tree`'s structure (`rest`: trees of the same structure)."""
+    others = [[leaf for _, leaf in flatten_with_path(r)] for r in rest]
+    return unflatten(tree, [fn(path, leaf, *(o[i] for o in others))
+                            for i, (path, leaf)
+                            in enumerate(flatten_with_path(tree))])
 
 
 def param_specs(cfg: ArchConfig, params_shape: Any, mesh=None) -> Any:
@@ -177,7 +180,7 @@ def param_specs(cfg: ArchConfig, params_shape: Any, mesh=None) -> Any:
     def one(name, leaf):
         spec = spec_for_path(cfg, name, len(leaf.shape), "data", "model")
         return spec if mesh is None else fit_spec(spec, leaf.shape, mesh)
-    return _map_leaves(one, params_shape)
+    return map_leaves(one, params_shape)
 
 
 def opt_specs(cfg: ArchConfig, opt_shape: Any, pspecs: Any,
@@ -193,7 +196,28 @@ def opt_specs(cfg: ArchConfig, opt_shape: Any, pspecs: Any,
         stripped = re.sub(r"^\['(m|v)'\]", "", stripped)
         spec = spec_for_path(cfg, stripped, len(leaf.shape), "data", "model")
         return spec if mesh is None else fit_spec(spec, leaf.shape, mesh)
-    return _map_leaves(one, opt_shape)
+    return map_leaves(one, opt_shape)
+
+
+_EXPERTS = re.compile(r"ffn.*\bw[gud]\b")
+
+
+def rank_specs(cfg: ArchConfig, tree: Any, mesh) -> Any:
+    """How a tree (params, or an optimizer state laid out as them) sits on
+    the ranks of a process group: with the EP combine
+    (`cfg.moe_local_combine`), a MoE's expert leaves split their expert
+    dim over `model`, as `_moe_spec` has it (fsdp is not ported on
+    ranks); every other leaf whole on every rank, as the `tp` scheme
+    without fsdp keeps the router, norms, attention and embeddings of
+    granite-moe across `model` ranks.  Scalars replicate."""
+    def one(path, leaf):
+        ndim = len(leaf.shape)
+        if cfg.family == "moe" and cfg.moe_local_combine and ndim >= 3 \
+                and _EXPERTS.search(path):
+            spec = P(*([None] * (ndim - 3)), "model", None, None)
+            return fit_spec(spec, leaf.shape, mesh)
+        return P()
+    return map_leaves(one, tree)
 
 
 def batch_specs(cfg: ArchConfig, batch_shape: Any, mesh,
@@ -214,7 +238,7 @@ def batch_specs(cfg: ArchConfig, batch_shape: Any, mesh,
             rest[0] = "model"           # SP: seq over model axis
         return P(bspec, *rest)
 
-    return _map_leaves(lambda p, l: fit_spec(one(p, l), l.shape, mesh),
+    return map_leaves(lambda p, l: fit_spec(one(p, l), l.shape, mesh),
                        batch_shape)
 
 
@@ -246,7 +270,7 @@ def cache_specs(cfg: ArchConfig, cache_shape: Any, mesh) -> Any:
             return P(*([None] * lead + [baxes, None, None]))
         return P(*([None] * ndim))
 
-    return _map_leaves(lambda p, l: fit_spec(one(p, l), l.shape, mesh),
+    return map_leaves(lambda p, l: fit_spec(one(p, l), l.shape, mesh),
                        cache_shape)
 
 
@@ -338,7 +362,7 @@ def gather(blocks: Sequence[torch.Tensor], sharding: NamedSharding
 
 def to_named(specs: Any, mesh) -> Any:
     """The NamedSharding of every spec of a tree."""
-    return _map_leaves(lambda _, s: NamedSharding(mesh, s), specs)
+    return map_leaves(lambda _, s: NamedSharding(mesh, s), specs)
 
 
 def per_position_bytes(shapes: Any, specs: Any, mesh) -> int:

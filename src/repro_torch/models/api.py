@@ -29,6 +29,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
 from repro_torch.models import encoder, hybrid, rwkv, transformer as tfm, vlm
+from repro_torch.models.layers import data_ranks
 
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
@@ -38,6 +39,7 @@ class ModelBundle:
     prefill: Callable[[Any, dict], torch.Tensor]
     init_cache: Optional[Callable[..., Any]]
     decode: Optional[Callable[[Any, Any, dict, Any], tuple]]
+    mesh: Any = None
 
 
 class _ShapeOnly(torch.Generator):
@@ -73,7 +75,7 @@ def params_to(params, device):
 
 
 def _bundle(cfg: ArchConfig, init, loss, prefill, init_cache=None,
-            decode=None) -> ModelBundle:
+            decode=None, mesh=None) -> ModelBundle:
     return ModelBundle(
         cfg=cfg,
         init=lambda key, device="cuda": init(generator(key, device), cfg),
@@ -81,7 +83,8 @@ def _bundle(cfg: ArchConfig, init, loss, prefill, init_cache=None,
         init_cache=None if init_cache is None else
         lambda bsz, s, device="cuda": init_cache(cfg, bsz, s, device),
         decode=None if decode is None else
-        lambda p, c, b, pos: decode(p, c, b["tokens"], pos, cfg))
+        lambda p, c, b, pos: decode(p, c, b["tokens"], pos, cfg),
+        mesh=mesh)
 
 
 def build_model(cfg: ArchConfig, mesh=None) -> ModelBundle:
@@ -89,8 +92,21 @@ def build_model(cfg: ArchConfig, mesh=None) -> ModelBundle:
     where the reference's ambient mesh reaches the arithmetic: every MoE
     block of the loss, the prefill and the decode gets it, and runs the
     EP combine over its `model` axis when `cfg.moe_local_combine` is
-    set.  Nothing else reads it."""
+    set.  Nothing else reads it.
+
+    With a process group attached to `mesh` (one rank a position; see
+    `train.ranks`), a rank's batch is its rows of the global batch: the
+    MoE blocks route them in their share of the global groups and hold
+    their `model` shard of the experts, and the loss is the global mean
+    (`layers.softmax_xent` over the data ranks).  The bundle keeps the
+    mesh (`bundle.mesh`) for `make_train_step`, `Trainer` and
+    `ServeEngine`.  Only the decoders (dense and MoE) take a batch split
+    over data ranks."""
     fam = cfg.family
+    if fam not in ("dense", "moe") and data_ranks(mesh) > 1:
+        raise ValueError(f"{cfg.name}: a batch split over data ranks is "
+                         f"ported for the dense and MoE decoders, not the "
+                         f"{fam!r} family")
     if fam in ("dense", "moe"):
         return _bundle(
             cfg, tfm.init_lm,
@@ -98,7 +114,7 @@ def build_model(cfg: ArchConfig, mesh=None) -> ModelBundle:
             lambda p, b: tfm.prefill(p, cfg, tokens=b["tokens"], mesh=mesh),
             tfm.init_cache,
             lambda p, c, t, pos, cf: tfm.decode_step(p, c, t, pos, cf,
-                                                     mesh=mesh))
+                                                     mesh=mesh), mesh)
     if fam == "vlm":
         return _bundle(
             cfg, vlm.init_vlm, vlm.vlm_loss,

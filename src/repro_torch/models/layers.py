@@ -21,8 +21,13 @@ Conventions:
     each token's expert outputs in the order the reference's scatter-add
     applies them, so the card and the CPU add the same terms in the same
     order.  Its EP combine (`_ep_local_combine`) runs on the shard
-    collectives of `core.collectives`.
-  * `softmax_xent` is the training objective's cross-entropy.
+    collectives of `core.collectives`.  On a mesh with a process group
+    attached (one rank a position), a rank routes its own rows of the
+    batch in its share of the global batch's groups, and with the EP
+    combine holds and computes only its `model` shard of the experts.
+  * `softmax_xent` is the training objective's cross-entropy; over the
+    data ranks of a group it divides by the global mask count and adds
+    the ranks' terms, so every rank reads the global mean.
 """
 from __future__ import annotations
 
@@ -33,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.collectives import GroupShards, StackedShards
+from repro_torch.core.collectives import (GroupShards, StackedShards,
+                                          axis_group)
 
 
 BATCH_AXES = ("pod", "data")
@@ -364,19 +370,27 @@ def moe_capacity(n_g: int, cfg: ArchConfig) -> int:
 
 
 def moe_route(params: dict, x: torch.Tensor, cfg: ArchConfig,
-              groups: int = 32):
+              groups: int = 32, data: int = 1):
     """The routing half of `moe_block`.  Returns (xt (G, n_g, d) normed
     tokens, gate (G, n_g, k), route, cap); route = (sorted_e, rank, keep,
     tok, order), each (G, n_g k): the (token, choice) pairs of a group in
     the stable order of their expert, the pair's rank among its expert's,
     whether it is within capacity, its token and its flat index.
 
+    G is the reference's gcd(global batch, groups) over the `data` ranks
+    the global batch is split over (`x` is this rank's B / data rows of
+    it), so a rank routes its rows in the same groups as the reference.
+
     Ties: the top k is a stable descending sort (`lax.top_k` gives the
     lower expert first) and the expert order a stable sort (`jnp.argsort`
     is stable), so the dropped pairs are the reference's."""
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
-    g_ = int(np.gcd(b, groups))
+    g_all = int(np.gcd(b * data, groups))
+    if g_all % data:
+        raise ValueError(f"{g_all} routing groups of a global batch of "
+                         f"{b * data} do not split over {data} data ranks")
+    g_ = g_all // data
     h = rmsnorm(x, params["norm"])
     xt = h.reshape(g_, (b // g_) * t, d)                    # (G, n_g, d)
     n_g = xt.shape[1]
@@ -401,20 +415,37 @@ def moe_route(params: dict, x: torch.Tensor, cfg: ArchConfig,
     return xt, gate, (sorted_e, rank, keep, tok, order), cap
 
 
-def _dispatch(xt: torch.Tensor, route, e: int, cap: int) -> torch.Tensor:
-    """(G, E, cap, d) expert buffers: each kept pair's token row at its
-    (expert, rank) slot, zeros elsewhere.  A kept slot is written once, so
-    no write is summed; dropped pairs go to a spare row that is cut off
+def _dispatch(xt: torch.Tensor, route, e: int, cap: int, lo: int = 0,
+              held: Optional[int] = None) -> torch.Tensor:
+    """(G, held, cap, d) buffers of experts lo .. lo + held (all E by
+    default): each kept pair's token row at its (expert, rank) slot, zeros
+    elsewhere.  A kept slot is written once, so no write is summed;
+    dropped pairs and other experts' go to a spare row that is cut off
     (the reference adds zeros to slot cap - 1), with no device sync."""
     sorted_e, rank, keep, tok, _ = route
+    held = e if held is None else held
     g_, n_g, d = xt.shape
     gi = torch.arange(g_, device=xt.device)[:, None]
-    slot = (gi * e + sorted_e) * cap + torch.clamp(rank, max=cap - 1)
-    slot = torch.where(keep, slot, g_ * e * cap)
+    mine = keep & (sorted_e >= lo) & (sorted_e < lo + held)
+    slot = (gi * held + sorted_e - lo) * cap + torch.clamp(rank, max=cap - 1)
+    slot = torch.where(mine, slot, g_ * held * cap)
     rows = xt.reshape(g_ * n_g, d)[(gi * n_g + tok).reshape(-1)]
-    buf = xt.new_zeros((g_ * e * cap + 1, d))
+    buf = xt.new_zeros((g_ * held * cap + 1, d))
     buf[slot.reshape(-1)] = rows
-    return buf[:-1].reshape(g_, e, cap, d)
+    return buf[:-1].reshape(g_, held, cap, d)
+
+
+def _experts(buf: torch.Tensor, params: dict, lo: int, held: int
+             ) -> torch.Tensor:
+    """(G, held, C, d) outputs of experts lo .. lo + held of `params`
+    (whose leading expert dim holds those experts, or all E)."""
+    def w(name):
+        t = params[name]
+        return (t if t.shape[0] == held else t[lo:lo + held]).to(buf.dtype)
+
+    gg = torch.einsum("gecd,edf->gecf", buf, w("wg"))
+    uu = torch.einsum("gecd,edf->gecf", buf, w("wu"))
+    return torch.einsum("gecf,efd->gecd", F.silu(gg) * uu, w("wd"))
 
 
 def _combine(vals: torch.Tensor, w: torch.Tensor, ok: torch.Tensor,
@@ -439,13 +470,6 @@ def _combine(vals: torch.Tensor, w: torch.Tensor, ok: torch.Tensor,
     return out
 
 
-EP_GROUP_TRAINING = (
-    "training through the EP combine on a process group is not ported: "
-    "GroupShards.sum all-reduces a copy that autograd does not see, so "
-    "the partials' gradients would be lost; train on a mesh with no "
-    "group (its shards stacked in one process)")
-
-
 def _model_axis_size(mesh=None) -> int:
     """The size of the mesh's `model` axis; 1 without a mesh or without
     that axis (the port's models name their mesh: there is no ambient
@@ -453,6 +477,24 @@ def _model_axis_size(mesh=None) -> int:
     if mesh is None or "model" not in mesh.axis_names:
         return 1
     return mesh.shape["model"]
+
+
+def data_ranks(mesh=None) -> int:
+    """How many ranks the global batch is split over: the product of the
+    mesh's `pod` and `data` axes when a process group is attached (a
+    rank holds its rows), else 1 (the whole batch is here)."""
+    if mesh is None or mesh.group is None:
+        return 1
+    return int(np.prod([mesh.shape[a] for a in BATCH_AXES
+                        if a in mesh.axis_names]))
+
+
+def data_shards(mesh=None) -> Optional[GroupShards]:
+    """The collectives over this rank's data ranks (its model column's
+    `pod` and `data` ranks), or None when the batch is not split."""
+    if data_ranks(mesh) == 1:
+        return None
+    return GroupShards(axis_group(mesh, BATCH_AXES))
 
 
 def moe_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -465,39 +507,44 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
     (E, d, f) products.  With `cfg.moe_local_combine` and a mesh whose
     `model` axis is larger than 1, the combine is the EP one
     (`_ep_local_combine`, a partial sum a shard of experts); else the
-    plain combine, as the reference whenever its `model` axis is 1.  A
-    mesh with a process group attached holds one rank a model-axis shard:
-    its other axes are 1 (a larger one raises), and it serves only:
-    training through it raises (`EP_GROUP_TRAINING`)."""
+    plain combine, as the reference whenever its `model` axis is 1.
+
+    A mesh with a process group attached holds one rank a position: `x`
+    is this rank's rows of the global batch (B is the global one over
+    `data_ranks(mesh)`), and with the EP combine the rank dispatches to
+    and computes only its `model` shard of the experts (the expert leaves
+    hold those E / S experts, as `launch.sharding` lays them out, or all
+    E) and the partials add over its `model` ranks."""
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
-    xt, gate, route, cap = moe_route(params, x, cfg, groups)
-    buf = _dispatch(xt, route, e, cap)                      # (G, E, C, d)
-    gg = torch.einsum("gecd,edf->gecf", buf, params["wg"].to(buf.dtype))
-    uu = torch.einsum("gecd,edf->gecf", buf, params["wu"].to(buf.dtype))
-    oo = torch.einsum("gecf,efd->gecd", F.silu(gg) * uu,
-                      params["wd"].to(buf.dtype))
+    xt, gate, route, cap = moe_route(params, x, cfg, groups,
+                                     data_ranks(mesh))
     s = _model_axis_size(mesh)
+    held = params["wg"].shape[0]
     if cfg.moe_local_combine and s > 1:
         if e % s:
             raise ValueError(f"{e} experts do not split over a model axis "
                              f"of {s}")
-        if mesh.group is not None and oo.requires_grad:
-            raise NotImplementedError(EP_GROUP_TRAINING)
-        shards = StackedShards(s) if mesh.group is None \
-            else GroupShards(mesh.group)
-        if shards.num_shards != s:
-            # the partials add over the model axis only: a group that
-            # spans other axes too would add across them as well
-            raise ValueError(f"the EP combine needs one rank a model-axis "
-                             f"shard: a process group of "
-                             f"{shards.num_shards} ranks for the mesh "
-                             f"{mesh.shape}")
-        held = oo.unflatten(1, (s, e // s))[:, list(shards.local)]
-        out = _ep_local_combine(held.flatten(1, 2), gate, route, cap,
-                                shards)
+        if held not in (e, e // s):
+            raise ValueError(f"expert leaves of {held} experts: neither "
+                             f"all {e} nor a model shard of {e // s}")
+        if mesh.group is None:
+            shards = StackedShards(s)
+            oo = _experts(_dispatch(xt, route, e, cap), params, 0, e)
+        else:
+            shards = GroupShards(axis_group(mesh, ("model",)))
+            lo = shards.rank * (e // s)
+            # the tokens are every model rank's: their cotangent adds the
+            # ranks' partials' (GroupShards.copy)
+            buf = _dispatch(shards.copy(xt), route, e, cap, lo, e // s)
+            oo = _experts(buf, params, lo, e // s)
+        out = _ep_local_combine(oo, gate, route, cap, shards)
     else:
+        if held != e:
+            raise ValueError(f"the plain combine needs all {e} experts, "
+                             f"the expert leaves hold {held}")
         sorted_e, rank, keep, tok, order = route
+        oo = _experts(_dispatch(xt, route, e, cap), params, 0, e)
         vals = _gather_slots(oo, sorted_e, rank, cap)
         w = torch.gather(gate.reshape(gate.shape[0], -1), 1, order)
         out = _combine(vals, w, keep, order, k)
@@ -524,10 +571,11 @@ def _ep_local_combine(oo: torch.Tensor, gate: torch.Tensor, route,
     combine, the other terms zero), and `shards.sum` adds the (G, n_g, d)
     partials: on a process group that moves k times fewer bytes than
     gathering every (token, choice) output.  Stacked, every shard runs
-    here and the sum is over the stack."""
+    here and the sum is over the stack.  The gate weights pass through
+    `shards.copy`: on a group their cotangent adds every rank's."""
     sorted_e, rank, keep, tok, order = route
     k = gate.shape[-1]
-    w = torch.gather(gate.reshape(gate.shape[0], -1), 1, order)
+    w = shards.copy(torch.gather(gate.reshape(gate.shape[0], -1), 1, order))
     e_loc = oo.shape[1] // len(shards.local)
     parts = []
     for row, ax in enumerate(shards.local):
@@ -572,12 +620,20 @@ def lm_logits(params: dict, x: torch.Tensor, cfg: ArchConfig
 
 
 def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
-                 mask: torch.Tensor) -> torch.Tensor:
+                 mask: torch.Tensor, data: Optional[GroupShards] = None
+                 ) -> torch.Tensor:
     """Masked mean cross-entropy in f32, as the reference's: the row max
     held out of the gradient, the loss divided by max(mask.sum(), 1).  The
     label's log-prob is a gather where the reference takes an einsum
     against a one-hot: the same single term, exact, without a (B, T, V)
-    one-hot."""
+    one-hot.
+
+    With `data` (the collectives over the data ranks that split the
+    batch, `data_shards(mesh)`), the count is the global one and the
+    ranks' terms are added (`GroupShards.sum`: the cotangent passes as it
+    is), so the value is the global mean on every rank and a rank's
+    gradient is its term's: the sum over the data ranks is the global
+    mean's."""
     logits = logits.to(torch.float32)
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
     shifted = logits - m
@@ -585,4 +641,8 @@ def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
     ll = torch.gather(shifted, -1, targets.long()[..., None])[..., 0] \
         + m[..., 0]
     loss = (lse - ll) * mask
-    return loss.sum() / torch.clamp(mask.sum(), min=1.0)
+    count = mask.sum()
+    if data is None:
+        return loss.sum() / torch.clamp(count, min=1.0)
+    count = data.sum(count.detach().to(torch.float32)[None])
+    return data.sum((loss.sum() / torch.clamp(count, min=1.0))[None])

@@ -28,7 +28,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
 from repro_torch.models.layers import (apply_rope, attention_block, cdtype,
-                                       embed_tokens, flash_attention,
+                                       data_shards, embed_tokens,
+                                       flash_attention,
                                        init_attention, init_embeddings,
                                        init_mlp, init_moe, layer_params,
                                        lm_logits, mlp_block, moe_block,
@@ -156,7 +157,8 @@ def lm_loss(params: dict, batch: dict, cfg: ArchConfig,
                 use_windowed_kernel=use_windowed_kernel
                 or cfg.windowed_kernel, mesh=mesh)
     logits = lm_logits(params["embed"], x, cfg)
-    return softmax_xent(logits, batch["targets"], batch["mask"])
+    return softmax_xent(logits, batch["targets"], batch["mask"],
+                        data_shards(mesh))
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,13 @@ and `b2 ** step` in f32, `update + decay`, the cast to `state_dtype`.
 Every division is by a tensor on the params' device: CUDA divides a
 tensor by a Python scalar as a product with the scalar's rounded
 reciprocal.
+
+Across the ranks of a process group each rank updates its own block of
+every leaf (m and v laid out as the params), and `split` names, a leaf,
+the process group its block is split over (None: whole on the rank): the
+clip's global norm adds such a leaf's squared norm over its group and
+counts a whole leaf once, so it is the norm of the whole gradient, the
+same on every rank.
 """
 from __future__ import annotations
 
@@ -75,20 +82,31 @@ def adamw_init(params: Any, cfg: AdamWConfig) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _global_norm(grads: Any) -> torch.Tensor:
+def _global_norm(grads: Any, split: Any = None) -> torch.Tensor:
+    """sqrt of the leaves' squared norms added in tree order; a leaf split
+    over a group (`split`'s leaf at its path) adds its blocks' first."""
+    sq = [torch.sum(torch.square(g.to(F32))) for g in tree_leaves(grads)]
+    if split is not None:
+        import torch.distributed as dist
+        for x, group in zip(sq, tree_leaves(split)):
+            if group is not None:
+                dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     total = 0
-    for g in tree_leaves(grads):
-        total = total + torch.sum(torch.square(g.to(F32)))
+    for x in sq:
+        total = total + x
     return torch.sqrt(total)
 
 
 def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
-                 donate: bool = False) -> tuple[Any, dict, dict]:
+                 donate: bool = False, split: Any = None
+                 ) -> tuple[Any, dict, dict]:
     """Returns (new_params, new_state, metrics).  With `donate` the new
     values are written into the given params and moments (the reference's
-    donated buffers) and those trees come back; else new tensors."""
+    donated buffers) and those trees come back; else new tensors.
+    `split` (params' structure: a process group or None a leaf) says
+    which leaves are blocks of a larger one (see the module docstring)."""
     step = state["step"] + 1
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, split)
     scale = torch.clamp(_const(gnorm, cfg.grad_clip)
                         / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = cosine_schedule(cfg, step)

@@ -3,7 +3,11 @@
 The counterpart of the reference's `serving/engine.py`: batched request
 handling on top of the model bundle's prefill and decode, greedy or
 temperature sampling, stop handling and cache reuse across steps.  It runs
-under `torch.inference_mode()`.
+under `torch.inference_mode()`.  On ranks (a bundle whose mesh carries a
+process group) every rank is given the global prompts, serves its rows of
+them (its data ranks split the batch; with the EP combine each MoE block
+adds its experts' partials over its `model` ranks), stops when every
+row of the global batch has, and returns the global tokens.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch
 
 from repro_torch.core.types import resolve_device
 from repro_torch.models.api import ModelBundle
+from repro_torch.train.ranks import layout
 
 
 @dataclasses.dataclass
@@ -34,6 +39,7 @@ class ServeEngine:
         self.temperature = temperature
         self.device = resolve_device(device)
         self.stats = ServeStats()
+        self.ranks = layout(bundle)
 
     def _sample(self, logits: torch.Tensor, gen: torch.Generator
                 ) -> torch.Tensor:
@@ -59,11 +65,14 @@ class ServeEngine:
         b, plen = prompts.shape
         assert b == self.batch_size
         dev = self.device
-        toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
-                               device=dev)
+        toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int64)
+        if self.ranks is not None:
+            toks = self.ranks.batch({"tokens": toks})["tokens"]
+        toks = toks.to(dev)
+        rows = toks.shape[0]
         logits = self.bundle.prefill(self.params, {"tokens": toks})
         self.stats.prefill_tokens += b * plen
-        cache = self.bundle.init_cache(b, self.max_seq, dev)
+        cache = self.bundle.init_cache(rows, self.max_seq, dev)
         gen = torch.Generator(device=dev).manual_seed(seed)
         # replay the prompt through the decode path to fill the cache
         for t in range(plen):
@@ -71,7 +80,7 @@ class ServeEngine:
                 self.params, cache, {"tokens": toks[:, t:t + 1]}, t)
         tok = self._sample(logits, gen)
         out = [tok.cpu().numpy()]
-        done = np.zeros(b, bool)
+        done = np.zeros(rows, bool)
         for i in range(max_new_tokens - 1):
             logits, cache = self.bundle.decode(
                 self.params, cache, {"tokens": tok[:, None]}, plen + i)
@@ -82,6 +91,11 @@ class ServeEngine:
             out.append(host)
             if stop_token is not None:
                 done |= host == stop_token
-                if done.all():
+                if self._all(done.all()):
                     break
-        return np.stack(out, axis=1)
+        out = np.stack(out, axis=1)
+        return out if self.ranks is None else self.ranks.rows(out)
+
+    def _all(self, flag) -> bool:
+        return bool(flag) if self.ranks is None \
+            else self.ranks.all_true(bool(flag))

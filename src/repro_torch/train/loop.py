@@ -11,6 +11,14 @@ contract:
     `restore_checkpoint` reshards);
   * a per-step deadline hook flags stragglers, with an injectable clock.
 
+A bundle whose mesh carries a process group (`build_model(cfg, mesh)`,
+one rank a position) trains on the ranks (`train.ranks.RankLayout`):
+each rank takes its rows of the global batch, its gradients are summed
+over its data ranks, the clip's norm and the int8 scale span the blocks
+of a split leaf, AdamW updates the rank's blocks; `Trainer` places a
+fresh init or restores each rank's block, and rank 0 writes the global
+tree that it gathers from every rank's blocks.
+
 The step is eager PyTorch: the gradients come from `torch.autograd.grad`
 over the params' leaves, so the forward is the models' own (with their
 remat); no hand kernel is on this path (the reference's losses never
@@ -31,6 +39,7 @@ from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, \
     ef_compress_grads
 from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.optim.compression import init_error_buffers
+from repro_torch.train.ranks import layout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,10 +86,14 @@ def make_train_step(bundle: ModelBundle, opt_cfg: AdamWConfig,
     order.  With `donate` the update is written into the given params and
     optimizer state (the reference's donated buffers); else they are left
     as they are.  `batch` may hold numpy arrays: they go to the params'
-    device."""
+    device.  On ranks (`bundle.mesh` with a process group) `batch` is the
+    global batch and `params` / `opt_state` each rank's blocks."""
+    ranks = layout(bundle)
 
     def step(params, opt_state, batch):
         dev = tree_leaves(params)[0].device
+        if ranks is not None:
+            batch = ranks.batch(batch, train_cfg.microbatches > 1)
         batch = _on(batch, dev)
         if train_cfg.microbatches > 1:
             grads = tree_map(lambda p: torch.zeros(
@@ -98,10 +111,16 @@ def make_train_step(bundle: ModelBundle, opt_cfg: AdamWConfig,
         else:
             loss, grads = value_and_grad(bundle.loss, params, batch)
 
+        split = None
+        if ranks is not None:
+            ranks.reduce(grads)
+            split = ranks.split(grads)
         if train_cfg.grad_compression:
-            grads, err = ef_compress_grads(grads, opt_state["ef_error"])
+            grads, err = ef_compress_grads(grads, opt_state["ef_error"],
+                                           split)
         new_params, new_inner, metrics = adamw_update(
-            params, grads, opt_state["adamw"], opt_cfg, donate=donate)
+            params, grads, opt_state["adamw"], opt_cfg, donate=donate,
+            split=split)
         new_state = {"adamw": new_inner}
         if train_cfg.grad_compression:
             new_state["ef_error"] = err
@@ -132,6 +151,7 @@ class Trainer:
         self.batch_fn = batch_fn
         self.clock = clock
         self.step_fn = make_train_step(bundle, opt_cfg, train_cfg)
+        self.ranks = layout(bundle)
         self.ckpt = (CheckpointManager(train_cfg.checkpoint_dir)
                      if train_cfg.checkpoint_dir else None)
         self.stragglers: list[int] = []
@@ -142,15 +162,24 @@ class Trainer:
         """(params, opt_state, start step): fresh from `key` (a seed or a
         torch.Generator), or the latest checkpoint's, on `device`; a
         restore lays its leaves out by `shardings` ({"params": ...,
-        "opt": ...}, see `restore_checkpoint`) where it is given."""
+        "opt": ...}, see `restore_checkpoint`) where it is given.  On
+        ranks each rank holds its blocks (`RankLayout`): of the fresh init
+        (every rank draws the whole tree from `key`), or of the
+        checkpoint that rank 0 finds last."""
         params = self.bundle.init(key, device)
+        if self.ranks is not None:
+            params = self.ranks.place(params)
         opt_state = init_opt_state(self.bundle, params, self.opt_cfg,
                                    self.cfg)
         start = 0
         if self.ckpt:
             last = latest_step(self.ckpt.directory)
+            if self.ranks is not None:
+                last = self.ranks.broadcast_int(last)
             if last is not None:
                 tree = {"params": params, "opt": opt_state}
+                if shardings is None and self.ranks is not None:
+                    shardings = self.ranks.shardings(tree)
                 tree, _ = restore_checkpoint(self.ckpt.directory, last, tree,
                                              shardings=shardings)
                 params, opt_state = tree["params"], tree["opt"]
@@ -185,8 +214,17 @@ class Trainer:
                                      "sec": dt})
             if self.ckpt and (step % self.cfg.checkpoint_every == 0
                               or step == self.cfg.steps):
-                self.ckpt.save_async(step, {"params": params,
-                                            "opt": opt_state})
+                self._save(step, {"params": params, "opt": opt_state})
         if self.ckpt:
             self.ckpt.wait()
         return params, opt_state
+
+    def _save(self, step: int, tree: Any) -> None:
+        """An asynchronous checkpoint; on ranks, rank 0 writes the global
+        tree gathered from every rank's blocks (the gather runs here, on
+        every rank)."""
+        if self.ranks is not None:
+            tree = self.ranks.gather(tree)
+            if tree is None:
+                return
+        self.ckpt.save_async(step, tree)

@@ -1,6 +1,7 @@
 """The port stands alone: no module of it (nor chip_smoke.py, nor the
-scripts in tools_torch/) imports JAX or the reference package, and its
-entry points run on the card unless the caller asks for the CPU."""
+scripts in tools_torch/, nor the rank script of the process-group tests,
+tests/torch_ranks.py) imports JAX or the reference package, and its entry
+points run on the card unless the caller asks for the CPU."""
 import os
 import pathlib
 import shutil
@@ -34,6 +35,11 @@ import time_scann_build
 import time_kernel_redesign
 import time_graph_build
 import time_exact_scan
+import time_library_calls
+sys.path.insert(0, %(tests)r)
+import torch_ranks
+for n in ("filtered_search_study", "rag_serving", "train_lm"):
+    assert "repro_torch." + n in names, n
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -43,7 +49,8 @@ print(len(names))
 
 def test_port_and_chip_smoke_import_neither_jax_nor_repro():
     code = _BLOCKER % {"src": str(SRC), "root": str(ROOT),
-                       "tools": str(ROOT / "tools_torch")}
+                       "tools": str(ROOT / "tools_torch"),
+                       "tests": str(ROOT / "tests")}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
@@ -81,7 +88,8 @@ def _no_card():
 def test_entry_points_default_to_the_card():
     _no_card()
     import repro_torch.core as T
-    from repro_torch import interop, quickstart
+    from repro_torch import (filtered_search_study, interop, quickstart,
+                             rag_serving, train_lm)
     from repro_torch.configs import smoke_config
     from repro_torch.data import DatasetSpec, make_dataset
     from repro_torch.core.distributed import (ShardedGraphExecutor,
@@ -110,6 +118,9 @@ def test_entry_points_default_to_the_card():
         lambda: T.build_exclusion(store),
         lambda: T.build_graph_partitioned(store, {}),
         lambda: quickstart.main(n=200, dim=8),
+        lambda: filtered_search_study.main(n=200, dim=8),
+        lambda: rag_serving.main(n=256),
+        lambda: train_lm.main(steps=1),
         lambda: build_model(smoke_config("granite-8b")).init(0),
         lambda: build_model(smoke_config("hubert-xlarge")).init(0),
         lambda: build_model(smoke_config("granite-8b")).init_cache(1, 4),

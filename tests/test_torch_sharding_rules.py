@@ -355,22 +355,24 @@ _RANKS = textwrap.dedent("""
             tree, _ = restore_checkpoint(ckpt, 1, like, shardings=shd)
             torch.save({n: t for n, t in leaf_paths(tree)},
                        f"{tmp}/blocks{rank}.pt")
-            # training through the EP combine on the group is refused
+            # training through the EP combine on the group: loss and
+            # the router's gradient those of the plain block
             import dataclasses
             ep = api.build_model(dataclasses.replace(
                 cfg, moe_local_combine=True), mesh)
             batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32),
                      "targets": torch.zeros((2, 8), dtype=torch.int32),
                      "mask": torch.ones((2, 8))}
-            try:
-                TL.value_and_grad(ep.loss, api.build_model(cfg).init(
-                    0, "cpu"), batch)
-                refused = ""
-            except NotImplementedError as e:
-                refused = str(e)
+            params = api.build_model(cfg).init(0, "cpu")
+            le, ge = TL.value_and_grad(ep.loss, params, batch)
+            lp, gp = TL.value_and_grad(api.build_model(cfg).loss, params,
+                                       batch)
+            router = [g["layers"]["ffn"]["router"] for g in (ge, gp)]
             with open(f"{tmp}/rank{rank}.json", "w") as f:
                 json.dump({"group": mesh.group is not None,
-                           "refused": refused}, f)
+                           "loss_rel": abs(float(le) / float(lp) - 1),
+                           "router_err": float((router[0] - router[1]
+                                                ).abs().max())}, f)
         finally:
             dist.destroy_process_group()
 
@@ -383,7 +385,8 @@ _RANKS = textwrap.dedent("""
 
 def test_restore_with_shardings_on_gloo_ranks(ref_checkpoint, tmp_path):
     # each of 2 ranks restores its block of every leaf; gather puts them
-    # back together into the file's values
+    # back together into the file's values; a gradient through the EP
+    # combine on the group is the plain block's
     d, _, tcfg, like = ref_checkpoint
     src = pathlib.Path(__file__).resolve().parents[1] / "src"
     script = tmp_path / "ranks.py"
@@ -406,4 +409,5 @@ def test_restore_with_shardings_on_gloo_ranks(ref_checkpoint, tmp_path):
     assert split >= 8          # the experts, the embedding, q / o, moments
     for r in range(2):
         rec = json.loads((tmp_path / f"rank{r}.json").read_text())
-        assert rec["group"] and "process group" in rec["refused"], rec
+        assert rec["group"] and rec["loss_rel"] <= 1e-6, rec
+        assert rec["router_err"] <= 1e-6, rec

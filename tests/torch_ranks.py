@@ -1,0 +1,214 @@
+"""The rank side of `tests/test_torch_ranks.py`: the port on gloo ranks.
+
+    PYTHONPATH=src python tests/torch_ranks.py JOB WORLD DIR
+
+spawns WORLD ranks (`torch.multiprocessing`, gloo, `file://` init in
+DIR); each runs JOB and writes DIR/JOB.<rank>.json (and .npz).  Inputs
+come from DIR: `batches.npz` and the reference's checkpoints (`init/`,
+step 0), which the test writes first.  Imports the port only: no JAX, no
+reference package.
+"""
+import dataclasses
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+ARCH = "granite-moe-1b-a400m"
+MESH = {"train": (2, 2), "route": (2, 1), "serve": (2, 2), "crash": (2, 2)}
+
+
+def _cfg(**over):
+    from repro_torch.configs import smoke_config
+    return dataclasses.replace(smoke_config(ARCH), **over)
+
+
+def _mesh(job, stacked=False):
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(MESH[job], ("data", "model"))
+    return dataclasses.replace(mesh, group=None) if stacked else mesh
+
+
+def _batches(d):
+    raw = np.load(os.path.join(d, "batches.npz"))
+    return lambda step: {k: raw[f"{k}{step}"] for k in
+                         ("tokens", "targets", "mask")}
+
+
+def _restored(d, cfg, opt, shardings=None):
+    """The reference's step-0 checkpoint (params and AdamW state)."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import TrainConfig, init_opt_state
+    params = build_model(cfg).init(0, "cpu")
+    like = {"params": params,
+            "opt": init_opt_state(None, params, opt, TrainConfig())}
+    tree, _ = restore_checkpoint(os.path.join(d, "init"), 0, like,
+                                 shardings=shardings)
+    return tree
+
+
+def _rel(a, b) -> float:
+    return float((a.double() - b.double()).norm()
+                 / max(float(b.double().norm()), 1e-30))
+
+
+def _opt():
+    from repro_torch.optim import AdamWConfig
+    return AdamWConfig(lr=1e-3, warmup_steps=1)
+
+
+def job_train(rank, d):
+    """3 AdamW steps through `Trainer` on the ranks of a (2, 2) mesh from
+    the reference's step-0 checkpoint (restored onto each rank's blocks);
+    the step-3 checkpoint rank 0 writes from the gathered tree; the same
+    3 steps with the mesh stacked in one process."""
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.ranks import RankLayout
+    cfg = _cfg(moe_local_combine=True)
+    mesh = _mesh("train")
+    batch = _batches(d)
+    tr = Trainer(build_model(cfg, mesh), _opt(), TrainConfig(
+        steps=3, checkpoint_every=3, checkpoint_dir=os.path.join(d, "ck"),
+        log_every=1), batch)
+    params, state, start = tr.init_or_restore(0, "cpu")
+    adam = state["adamw"]
+    held = {f"{tree}/{k}": list(t["layers"]["ffn"][k].shape)
+            for tree, t in (("params", params), ("m", adam["m"]),
+                            ("v", adam["v"])) for k in ("wg", "wu", "wd")}
+    params, state = tr.run(params, state, start)
+    gathered = RankLayout(cfg, mesh).gather(params)
+    out = {"start": start, "held": held,
+           "losses": [h["loss"] for h in tr.history],
+           "grad_norms": [h["grad_norm"] for h in tr.history]}
+    if rank == 0:
+        tree = _restored(d, cfg, _opt())
+        step = make_train_step(build_model(cfg, _mesh("train", True)),
+                               _opt(), TrainConfig(), donate=False)
+        p, s = tree["params"], tree["opt"]
+        stacked = {"losses": [], "grad_norms": []}
+        for i in range(3):
+            p, s, m = step(p, s, batch(i))
+            stacked["losses"].append(float(m["loss"]))
+            stacked["grad_norms"].append(float(m["grad_norm"]))
+        stacked["params_rel"] = max(_rel(a, b) for a, b in zip(
+            tree_leaves(gathered), tree_leaves(p)))
+        out["stacked"] = stacked
+    return out
+
+
+def job_route(rank, d):
+    """A global batch of 64 on 2 data ranks: layer 0's route of this
+    rank's rows of x, and the loss of the whole model (capacity factor
+    0.5, so pairs drop)."""
+    from repro_torch.models import build_model, layers as tl
+    from repro_torch.train.ranks import RankLayout
+    cfg = _cfg(capacity_factor=0.5)
+    mesh = _mesh("route")
+    ranks = RankLayout(cfg, mesh)
+    params = ranks.place(_restored(d, cfg, _opt())["params"])
+    raw = np.load(os.path.join(d, "route.npz"))
+    rows = ranks.batch({"x": raw["x"]})["x"]
+    _, _, route, cap = tl.moe_route(
+        tl.layer_params(params["layers"]["ffn"], 0), rows, cfg,
+        data=tl.data_ranks(mesh))
+    np.savez(os.path.join(d, f"route.{rank}.npz"),
+             **{n: a.numpy() for n, a in zip(
+                 ("sorted_e", "rank", "keep", "tok", "order"), route)})
+    batch = ranks.batch({k: raw[k] for k in ("tokens", "targets", "mask")})
+    with torch.no_grad():
+        loss = build_model(cfg, mesh).loss(params, batch)
+    return {"cap": cap, "loss": float(loss)}
+
+
+def job_serve(rank, d):
+    """Prefill and greedy decode with held experts on a (2, 2) group
+    against the plain block (no mesh, all experts) on the same weights."""
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    from repro_torch.train.ranks import RankLayout
+    cfg = _cfg()
+    ep = dataclasses.replace(cfg, moe_local_combine=True)
+    mesh = _mesh("serve")
+    ranks = RankLayout(ep, mesh)
+    params = build_model(cfg).init(0, "cpu")
+    held = ranks.place(params)
+    prompts = np.random.RandomState(4).randint(0, cfg.vocab, (4, 12))
+    plain, meshed = build_model(cfg), build_model(ep, mesh)
+    mine = ranks.batch({"tokens": prompts})["tokens"]
+    with torch.inference_mode():
+        want = plain.prefill(params, {"tokens": mine})
+        got = meshed.prefill(held, {"tokens": mine})
+    tokens = {}
+    for name, bundle, p in (("plain", plain, params), ("ep", meshed, held)):
+        eng = ServeEngine(bundle, p, max_seq=32, batch_size=4, device="cpu")
+        tokens[name] = eng.generate(prompts, 10).tolist()
+    return {"prefill_err": float((got - want).abs().max()),
+            "expert_rows": int(held["layers"]["ffn"]["wg"].shape[1]),
+            "tokens": tokens}
+
+
+def job_crash(rank, d):
+    """4 steps straight, and a crash at step 2 resumed from the step-2
+    checkpoint; the straight run's gathered tree also saved in one call
+    (rank 0's `save_checkpoint`)."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, Trainer
+    from repro_torch.train.ranks import RankLayout
+    cfg = _cfg(moe_local_combine=True)
+    mesh = _mesh("crash")
+    batch = _batches(d)
+
+    def trainer(ck, every=2):
+        return Trainer(build_model(cfg, mesh), _opt(), TrainConfig(
+            steps=4, checkpoint_every=every, log_every=1,
+            checkpoint_dir=os.path.join(d, ck)), batch)
+
+    straight = trainer("straight", every=4)
+    p, s, _ = straight.init_or_restore(0, "cpu")
+    p, s = straight.run(p, s)
+    whole = RankLayout(cfg, mesh).gather({"params": p, "opt": s})
+    if whole is not None:
+        save_checkpoint(os.path.join(d, "one_call"), 4, whole)
+    crashed = trainer("crashed")
+    p, s, _ = crashed.init_or_restore(0, "cpu")
+    try:
+        crashed.run(p, s, fail_at=2)
+        raise AssertionError("no injected failure")
+    except RuntimeError as e:
+        failed = str(e)
+    if crashed.ckpt:
+        crashed.ckpt.wait()
+    dist.barrier()
+    resumed = trainer("crashed")
+    p, s, start = resumed.init_or_restore(0, "cpu")
+    resumed.run(p, s, start)
+    return {"failed": failed, "start": start,
+            "straight": [h["loss"] for h in straight.history],
+            "resumed": [(h["step"], h["loss"]) for h in resumed.history]}
+
+
+def rank_main(rank, world, job, d):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{d}/pg.{job}",
+                            rank=rank, world_size=world)
+    try:
+        out = globals()[f"job_{job}"](rank, d)
+        with open(os.path.join(d, f"{job}.{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    job, world, d = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+    mp.spawn(rank_main, args=(world, job, d), nprocs=world, join=True)
