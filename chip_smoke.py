@@ -35,7 +35,8 @@ Phases:
             adaptive planner on both menus, all through
             make_executor(...).search; then the third slice's path: the paged
             storage engine (LRU pool of half the pages) behind the
-            executors, each method cold and then warm, and the legacy
+            executors, each method cold and then warm on the first 250
+            queries, and the legacy
             engines (scann_vmapped through the leaf_scan kernel, the vmapped
             graph engine) beside the batched ones.  Kernel launch counts are
             reset just before each of the three paths and read just after.
@@ -57,7 +58,7 @@ Phases:
             within 1 %); per-shard pools (S = 1, 4; 200 queries; S = 1
             equal to the unsharded pool); ContinuousServer(64, 8) over 4
             shards bit-equal to the same server over the GraphExecutor
-            (256 requests);
+            (128 requests);
             DistributedScannExecutor over main's index at S = 1, 2, 4, 8
             on A and B (recall@10 >= 0.9, hops and index pages S x nsel,
             one leaf_scan call a search) and card against CPU on a 20,000
@@ -72,10 +73,10 @@ Phases:
             workload A; kernel launches counted from 0) the stepped
             frontier driver against main's one-shot searches bit for bit
             (five strategies, chunks of 8; per-lane deadlines against the
-            static one); 500 requests at t=0 through serve_queue(fifo, 64)
+            static one); 250 requests at t=0 through serve_queue(fifo, 64)
             and ContinuousServer(64, 8) in both modes, bit-equal, with wall,
             QPS, ticks, slot utilization and the queries a frontier launch
-            serves; benchmarks/bench_serving.py's open-loop trace (500
+            serves; benchmarks/bench_serving.py's open-loop trace (250
             requests at 0.7 x capacity) in both modes: p50 / p99 ticks,
             goodput; the degradation ladder under tests/test_robustness.py's
             fault plan, served twice, deterministic, every serving rung's
@@ -109,7 +110,7 @@ Phases:
             counted by `op_cost` on the card and on meta (equal; the
             flash charge the reference's structural formula; its own 48
             launches left out of the flash row's); granite-8b's
-            ServeEngine, 4 prompts x 128 tokens + 32 greedy (no flash
+            ServeEngine, 4 prompts x 64 tokens + 32 greedy (no flash
             launch) and its replay against prefill (2 x 64).  The
             kernel's launches on this path fill its `kernels` row
   families  (after lm, the card freed between models) the other LM
@@ -117,12 +118,12 @@ Phases:
             4 x 24 + 16, equal for granite-moe, kimi-k2, rwkv6 scan and
             chunked, zamba2; llava's prefill with 16 patch embeddings
             within LM_SMOKE_TOL); then at the published widths:
-            granite-moe-1b-a400m's ServeEngine 4 x 128 + 32 (prefill
+            granite-moe-1b-a400m's ServeEngine 4 x 64 + 32 (prefill
             tokens/s, ms a step, peak memory, 4 profiled steps) and its
             replay against prefill at capacity_factor = n_experts (2 x 64);
             kimi-k2-1t-a32b cut to 1 layer (bf16, ~39 GB): a 1 x 256
             prefill and 8 decode steps; rwkv6-3b's and zamba2-1.2b's
-            ServeEngine 4 x 128 + 32, their replay against prefill (2 x 64)
+            ServeEngine 4 x 64 + 32, their replay against prefill (2 x 64)
             and rwkv6's chunked against scan prefill (4 x 128) held at f32
             compute (SSM_F32) and, cut to 2 layers, at bf16;
             llava-next-mistral-7b's prefill of 2,880 patch embeddings + 128
@@ -155,30 +156,40 @@ Phases:
             position of three configs under the specs (arithmetic), and
             granite-moe-1b-a400m at its published widths with the EP
             combine on the single-pod mesh (16 stacked shards of 2
-            experts) against the plain combine, 3 steps of 4 x 512 at
+            experts) against the plain combine, 2 steps of 4 x 512 at
             f32 (held: both combines' loss and grad norm from each
             step's params of the plain run within 1e-5; the two runs'
             first step within 1e-5, every step and the final params
             within max(1e-5, 5 x a one-ulp weight move's reading)) and
             at bf16 (recorded): ms a step, peak memory; then the ranks
-            step: 4 gloo ranks spawned on the one card, granite-moe at
-            its published widths and depth with the EP combine on a
-            (data 1, model 2) group of two (16 experts held a rank), 3
-            steps of 4 x 512 at f32 (each step's loss and grad norm
-            within 1e-6 of the stacked (1, 2) step from the same params)
+            step: 4 gloo ranks spawned on the one card, every leaf laid
+            out by the partition rules; granite-moe at its published
+            widths and depth with the EP combine (and its q / o heads
+            split) on a (data 1, model 2) group of two (16 experts held
+            a rank), 1 step of 4 x 512 at f32 (its loss and
+            grad norm within max(1e-6, 5 x a one-ulp weight move's
+            reading) of the stacked (1, 2) step from the same params)
             and at bf16 (recorded), ms a step and peak GiB a rank; then
             (data 2, model 1) and (data 2, model 2) cut to 2 layers at
             f32, 2 steps each, within 1e-5 of the one-process step on the
-            global batch from the same params
+            global batch from the same params; then granite-8b at its
+            published widths with fsdp, cut to 2 layers, on (data 2,
+            model 2) at f32 (heads, ffn and vocab over `model`, every
+            matrix over `data` too), 2 steps within 1e-5 (loss) and 1e-4
+            (grad norm) of the one-process step, each rank's bytes of
+            params equal to `per_position_bytes`; and ServeEngine on
+            those ranks, 2 x 512 prompt tokens and 16 greedy decode
+            steps, token for token the one-process engine's
   examples  (after train) the three example entry points' twins at their
             own shapes: the filtered-search study (12,000 x 128, the 3 x
             3 grid, five methods), RAG serving over
             the sharded ScaNN index (4,096 x 64, two predicates), their
             frontier, distance and leaf-scan launches counted from 0, and
             train_lm for 20 steps
-  cost      (after train) `python -m repro_torch.launch.dryrun --arch
-            granite-8b --shape decode_32k --json` and `python -m
-            repro_torch.launch.fvs_dryrun` as subprocesses (exit 0; their
+  cost      `python -m repro_torch.launch.dryrun --arch granite-8b
+            --shape decode_32k --json` and `python -m
+            repro_torch.launch.fvs_dryrun` as subprocesses started beside
+            the kernels' build and read after train (exit 0; their
             roofline lines are arithmetic), and the three counted steps
             summed up
   profile   (only when named in --phases) one search per method under
@@ -191,6 +202,7 @@ non-zero exit and no result.  Without a CUDA device it exits 2 at once.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import json
@@ -231,7 +243,10 @@ MENU8 = ("bruteforce", "scann", "sweeping", "sweeping_sq8", "navix",
 COUNTERS = ("distance_comps", "filter_checks", "hops", "page_accesses_index",
             "page_accesses_heap", "tmap_lookups", "reorder_rows")
 
-PARITY_N, PARITY_QUERIES = 20_000, 200
+# 32 queries, 200 until the train phase's TP / FSDP run needed the room:
+# the CPU sides took ~100 s of the phase's 140 s at 200 on an H100's host,
+# and the phase 147 s at 100 on a slower one
+PARITY_N, PARITY_QUERIES = 20_000, 32
 
 # kernel-vs-plain tolerance on finite distances: both sum ~128 float32
 # products in different orders; ||q||^2 + ||x||^2 is a few units here, so a
@@ -803,22 +818,33 @@ def main_slice3(ctx: dict, report: dict, dev="cuda") -> dict:
     return counts
 
 
+# queries of the storage step: the first 250 of main's 1,000 (all of them
+# took 42.2-80.6 s on an H100's host, most of it the Python pool replay;
+# cut when the train phase's TP / FSDP run needed the room)
+STORAGE_QUERIES = 250
+
+
 def storage_path(ctx: dict, report: dict, dev="cuda") -> None:
     """Every method with the paged storage engine attached (LRU, half the
-    pages), cold and then warm on the same batch: StorageStats per
+    pages), cold and then warm on the same batch (main's first
+    STORAGE_QUERIES queries): StorageStats per
     segment, the seconds of the search, of ordering the traces and of the
     pool replay, results equal to the same search without storage,
     measured pages against the counters."""
     from repro_torch.storage import make_storage_engine
 
     qstore, graph, scann = ctx["qstore"], ctx["graph"], ctx["scann"]
-    queries, (wa, wb), wf = ctx["queries"], ctx["inputs"], ctx["family"]
+    nq = min(STORAGE_QUERIES, ctx["queries"].shape[0])
+    queries = ctx["queries"][:nq]
+    (wa, wb), wf = [(wl, bm[:nq], truth[:nq]) for wl, bm, truth
+                    in ctx["inputs"]], ctx["family"]
+    wf = (wf[0], wf[1][:nq], wf[2][:nq])
     p = main_params()
     engine = make_storage_engine(qstore, scann, graph, capacity_frac=0.5,
                                  policy="lru")
     segs = {k: hi - lo for k, (lo, hi) in engine.segment_ranges().items()}
     print(f"   storage engine: {engine.total_pages} pages {segs}, LRU pool "
-          f"of {engine.pool.capacity}", flush=True)
+          f"of {engine.pool.capacity}; the first {nq} queries", flush=True)
     pq = dataclasses.replace(p, scann_page_accounting="per_query")
     cases = [("sweeping", wa, p), ("sweeping_sq8", wa, p), ("navix", wa, p),
              ("iterative_scan", wa, p), ("scann[per_query]", wa, pq),
@@ -833,12 +859,12 @@ def storage_path(ctx: dict, report: dict, dev="cuda") -> None:
                                   p, dev, kept)
     report["main"]["storage"] = {"segments": segs,
                                  "capacity": engine.pool.capacity,
-                                 "rows": rows}
+                                 "queries": nq, "rows": rows}
 
 
 def _storage_case(engine, case, spent, qstore, queries, kw, p, dev, kept):
     """One method with storage, cold and then warm: its two report rows;
-    each run's (label, mode, StorageStats) goes onto `kept`.
+    each run's (label, mode, StorageStats, queries) goes onto `kept`.
     A row splits the wall into the search ("search_s"), the ordering of
     the traces on the card with the copy to the host ("order_s"), the
     page streams built from the ids ("streams_s") and the pool replay
@@ -885,7 +911,7 @@ def _storage_case(engine, case, spent, qstore, queries, kw, p, dev, kept):
             check(bool((st.heap_pages <= heap_a).all()
                        and (st.index_pages <= idx_a).all()),
                   f"storage {label}: measured pages > analytic")
-        kept.append((label, mode, st))
+        kept.append((label, mode, st, queries.shape[0]))
         per_seg = {seg: (st.logical[seg], st.hits[seg], st.misses[seg])
                    for seg in st.logical}
         row = {"method": label, "workload": wl, "mode": mode,
@@ -977,13 +1003,19 @@ def legacy_path(ctx: dict, report: dict, dev="cuda") -> None:
     report["main"]["legacy"] = rows
 
 
+# the witness's ef_search sweep runs on the first 250 of the 1,000
+# queries (all of them took ~15 s, ef 1536 9.8 s of it, on an H100's
+# host; cut when the train phase's TP / FSDP run needed the room)
+WITNESS_SWEEP_QUERIES = 250
+
+
 def family_witness(ctx: dict, report: dict, dev="cuda") -> None:
     """Why recall is low on the family workload, measured: where the
     queries lie against each family's ball (the rows nearest its centre
-    row), `partitioned` at larger ef_search on the same queries (a sound
-    subgraph approaches recall 1), and `partitioned` at the main ef on
-    queries drawn inside the balls (midpoints of two rows of the query's
-    family)."""
+    row), `partitioned` at larger ef_search on the first
+    WITNESS_SWEEP_QUERIES of the same queries (a sound subgraph approaches
+    recall 1), and `partitioned` at the main ef on queries drawn inside
+    the balls (midpoints of two rows of the query's family)."""
     import dataclasses
 
     import numpy as np
@@ -1019,20 +1051,22 @@ def family_witness(ctx: dict, report: dict, dev="cuda") -> None:
           f"outside their family's ball", flush=True)
     out = {"radius": radius.tolist(), "ratio_median": float(ratio.median()),
            "ratio_min": float(ratio.min()), "outside_share": outside,
-           "ef_sweep": []}
+           "ef_sweep": [], "ef_sweep_queries": min(WITNESS_SWEEP_QUERIES,
+                                                   nq)}
     ex = make_executor("partitioned", store, partitions=parts, device=dev)
+    ns = min(WITNESS_SWEEP_QUERIES, nq)
     for ef in (p.ef_search, 384, 1536):
         pe = dataclasses.replace(p, ef_search=ef,
                                  beam_width=max(ef, p.beam_width),
                                  max_hops=4096)
         t0 = time.perf_counter()
-        res = ex.search(queries, fbm, pe)
+        res = ex.search(queries[:ns], fbm[:ns], pe)
         sync(dev)
-        rec = float(recall_at_k(res.ids, ftruth, p.k).mean())
+        rec = float(recall_at_k(res.ids, ftruth[:ns], p.k).mean())
         hops = float(res.stats.hops.float().mean())
-        print(f"   witness F: partitioned ef_search {ef} recall {rec:.4f} "
-              f"hops {hops:.1f} wall {time.perf_counter() - t0:.2f} s",
-              flush=True)
+        print(f"   witness F: partitioned ef_search {ef} on the first {ns} "
+              f"queries recall {rec:.4f} hops {hops:.1f} wall "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
         out["ef_sweep"].append({"ef_search": ef, "recall": rec,
                                 "hops": hops})
     check(out["ef_sweep"][-1]["recall"] >= out["ef_sweep"][0]["recall"],
@@ -1117,8 +1151,8 @@ def paper_step(ctx: dict, report: dict, dev="cuda") -> None:
           + ", ".join(f"{k} {v:.1f}" for k, v in qps.items()), flush=True)
 
     pen = out["miss_penalty"] = {}
-    for label, mode, st in ctx["storage_stats"]:
-        v = pen[f"{label} {mode}"] = measured_miss_penalty(st, nq, SYSTEM)
+    for label, mode, st, batch in ctx["storage_stats"]:
+        v = pen[f"{label} {mode}"] = measured_miss_penalty(st, batch, SYSTEM)
         check(math.isfinite(v) and v >= 0,
               f"paper: miss penalty of {label} {mode} is {v}")
     print("   paper: measured miss penalty, cycles a query (SYSTEM) "
@@ -1155,11 +1189,12 @@ SERVE_STEPPED = ("sweeping", "acorn", "navix", "iterative_scan",
 # 4 at selectivity 0.02 (positively correlated), Poisson arrivals (seed 7)
 # at 0.7 x the pool's capacity, SLO 1.5 x the straggler's service ticks
 STRAGGLER_FRAC, BURST_LEN, SEL_FAST, SEL_SLOW = 0.2, 4, 0.5, 0.02
-# 500 requests, not the bench's 1,000: cut to make room for the train
-# phase's ranks step (1,000 took 41.6 s on an H100)
-TRACE_LOAD, TRACE_SEED, TRACE_REQUESTS = 0.7, 7, 500
-# the FIFO equivalence on main's first 500 queries (1,000 took 36.4 s)
-FIFO_REQUESTS = 500
+# 250 requests, not the bench's 1,000: cut to make room for the train
+# phase's ranks steps (1,000 took 41.6 s on an H100, 500 22.9 s)
+TRACE_LOAD, TRACE_SEED, TRACE_REQUESTS = 0.7, 7, 250
+# the FIFO equivalence on main's first 250 queries (1,000 took 36.4 s,
+# 500 14.9 s)
+FIFO_REQUESTS = 250
 # tests/test_robustness.py's chaos plan, on a pool of a quarter of the
 # pages.  32 requests (one dispatch batch), not 1,000: at 1M nearly every
 # request faults down the ladder, ~0.4 s a request, 629 s for two runs of
@@ -1687,8 +1722,9 @@ SHARD_STORAGE_QUERIES = 200
 SHARD_SERVE_WIDTH = 64
 # requests served over 4 shards and over the GraphExecutor: 1,000 took
 # 16.0 + 38.5 s on an H100 (PERF.md), the phase's longest step, so the
-# check serves the first 256 of A's queries
-SHARD_SERVE_REQUESTS = 256
+# check serves the first 128 of A's queries (256, 10.5 s, until the train
+# phase's TP / FSDP run needed the room)
+SHARD_SERVE_REQUESTS = 128
 SHARD_KMEANS_K, SHARD_KMEANS_ITERS = 256, 5
 
 
@@ -1768,7 +1804,7 @@ def shard_lockstep(ctx: dict, out: dict, dev="cuda") -> None:
 
 
 def _parity_shard_store(ctx: dict, dev="cuda"):
-    """The parity phase's 20,000 x 128 store and 200 queries, remade on the
+    """The parity phase's 20,000 x 128 store and 100 queries, remade on the
     card, for the shard phase's card-against-CPU checks."""
     if "shard_parity" not in ctx:
         from repro_torch.data import DatasetSpec, make_dataset
@@ -2150,10 +2186,14 @@ MUTATE_PLANTED = 16
 # (tools_torch/time_graph_build.py, PERF.md), and the phase builds it four
 # times (construction, compaction, two recoveries), ~410 s, over the
 # phase's budget; so the graph methods run on a MutableIndex over the
-# first 50,000 rows of the same store (100,000 until the train phase's
-# ranks step needed the room), bruteforce and ScaNN on all of it
-MUTATE_GRAPH_ROWS = 50_000
+# first 25,000 rows of the same store (100,000 until the train phase's
+# ranks step needed the room, 50,000 until its TP / FSDP run did),
+# bruteforce and ScaNN on all of it
+MUTATE_GRAPH_ROWS = 25_000
 MUTATE_SERVE_MID_TICK = 20     # the mid-flight insert's tick
+# requests of each of the three ingest-serve runs: the first 500 of the
+# phase's queries (all 1,000 took 46.2 s for the three on an H100)
+MUTATE_SERVE_REQUESTS = 500
 
 
 def _widen(bm, base_words: int, width: int, delta_bits):
@@ -2449,7 +2489,8 @@ def phase_mutate(ctx: dict, report: dict, dev="cuda") -> None:
               f"((WAL {wal_bytes} B + checkpoint pages) / user "
               f"{big.user_bytes} B); should_compact after compaction "
               f"{out['should_compact_after']}", flush=True)
-        mutate_serve(small, queries, bms["graph"], p, out, dev)
+        mutate_serve(small, queries[:MUTATE_SERVE_REQUESTS],
+                     bms["graph"][:MUTATE_SERVE_REQUESTS], p, out, dev)
         counts = ops.launches()
         out["launches"] = counts
         if dev == "cuda":
@@ -3293,8 +3334,14 @@ def _timed(fn, *a, dev="cuda"):
     return r, time.perf_counter() - t0
 
 
+# the prompt of each decoder's ServeEngine run: the engine replays it
+# through the decode path a token a step, so 128 (until the train phase's
+# TP / FSDP run needed the room) took 127 of 159 host-bound steps
+DECODER_PROMPT = 64
+
+
 def decoder_serving(out: dict, cfg, key: str, batch: int = 4,
-                    prompt_len: int = 128, new: int = 32,
+                    prompt_len: int = DECODER_PROMPT, new: int = 32,
                     dev="cuda") -> dict:
     """One decoder's ServeEngine at the config's widths: greedy generation
     of `new` tokens for `batch` prompts of `prompt_len`, the prefill and
@@ -3403,19 +3450,22 @@ def _profile_decode(bundle, params, batch: int, seq: int, dev) -> dict:
     with torch.inference_mode():
         bundle.decode(params, cache, {"tokens": tok}, 0)
         sync(dev)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # device activity only, as the train phase profiles: with the
+        # host ops' events too, a model's serving step ran 10-19 s past
+        # its generation on an H100's host, most of it post-processing
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for pos in range(1, 5):
                 bundle.decode(params, cache, {"tokens": tok}, pos)
             sync(dev)
             wall_ms = (time.perf_counter() - t0) * 1e3
-    per_name = device_us_by_name(prof)
+    averages = prof.key_averages()
+    per_name = device_us_by_name(prof, averages)
     dev_ms = sum(per_name.values()) / 1e3
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
     # device kernels and copies run, a step
     from torch.autograd import DeviceType
-    per_step = sum(e.count for e in prof.key_averages()
+    per_step = sum(e.count for e in averages
                    if e.device_type == DeviceType.CUDA) / 4
     out = {"wall_ms": wall_ms, "device_ms": dev_ms,
            "busy_share": dev_ms / wall_ms, "device_items_a_step": per_step,
@@ -3435,7 +3485,7 @@ def phase_lm(report: dict, frames: int, batch: int, dev="cuda") -> int:
     import torch
     from repro_torch import configs as C
     print(f"== lm: model serving at full width ({batch} x {frames} frames; "
-          "granite-8b 4 x 128 + 32) ==", flush=True)
+          f"granite-8b 4 x {DECODER_PROMPT} + 32) ==", flush=True)
     out = report["lm"] = {}
     lm_smoke_parity(out, dev)
     launches = encoder_serving(out, frames, batch, dev)
@@ -4322,7 +4372,7 @@ MESH_CKPT_EVERY, MESH_FAIL_AT = 3, 4
 # one-ulp run's reading), the smoke training's rule.  At the published
 # bf16 compute each shard's partial rounds to bf16 (CPU, 2 layers,
 # 2 x 256: loss 1.3e-4, grad norm 3.4e-3 apart): recorded only
-MESH_EP_STEPS = 3
+MESH_EP_STEPS = 2              # 3 until the ranks' TP / FSDP run
 MESH_EP_TOL = 1e-5
 MESH_BYTES_ARCHS = ("granite-moe-1b-a400m", "granite-8b",
                     "kimi-k2-1t-a32b")
@@ -4644,35 +4694,59 @@ def mesh_step(cfg, out: dict, dev="cuda") -> None:
 # RANKS_STEPS steps of TRAIN_FULL_BATCH x TRAIN_FULL_SEQ at f32 and at
 # bf16 compute (remat "dots"); at f32, before each step, rank 0 also
 # computes the stacked (1, 2) EP step's loss and grad norm from the same
-# params (the other rank's experts broadcast to it), held within
+# params (the ranks' blocks gathered to it through the host, as a
+# checkpoint is), held within
 # RANKS_TOL (`mesh_ep_combine`'s `same_params` rule; two runs part by
 # AdamW's lift of rounding, see MESH_EP_TOL).  Then (data 2, model 1) on
 # the pair and (data 2, model 2, EP) on all four, cut to RANKS_DP_LAYERS
 # layers (every gradient crosses the host) at f32 compute (a bf16
 # product rounds by the rows a GEMM sees), RANKS_DP_STEPS steps each:
 # rank 0 computes the one-process step (no mesh) on the global batch
-# from the same params, held within RANKS_DP_TOL
+# from the same params, held within RANKS_DP_TOL.  Every leaf is laid out
+# by the partition rules (`rank_specs`): on `model` ranks the q / o heads
+# and the vocab split too where they divide it (granite-moe's odd vocab
+# of 49,155 stays whole), so the EP pair's ranks add attention partials
+# that the stacked step computes in one product: RANKS_TOL is re-derived
+# with a control, the stacked step's own loss and grad norm from the
+# params moved by one ulp, and the pair held within max(RANKS_TOL,
+# TRAIN_SMOKE_RATIO x that control), as MESH_EP_TOL holds the mesh step.
+# Then granite-8b at its published widths with fsdp (RANKS_TP_ARCH), cut
+# to RANKS_TP_LAYERS of 36 layers, at f32 on (data 2, model 2): every
+# weight of attention, the MLP and the embeddings split over `model` and
+# `data`, RANKS_TP_STEPS steps against the one-process step from the
+# same params (loss within RANKS_DP_TOL, grad norm RANKS_TP_GRAD_TOL);
+# then ServeEngine on the same ranks (fresh seed-0 params) prefills
+# RANKS_TP_SERVE_BATCH prompts of RANKS_TP_PROMPT tokens and decodes
+# RANKS_TP_DECODE greedy steps, token for token the one-process
+# engine's.  Every FSDP block crosses the host twice a step (the gather,
+# the gradient's all-reduce; with remat "dots" the gather again)
 RANKS_WORLD = 4
-RANKS_STEPS = 3
+RANKS_STEPS = 1                # 3 before the TP / FSDP run: cut to make room
 RANKS_TOL = 1e-6
 RANKS_DP_LAYERS, RANKS_DP_STEPS = 2, 2
 RANKS_DP_TOL = 1e-5
+RANKS_TP_ARCH, RANKS_TP_LAYERS, RANKS_TP_STEPS = "granite-8b", 2, 2
+RANKS_TP_GRAD_TOL = 1e-4
+RANKS_TP_SERVE_BATCH, RANKS_TP_PROMPT, RANKS_TP_DECODE = 2, 512, 16
 
 
 def _ranks_run(cfg, mesh, steps: int, dev: str, rank: int,
-               reference=None) -> dict:
+               reference=None, control: bool = False) -> dict:
     """`steps` steps of `cfg` through `Trainer` on the ranks of `mesh`
     (init from seed 0, placed by `RankLayout`; `step_fn` timed to a
-    synchronize, its peak memory a rank); with `reference` (a bundle
-    without a mesh or stacked), rank 0 computes its loss and grad norm on
-    the global batch from the same params before each step."""
+    synchronize, its peak memory a rank; the rank's bytes of params
+    beside `per_position_bytes` of the layout); with `reference` (a
+    bundle without a mesh or stacked), rank 0 computes its loss and grad
+    norm on the global batch from the same params before each step, and
+    with `control` also from those params moved by one ulp."""
     import statistics
 
     import torch
     from repro_torch.data import DataConfig, batch_for_step
+    from repro_torch.launch.sharding import map_leaves, per_position_bytes
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig
-    from repro_torch.optim.adamw import _global_norm
+    from repro_torch.optim.adamw import _global_norm, tree_leaves
     from repro_torch.train import TrainConfig, Trainer
     from repro_torch.train.loop import value_and_grad
 
@@ -4682,21 +4756,33 @@ def _ranks_run(cfg, mesh, steps: int, dev: str, rank: int,
     tr = Trainer(build_model(cfg, mesh), opt, TrainConfig(steps=steps),
                  lambda step: batch_for_step(dcfg, step))
     params, state, _ = tr.init_or_restore(0, dev)
+    meta = build_model(cfg).init(0, "meta")
     rec = {"held_experts": int(params["layers"]["ffn"]["wg"].shape[-3])
            if cfg.family == "moe" else None, "losses": [],
            "grad_norms": [], "step_ms": [], "peak_gib": [],
-           "ref_losses": [], "ref_grad_norms": []}
+           "ref_losses": [], "ref_grad_norms": [], "ctl_losses": [],
+           "ctl_grad_norms": [],
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(params)),
+           "per_position_bytes": per_position_bytes(
+               meta, tr.ranks.specs(meta), mesh)}
     for step in range(steps):
         batch = batch_for_step(dcfg, step)
         if reference is not None:
-            whole = tr.ranks.whole(params)
+            # the global params on rank 0 only (the checkpoint's gather):
+            # every rank holding them whole would move 4x the bytes
+            whole = tr.ranks.gather(params)
             if rank == 0:
-                loss, grads = value_and_grad(reference.loss, whole, {
-                    k: torch.as_tensor(v, device=dev)
-                    for k, v in batch.items()})
-                rec["ref_losses"].append(float(loss))
-                rec["ref_grad_norms"].append(float(_global_norm(grads)))
-                del grads
+                whole = map_leaves(lambda _, t: t.to(dev), whole)
+                on = {k: torch.as_tensor(v, device=dev)
+                      for k, v in batch.items()}
+                for key in ("ref", "ctl") if control else ("ref",):
+                    p = whole if key == "ref" else _one_ulp(whole)
+                    loss, grads = value_and_grad(reference.loss, p, on)
+                    rec[f"{key}_losses"].append(float(loss))
+                    rec[f"{key}_grad_norms"].append(float(
+                        _global_norm(grads)))
+                    del grads, p
             del whole
             _free_cuda(dev)
         if dev == "cuda":
@@ -4717,7 +4803,67 @@ def _ranks_run(cfg, mesh, steps: int, dev: str, rank: int,
     return rec
 
 
-def ranks_worker(rank: int, world: int, tmp: str, cfg, dev: str) -> None:
+def _ranks_serve(cfg, mesh, dev: str, rank: int) -> dict:
+    """Greedy `ServeEngine` tokens on the ranks of `mesh` from seed-0
+    params placed by `RankLayout` (the engine gathers the fsdp blocks
+    once), and on rank 0 the one-process engine's from the same params:
+    RANKS_TP_SERVE_BATCH prompts of RANKS_TP_PROMPT tokens, the prefill's
+    token and RANKS_TP_DECODE decode steps; seconds to a synchronize."""
+    import numpy as np
+    from repro_torch.models import build_model
+    from repro_torch.serving import ServeEngine
+    from repro_torch.train.ranks import RankLayout
+
+    prompts = np.random.RandomState(29).randint(
+        0, cfg.vocab, (RANKS_TP_SERVE_BATCH, RANKS_TP_PROMPT))
+    new = RANKS_TP_DECODE + 1
+    kw = dict(max_seq=RANKS_TP_PROMPT + new,
+              batch_size=RANKS_TP_SERVE_BATCH, device=dev)
+    rec = {}
+    for key, bundle in (("ranks", build_model(cfg, mesh)),
+                        ("one", build_model(cfg))):
+        if key == "one" and rank != 0:
+            break
+        params = build_model(cfg).init(0, dev)
+        if key == "ranks":
+            params = RankLayout(cfg, mesh).place(params)
+            _free_cuda(dev)
+        eng = ServeEngine(bundle, params, **kw)
+        del params
+        sync(dev)
+        t0 = time.perf_counter()
+        tokens = eng.generate(prompts, new)
+        sync(dev)
+        rec[f"{key}_s"] = time.perf_counter() - t0
+        rec[f"{key}_tokens"] = tokens.tolist()
+        del eng
+        _free_cuda(dev)
+    return rec
+
+
+def _ranks_warm_up(cfg, dev: str) -> None:
+    """One forward and backward of `cfg` on 1 x 64 tokens, no mesh: the
+    ranks that wait out the pair's runs load the card's kernels and
+    cuBLAS there, not inside their first timed step (without it the
+    (2, 2) run's first step read 13.5-15.2 s on an H100, 1.6-1.9 s
+    after)."""
+    import torch
+    from repro_torch.data import DataConfig, batch_for_step
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import value_and_grad
+
+    bundle = build_model(cfg)
+    params = bundle.init(0, dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch_for_step(
+        DataConfig(cfg.vocab, 64, 1), 0).items()}
+    loss, grads = value_and_grad(bundle.loss, params, batch)
+    sync(dev)
+    del loss, grads, params
+    _free_cuda(dev)
+
+
+def ranks_worker(rank: int, world: int, tmp: str, cfg, tp_cfg,
+                 dev: str) -> None:
     """One rank of the `ranks` step (spawned; see RANKS_WORLD): writes its
     records to tmp/rank<r>.json."""
     import torch
@@ -4727,16 +4873,27 @@ def ranks_worker(rank: int, world: int, tmp: str, cfg, dev: str) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or world) // world))
     dist.init_process_group("gloo", init_method=f"file://{tmp}/pg",
                             rank=rank, world_size=world)
     pair = dist.new_group([0, 1])
-    out = {}
+    out, secs = {}, {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        secs[name] = now - clock[0]
+        clock[0] = now
+
     try:
         def on(shape, group):
             return dataclasses.replace(
                 make_mesh(shape, ("data", "model")), group=group)
 
         ep = dataclasses.replace(cfg, moe_local_combine=True)
+        cut = dataclasses.replace(cfg, n_layers=RANKS_DP_LAYERS,
+                                  compute_dtype="float32")
         if rank < 2:
             for compute in ("float32", "bfloat16"):
                 c = dataclasses.replace(ep, compute_dtype=compute,
@@ -4744,19 +4901,31 @@ def ranks_worker(rank: int, world: int, tmp: str, cfg, dev: str) -> None:
                 stacked = build_model(c, on((1, 2), None)) \
                     if compute == "float32" else None
                 out[f"full_{compute}"] = _ranks_run(
-                    c, on((1, 2), pair), RANKS_STEPS, dev, rank, stacked)
+                    c, on((1, 2), pair), RANKS_STEPS, dev, rank, stacked,
+                    control=stacked is not None)
+        elif dev == "cuda":
+            _ranks_warm_up(cut, dev)
         dist.barrier()
-        cut = dataclasses.replace(cfg, n_layers=RANKS_DP_LAYERS,
-                                  compute_dtype="float32")
+        lap("full")
         if rank < 2:
             out["dp_2x1"] = _ranks_run(cut, on((2, 1), pair),
                                        RANKS_DP_STEPS, dev, rank,
                                        build_model(cut))
         dist.barrier()
+        lap("dp_2x1")
         cut_ep = dataclasses.replace(cut, moe_local_combine=True)
         out["dp_2x2"] = _ranks_run(cut_ep, on((2, 2), dist.group.WORLD),
                                    RANKS_DP_STEPS, dev, rank,
                                    build_model(cut_ep))
+        lap("dp_2x2")
+        out["tp_fsdp_2x2"] = _ranks_run(tp_cfg, on((2, 2), dist.group.WORLD),
+                                        RANKS_TP_STEPS, dev, rank,
+                                        build_model(tp_cfg))
+        lap("tp_fsdp_2x2")
+        out["tp_serve"] = _ranks_serve(tp_cfg, on((2, 2), dist.group.WORLD),
+                                       dev, rank)
+        lap("tp_serve")
+        out["seconds"] = secs
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
         dist.barrier()
@@ -4770,17 +4939,29 @@ def ranks_step(cfg, out: dict, dev="cuda") -> None:
     import tempfile
 
     import torch.multiprocessing as mp
+    from repro_torch import configs as C
     rec = out["ranks"] = {}
+    tp_cfg = dataclasses.replace(C.get_config(RANKS_TP_ARCH),
+                                 n_layers=RANKS_TP_LAYERS,
+                                 compute_dtype="float32")
     _free_cuda(dev)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        mp.spawn(ranks_worker, args=(RANKS_WORLD, tmp, cfg, dev),
+        mp.spawn(ranks_worker, args=(RANKS_WORLD, tmp, cfg, tp_cfg, dev),
                  nprocs=RANKS_WORLD, join=True)
         rec["spawn_s"] = time.perf_counter() - t0
         runs = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
                 for r in range(RANKS_WORLD)]
+    serve = [r.pop("tp_serve") for r in runs]
+    secs = [r.pop("seconds") for r in runs]
     got = runs[0]
     rec.update(got)
+    rec["tp_serve"] = serve[0]
+    rec["seconds"] = secs[0]
+    print(f"   ranks: spawned and joined in {rec['spawn_s']:.1f} s; rank 0's "
+          "seconds (each run's init, reference steps, steps and free) "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs[0].items()),
+          flush=True)
 
     def rels(r, a, b):
         return [abs(x / y - 1) for x, y in zip(r[a], r[b])]
@@ -4810,14 +4991,45 @@ def ranks_step(cfg, out: dict, dev="cuda") -> None:
                       f"ranks {name}: ranks disagree on the loss")
     check(f32["held_experts"] == cfg.n_experts // 2,
           f"ranks: {f32['held_experts']} experts held a rank")
-    check(max(f32["loss_rel"] + f32["grad_norm_rel"]) <= RANKS_TOL,
+    ctl = rels(f32, "ctl_losses", "ref_losses") \
+        + rels(f32, "ctl_grad_norms", "ref_grad_norms")
+    limit = f32["limit"] = max(RANKS_TOL, TRAIN_SMOKE_RATIO * max(ctl))
+    print(f"   ranks full_float32: the stacked step from the params moved "
+          f"by one ulp, loss and grad norm rel " + " ".join(
+              f"{x:.3g}" for x in ctl) + f": limit {limit:.3g}", flush=True)
+    check(max(f32["loss_rel"] + f32["grad_norm_rel"]) <= limit,
           f"ranks f32 EP against the stacked (1, 2) step: {f32['loss_rel']}"
-          f", {f32['grad_norm_rel']} (limit {RANKS_TOL})")
+          f", {f32['grad_norm_rel']} (limit {limit})")
     for name in ("dp_2x1", "dp_2x2"):
         r = got[name]
         check(max(r["loss_rel"] + r["grad_norm_rel"]) <= RANKS_DP_TOL,
               f"ranks {name} against the one-process step: "
               f"{r['loss_rel']}, {r['grad_norm_rel']} (limit {RANKS_DP_TOL})")
+    tp = got["tp_fsdp_2x2"]
+    for r, run in enumerate(runs):
+        mine = run["tp_fsdp_2x2"]
+        print(f"   ranks tp_fsdp_2x2 rank {r}: bytes of params "
+              f"{mine['param_bytes']:,} (per_position_bytes "
+              f"{mine['per_position_bytes']:,}); peak GiB " + " ".join(
+                  f"{x:.2f}" for x in mine["peak_gib"]) + "; ms a step "
+              + " ".join(f"{x:.1f}" for x in mine["step_ms"]), flush=True)
+        check(mine["param_bytes"] == mine["per_position_bytes"],
+              f"ranks tp_fsdp_2x2 rank {r}: {mine['param_bytes']} bytes of "
+              f"params, the layout gives {mine['per_position_bytes']}")
+    check(max(tp["loss_rel"]) <= RANKS_DP_TOL
+          and max(tp["grad_norm_rel"]) <= RANKS_TP_GRAD_TOL,
+          f"ranks tp_fsdp_2x2 against the one-process step: "
+          f"{tp['loss_rel']}, {tp['grad_norm_rel']} (limits {RANKS_DP_TOL}, "
+          f"{RANKS_TP_GRAD_TOL})")
+    s0 = serve[0]
+    print(f"   ranks tp_serve: {RANKS_TP_SERVE_BATCH} x {RANKS_TP_PROMPT} "
+          f"prompt tokens, {RANKS_TP_DECODE} greedy decode steps on (2, 2) "
+          f"TP / FSDP ranks {s0['ranks_s']:.1f} s, one process "
+          f"{s0['one_s']:.1f} s; tokens equal: "
+          f"{s0['ranks_tokens'] == s0['one_tokens']}", flush=True)
+    check(all(s["ranks_tokens"] == s0["one_tokens"] for s in serve),
+          "ranks tp_serve: the ranks' greedy tokens are not the one-process "
+          "engine's")
 
 
 def phase_train(report: dict, dev="cuda", full_cfg=None) -> None:
@@ -4987,39 +5199,66 @@ def count_on_both(label: str, card_fn, card_args, meta_fn, meta_args,
     return dict(card, meta_count_s=meta["count_s"])
 
 
-def phase_cost(report: dict) -> None:
-    """The dry runs' entry points run as subprocesses on this machine's
-    installation (exit 0; their roofline lines are arithmetic at the
-    H100's constants, not measurements), and the counted steps of the
-    shard, lm and train phases summed up."""
+def start_cost_runs() -> dict:
+    """The dry runs' entry points started as subprocesses, both at once,
+    while the kernels build (they run on the meta device and touch no
+    card): name -> its process, its output files and its start;
+    `phase_cost` reads them and `stop_cost_runs` kills what still runs."""
+    import tempfile
+    import threading
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = {}
+    t0 = time.perf_counter()
+    for name, args in COST_RUNS:
+        log, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        proc = subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env,
+                                stdout=log, stderr=err, text=True)
+        runs[name] = {"proc": proc, "log": log, "err": err, "t0": t0}
+
+        def ended(rec=runs[name]):
+            rec["proc"].wait()
+            rec["wall_s"] = time.perf_counter() - rec["t0"]
+        threading.Thread(target=ended, daemon=True).start()
+    return runs
+
+
+def stop_cost_runs(runs: dict) -> None:
+    for rec in runs.values():
+        if rec["proc"].poll() is None:
+            rec["proc"].kill()
+            rec["proc"].wait()
+
+
+def phase_cost(report: dict, runs: dict) -> None:
+    """The dry runs' entry points, run as subprocesses on this machine's
+    installation since the build (`start_cost_runs`; exit 0; their
+    roofline lines are arithmetic at the H100's constants, not
+    measurements), and the counted steps of the shard, lm and train
+    phases summed up."""
     print("== cost: the dry runs (arithmetic on the meta device) and the "
           "counted steps ==", flush=True)
     out = report["cost"] = {}
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
-    procs = {name: subprocess.Popen([sys.executable, *args], cwd=ROOT,
-                                    env=env, stdout=subprocess.PIPE,
-                                    stderr=subprocess.PIPE, text=True)
-             for name, args in COST_RUNS}       # both at once
     try:
-        for name, proc in procs.items():
-            stdout, stderr = proc.communicate(timeout=600)
-            wall = time.perf_counter() - t0
+        for name, run in runs.items():
+            proc = run["proc"]
+            proc.wait(timeout=600)
+            run["log"].seek(0)
+            run["err"].seek(0)
+            stdout = run["log"].read()
             if proc.returncode:
-                print(stdout[-2000:] + stderr[-3000:], flush=True)
+                print(stdout[-2000:] + run["err"].read()[-3000:], flush=True)
             check(proc.returncode == 0, f"cost: {name} exited "
                   f"{proc.returncode}")
             rec = json.loads(stdout[stdout.index("{"):])
+            wall = run.get("wall_s", time.perf_counter() - run["t0"])
             out[name] = {"wall_s": wall, "roofline": rec["roofline"],
                          "collectives": rec["collectives"]}
-            print(f"   cost: {name} exit 0 in {wall:.1f} s; roofline "
-                  f"(arithmetic, not measured): {rec['roofline']}; "
-                  f"collectives {rec['collectives']}", flush=True)
+            print(f"   cost: {name} exit 0 in {wall:.1f} s (started with "
+                  f"the build); roofline (arithmetic, not measured): "
+                  f"{rec['roofline']}; collectives {rec['collectives']}",
+                  flush=True)
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        stop_cost_runs(runs)
     anchors = {"sharded ScaNN": report.get("shard", {}).get("cost"),
                "encoder prefill": report.get("lm", {}).get(
                    "encoder", {}).get("cost"),
@@ -5164,12 +5403,14 @@ def main(argv=None) -> int:
     print(f"device: {name} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     print(smi, flush=True)
+    phases = set(args.phases.split(","))
+    cost_runs = start_cost_runs() if "cost" in phases else {}
+    atexit.register(stop_cost_runs, cost_runs)
     build_s = build.build_all()
-    print(f"kernel build: {build_s:.2f} s (nvcc, sm_90a, all sources at once)",
-          flush=True)
+    print(f"kernel build: {build_s:.2f} s (nvcc, sm_90a, all sources at once"
+          f"{'; the dry runs beside it' if cost_runs else ''})", flush=True)
     report = {"device": name, "nvidia_smi": smi, "build_s": build_s}
 
-    phases = set(args.phases.split(","))
     phase_s = report["phase_s"] = {}
 
     def timed(phase, fn, *a):
@@ -5219,7 +5460,7 @@ def main(argv=None) -> int:
     if "examples" in phases:
         timed("examples", phase_examples, report)
     if "cost" in phases:
-        timed("cost", phase_cost, report)
+        timed("cost", phase_cost, report, cost_runs)
     # profiler sessions that device_ms read empty and read again
     report["profiler_empty_sessions"] = dict(EMPTY_SESSIONS)
     print(f"profiler sessions read empty and read again: "

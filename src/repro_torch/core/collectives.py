@@ -32,6 +32,15 @@ cotangent of an input not split over the axis over it.  An all-reduce in
 `sum`'s backward would multiply every gradient behind it by the group
 size.  `StackedShards.copy` is the identity: autograd sees every shard.
 
+The layout's gather (`GroupShards.gather`, an autograd function): the
+forward puts the ranks' blocks of a leaf together along a dim (each
+block broadcast from its rank: gloo moves CUDA tensors only by
+`broadcast` and `all_reduce`); the backward returns this rank's block of
+the cotangent, all-reduced (SUM) over the group first when the ranks'
+cotangents are partials (an FSDP leaf over `data`, whose ranks take
+other rows of the batch), as it is when every rank holds the same one
+(experts gathered over `model` for the plain combine).
+
 `axis_group(mesh, axes)` is the subgroup of a mesh's process group over
 some of its axes: the ranks that share this rank's coordinates on the
 other axes (a data row's `model` ranks, a model column's `pod` and
@@ -59,12 +68,12 @@ def _reported(kind: str):
     """Report the wrapped collective's result to an open cost counter."""
     def wrap(fn):
         @functools.wraps(fn)
-        def call(self, x):
+        def call(self, x, *a, **kw):
             counter = op_cost.ACTIVE
             if counter is None:
-                return fn(self, x)
+                return fn(self, x, *a, **kw)
             with counter.paused():
-                out = fn(self, x)
+                out = fn(self, x, *a, **kw)
             counter.collective(kind, out)
             return out
         return call
@@ -135,6 +144,42 @@ class _CopyRanks(torch.autograd.Function):
         return g, None
 
 
+def global_rank(group, rank: int) -> int:
+    """The global rank of `group`'s rank `rank`."""
+    import torch.distributed as dist
+    if group is None or group is dist.group.WORLD:
+        return rank
+    return dist.get_global_rank(group, rank)
+
+
+class _GatherRanks(torch.autograd.Function):
+    """The group's blocks put together along `dim`; the cotangent's block
+    of this rank back, summed over the group first when `summed`."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, summed):
+        import torch.distributed as dist
+        n, mine = dist.get_world_size(group), dist.get_rank(group)
+        ctx.group, ctx.dim, ctx.summed, ctx.n, ctx.mine = \
+            group, dim, summed, n, mine
+        x = x.contiguous()
+        blocks = []
+        for i in range(n):
+            t = x if i == mine else torch.empty_like(x)
+            dist.broadcast(t, src=global_rank(group, i), group=group)
+            blocks.append(t)
+        return torch.cat(blocks, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        if ctx.summed:
+            g = g.contiguous().clone()
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g.chunk(ctx.n, ctx.dim)[ctx.mine].contiguous(), None, None, \
+            None
+
+
 class GroupShards:
     """One shard per rank of a torch.distributed process group: values are
     (1, ...) stacks of this rank's shard."""
@@ -176,6 +221,14 @@ class GroupShards:
         return _CopyRanks.apply(x, self.group)
 
     @_reported("all-gather")
+    def gather(self, x: torch.Tensor, dim: int, summed: bool = True
+               ) -> torch.Tensor:
+        """Every rank's block of a value put together along `dim`, in rank
+        order; differentiable (see the module docstring): `summed` when
+        the ranks' cotangents are partials to add."""
+        return _GatherRanks.apply(x, self.group, dim, summed)
+
+    @_reported("all-gather")
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """(S, ...) stack of every rank's (1, ...) value, in rank order.
         Booleans travel as int32."""
@@ -198,6 +251,16 @@ def _world_pg(group):
     if group is None or group is dist.group.WORLD:
         return dist.distributed_c10d._get_default_group()
     return group
+
+
+def axis_groups(mesh) -> None:
+    """Every subgroup partition of `mesh.group` (each non-empty set of its
+    axes), made now in one order on every rank: a partition made later on
+    one rank's code path alone would wait in `dist.new_group` for the
+    others."""
+    for r in range(1, len(mesh.axis_names) + 1):
+        for axes in itertools.combinations(mesh.axis_names, r):
+            axis_group(mesh, axes)
 
 
 def axis_group(mesh, axes) -> object | None:

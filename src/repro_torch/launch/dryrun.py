@@ -83,8 +83,9 @@ from repro_torch.configs import SHAPES, applicable_shapes, get_config
 from repro_torch.configs.registry import ARCH_IDS
 from repro_torch.launch import op_cost
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.sharding import (batch_specs, cache_specs, opt_specs,
-                                         param_specs, per_position_bytes)
+from repro_torch.launch.sharding import (batch_specs, cache_specs, entry_axes,
+                                         opt_specs, param_specs,
+                                         per_position_bytes)
 from repro_torch.launch.specs import input_specs
 from repro_torch.models import build_model
 from repro_torch.optim import AdamWConfig
@@ -172,11 +173,6 @@ def analytic_model_flops(cfg, shape) -> float:
 LORA_FLOPS_DIM = 2 * 32 * 6   # rwkv ddlerp loras (5 mix + decay)
 
 
-def _names(a) -> tuple:
-    return () if a is None else (tuple(a) if isinstance(a, (tuple, list))
-                                 else (a,))
-
-
 def spec_collectives(cfg, kind: str, params, pspecs, mesh,
                      tokens_local: int) -> dict[str, float]:
     """Collective bytes a device of one step under the specs, by the
@@ -191,7 +187,7 @@ def spec_collectives(cfg, kind: str, params, pspecs, mesh,
     for (path, leaf), (_, spec) in zip(flatten_with_path(params),
                                        flatten_with_path(pspecs)):
         nbytes = leaf.numel() * leaf.element_size()
-        dims = [_names(a) for a in spec] + [()] * (leaf.dim() - len(spec))
+        dims = [entry_axes(a) for a in spec] + [()] * (leaf.dim() - len(spec))
         split_b = math.prod(sizes[n] for ns in dims for n in ns
                             if n in BATCH_AXES)
         split_m = math.prod(sizes[n] for ns in dims for n in ns
@@ -265,7 +261,7 @@ def _meta_batch(cfg, shape_name: str) -> dict:
 def _tokens_local(batch: dict, bspecs: dict, mesh, kind: str) -> int:
     key = "frames" if "frames" in batch else "tokens"
     leaf, spec = batch[key], bspecs[key]
-    split = math.prod(mesh.shape[n] for n in _names(spec[0]))
+    split = math.prod(mesh.shape[n] for n in entry_axes(spec[0]))
     t = 1 if kind == "decode" else leaf.shape[1]
     return leaf.shape[0] // split * t
 

@@ -199,25 +199,72 @@ def opt_specs(cfg: ArchConfig, opt_shape: Any, pspecs: Any,
     return map_leaves(one, opt_shape)
 
 
-_EXPERTS = re.compile(r"ffn.*\bw[gud]\b")
+def entry_axes(entry) -> tuple:
+    """The axis names of one entry of a spec (None, a name or a tuple)."""
+    return () if entry is None else (tuple(entry) if isinstance(
+        entry, (tuple, list)) else (entry,))
+
+
+def rank_heads(cfg: ArchConfig, s: int, r: int) -> tuple[int, int, int, int]:
+    """(first q head, end, first kv head, end) of `model` rank `r` of `s`
+    when attention's heads split over `model`: whole heads, H / S a rank,
+    and the kv heads its q heads read (GQA groups of H / KV).  Refuses a
+    split that cuts a head or a GQA group unevenly (ROADMAP 1.15b)."""
+    h, kv = cfg.n_heads, cfg.n_kv
+    g = h // kv
+    per = h // s
+    if h % s or (per % g and g % per):
+        raise ValueError(
+            f"{cfg.name}: {h} q heads ({kv} kv heads) do not split in whole "
+            f"heads and GQA groups over a model axis of {s}: not ported on "
+            f"ranks (ROADMAP 1.15b)")
+    lo = r * per
+    return lo, lo + per, lo // g, (lo + per - 1) // g + 1
+
+
+def check_rank_layout(cfg: ArchConfig, mesh) -> None:
+    """Refuse what the ranks do not port (ROADMAP 1.15b): RWKV6's and
+    Zamba2's blocks on a `model` axis larger than 1 or with fsdp, the
+    `sp` scheme, and attention heads that split unevenly."""
+    sizes = _axis_sizes(mesh)
+    s, data = sizes.get("model", 1), sizes.get("data", 1)
+    if cfg.family in ("ssm", "hybrid") and (s > 1 or (cfg.fsdp
+                                                      and data > 1)):
+        raise ValueError(
+            f"{cfg.name}: the {cfg.family!r} family's blocks on a model "
+            f"axis of {s}{' with fsdp' if cfg.fsdp else ''} are not ported "
+            f"on ranks (ROADMAP 1.15b); a data axis with a model axis of 1 "
+            f"and no fsdp is")
+    if cfg.sharding_scheme == "sp":
+        raise ValueError(f"{cfg.name}: the 'sp' scheme is not ported on "
+                         f"ranks (ROADMAP 1.15b)")
+    hq = cfg.n_heads * cfg.head_dim
+    if s > 1 and cfg.family not in ("ssm", "hybrid") and hq % s == 0:
+        rank_heads(cfg, s, 0)
 
 
 def rank_specs(cfg: ArchConfig, tree: Any, mesh) -> Any:
-    """How a tree (params, or an optimizer state laid out as them) sits on
-    the ranks of a process group: with the EP combine
-    (`cfg.moe_local_combine`), a MoE's expert leaves split their expert
-    dim over `model`, as `_moe_spec` has it (fsdp is not ported on
-    ranks); every other leaf whole on every rank, as the `tp` scheme
-    without fsdp keeps the router, norms, attention and embeddings of
-    granite-moe across `model` ranks.  Scalars replicate."""
-    def one(path, leaf):
-        ndim = len(leaf.shape)
-        if cfg.family == "moe" and cfg.moe_local_combine and ndim >= 3 \
-                and _EXPERTS.search(path):
-            spec = P(*([None] * (ndim - 3)), "model", None, None)
-            return fit_spec(spec, leaf.shape, mesh)
-        return P()
-    return map_leaves(one, tree)
+    """How a tree sits on the ranks of a process group, one rank a mesh
+    position: every leaf (params, the AdamW moments, the int8 error
+    buffers, each under whatever prefix) takes its fitted partition spec,
+    `fit_spec(spec_for_path(...))`, the spec `param_specs` / `opt_specs`
+    give it; scalars replicate.  So with the `tp`
+    scheme q / o heads, the ffn hidden dim and the vocab split over
+    `model` where they divide it, a MoE's experts over `model` (EP), and
+    with `cfg.fsdp` the d_model dims over `data` too; RWKV6 and Zamba2
+    hold a `model` axis of 1 (see `check_rank_layout`).
+
+    A leaf's gradient on a rank is its block's: summed over `model` where
+    every model rank holds the whole leaf but uses a part (wk / wv by kv
+    head) or a partial (`GroupShards.copy`), over `data` by the FSDP
+    gather's backward where the leaf splits over `data`, and over the
+    batch axes it does not split over by `train.ranks.RankLayout.reduce`.
+    """
+    check_rank_layout(cfg, mesh)
+
+    return map_leaves(lambda path, leaf: fit_spec(spec_for_path(
+        cfg, path, len(leaf.shape), "data", "model"), leaf.shape, mesh),
+        tree)
 
 
 def batch_specs(cfg: ArchConfig, batch_shape: Any, mesh,
@@ -294,8 +341,7 @@ class NamedSharding:
                              f"value's {ndim} dims")
         out = []
         for a in ents:
-            names = () if a is None else (tuple(a) if isinstance(
-                a, (tuple, list)) else (a,))
+            names = entry_axes(a)
             for n in names:
                 if n not in sizes:
                     raise ValueError(f"axis {n!r} of {self.spec} is not an "
@@ -375,8 +421,7 @@ def per_position_bytes(shapes: Any, specs: Any, mesh) -> int:
                                     flatten_with_path(specs)):
         split = 1
         for a in spec:
-            for n in (() if a is None else (a if isinstance(a, tuple)
-                                            else (a,))):
+            for n in entry_axes(a):
                 split *= sizes[n]
         total += leaf.numel() * leaf.element_size() // split
     return total

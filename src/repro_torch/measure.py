@@ -6,14 +6,15 @@ runs when the module is imported."""
 from __future__ import annotations
 
 
-def device_us_by_name(prof) -> dict[str, float]:
+def device_us_by_name(prof, averages=None) -> dict[str, float]:
     """Device microseconds per kernel (or copy) name in a torch.profiler
-    trace.  Device-side events only: a CPU op's self device time repeats
-    its kernels', and "Command Buffer Full" is a launch-queue stall, not
-    device work."""
+    trace (or in its `key_averages()`, when the caller has them: they
+    take seconds to build from a long trace).  Device-side events only: a
+    CPU op's self device time repeats its kernels', and "Command Buffer
+    Full" is a launch-queue stall, not device work."""
     from torch.autograd import DeviceType
     per_name: dict[str, float] = {}
-    for e in prof.key_averages():
+    for e in (prof.key_averages() if averages is None else averages):
         if e.device_type != DeviceType.CUDA \
                 or e.key.startswith("Command Buffer Full"):
             continue

@@ -28,8 +28,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
+from repro_torch.core.collectives import axis_groups
+from repro_torch.launch.sharding import check_rank_layout
 from repro_torch.models import encoder, hybrid, rwkv, transformer as tfm, vlm
-from repro_torch.models.layers import data_ranks
 
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
@@ -79,11 +80,11 @@ def _bundle(cfg: ArchConfig, init, loss, prefill, init_cache=None,
     return ModelBundle(
         cfg=cfg,
         init=lambda key, device="cuda": init(generator(key, device), cfg),
-        loss=lambda p, b: loss(p, b, cfg), prefill=prefill,
+        loss=lambda p, b: loss(p, b, cfg, mesh=mesh), prefill=prefill,
         init_cache=None if init_cache is None else
         lambda bsz, s, device="cuda": init_cache(cfg, bsz, s, device),
         decode=None if decode is None else
-        lambda p, c, b, pos: decode(p, c, b["tokens"], pos, cfg),
+        lambda p, c, b, pos: decode(p, c, b["tokens"], pos, cfg, mesh=mesh),
         mesh=mesh)
 
 
@@ -92,48 +93,50 @@ def build_model(cfg: ArchConfig, mesh=None) -> ModelBundle:
     where the reference's ambient mesh reaches the arithmetic: every MoE
     block of the loss, the prefill and the decode gets it, and runs the
     EP combine over its `model` axis when `cfg.moe_local_combine` is
-    set.  Nothing else reads it.
+    set.
 
     With a process group attached to `mesh` (one rank a position; see
-    `train.ranks`), a rank's batch is its rows of the global batch: the
-    MoE blocks route them in their share of the global groups and hold
-    their `model` shard of the experts, and the loss is the global mean
-    (`layers.softmax_xent` over the data ranks).  The bundle keeps the
-    mesh (`bundle.mesh`) for `make_train_step`, `Trainer` and
-    `ServeEngine`.  Only the decoders (dense and MoE) take a batch split
-    over data ranks."""
+    `train.ranks`), every leaf is a rank's block by
+    `launch.sharding.rank_specs` and the blocks compute their share
+    (`models.layers`: heads, ffn hidden dim and vocab over `model`, fsdp
+    blocks gathered over `data`, experts held by `model` rank); a rank's
+    batch is its rows of the global batch, the MoE blocks route them in
+    their share of the global groups, and every family's loss is the
+    global mean (`layers.softmax_xent` over the data ranks).  The bundle
+    keeps the mesh (`bundle.mesh`) for `make_train_step`, `Trainer` and
+    `ServeEngine`.  What the ranks do not port is refused here
+    (`check_rank_layout`: RWKV6 and Zamba2 on a `model` axis larger than
+    1, ROADMAP 1.15b), and every subgroup the layout uses is made now, in
+    one order on every rank."""
     fam = cfg.family
-    if fam not in ("dense", "moe") and data_ranks(mesh) > 1:
-        raise ValueError(f"{cfg.name}: a batch split over data ranks is "
-                         f"ported for the dense and MoE decoders, not the "
-                         f"{fam!r} family")
+    if mesh is not None and mesh.group is not None:
+        check_rank_layout(cfg, mesh)
+        axis_groups(mesh)
     if fam in ("dense", "moe"):
         return _bundle(
-            cfg, tfm.init_lm,
-            lambda p, b, c: tfm.lm_loss(p, b, c, mesh=mesh),
+            cfg, tfm.init_lm, tfm.lm_loss,
             lambda p, b: tfm.prefill(p, cfg, tokens=b["tokens"], mesh=mesh),
-            tfm.init_cache,
-            lambda p, c, t, pos, cf: tfm.decode_step(p, c, t, pos, cf,
-                                                     mesh=mesh), mesh)
+            tfm.init_cache, tfm.decode_step, mesh)
     if fam == "vlm":
         return _bundle(
             cfg, vlm.init_vlm, vlm.vlm_loss,
             lambda p, b: vlm.vlm_prefill(p, cfg, b["tokens"],
-                                         b["patch_embeds"]),
-            tfm.init_cache, tfm.decode_step)
+                                         b["patch_embeds"], mesh=mesh),
+            tfm.init_cache, tfm.decode_step, mesh)
     if fam == "encoder":
         return _bundle(
             cfg, encoder.init_encoder, encoder.encoder_loss,
             lambda p, b: encoder.encode(p, b["frames"], cfg,
-                                        allow_pallas=True))
+                                        allow_pallas=True, mesh=mesh),
+            mesh=mesh)
     if fam == "ssm":
         return _bundle(
             cfg, rwkv.init_rwkv_lm, rwkv.rwkv_loss,
-            lambda p, b: rwkv.rwkv_prefill(p, cfg, b["tokens"]),
-            rwkv.init_rwkv_cache, rwkv.rwkv_decode_step)
+            lambda p, b: rwkv.rwkv_prefill(p, cfg, b["tokens"], mesh),
+            rwkv.init_rwkv_cache, rwkv.rwkv_decode_step, mesh)
     if fam == "hybrid":
         return _bundle(
             cfg, hybrid.init_hybrid, hybrid.hybrid_loss,
-            lambda p, b: hybrid.hybrid_prefill(p, cfg, b["tokens"]),
-            hybrid.init_hybrid_cache, hybrid.hybrid_decode_step)
+            lambda p, b: hybrid.hybrid_prefill(p, cfg, b["tokens"], mesh),
+            hybrid.init_hybrid_cache, hybrid.hybrid_decode_step, mesh)
     raise ValueError(f"unknown family {fam!r}")

@@ -9,8 +9,9 @@ reference's layout: `mamba_groups` (G, attn_every, ...), `mamba_tail`
 shared-attention call site has its OWN KV cache (weights shared, state
 not), a ring buffer of min(shared_attn_window, seq_len) slots.  A decode
 step writes every state and cache slot in place.  `hybrid_loss` is the
-training objective; a group (not the tail) is the unit of remat, as in
-the reference.
+training objective (over data ranks, a `model` axis of 1, with the
+global count); a group (not the tail) is the unit of remat, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -18,10 +19,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
-from repro_torch.models.layers import (attention_block, cdtype, embed_tokens,
-                                       init_attention, init_embeddings,
-                                       init_mlp, layer_params, lm_logits,
-                                       mlp_block, softmax_xent)
+from repro_torch.models.layers import (attention_block, cdtype, data_shards,
+                                       embed_tokens, init_attention,
+                                       init_embeddings, init_mlp,
+                                       layer_params, lm_logits, mlp_block,
+                                       softmax_xent)
 from repro_torch.models.ssm import init_mamba, mamba_block, mamba_init_state
 from repro_torch.models.transformer import _decode_attn, _remat
 
@@ -42,10 +44,10 @@ def init_hybrid(gen: torch.Generator, cfg: ArchConfig) -> dict:
     return p
 
 
-def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor
+def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, mesh=None
             ) -> torch.Tensor:
     """Full-sequence forward.  Returns (B, T, D)."""
-    x = embed_tokens(params["embed"], tokens, cfg).to(cdtype(cfg))
+    x = embed_tokens(params["embed"], tokens, cfg, mesh).to(cdtype(cfg))
     g, tail = _group_counts(cfg)
 
     def group_fn(x, gp):
@@ -53,9 +55,11 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor
             m, _ = mamba_block(layer_params(gp, i), x, cfg)
             x = x + m
         a, _ = attention_block(params["shared_attn"], x, cfg,
-                               is_global=True)
+                               is_global=True, mesh=mesh,
+                               path="shared_attn")
         x = x + a
-        return x + mlp_block(params["shared_mlp"], x, cfg)
+        return x + mlp_block(params["shared_mlp"], x, cfg, mesh,
+                             "shared_mlp")
 
     body = _remat(group_fn, cfg)
     for gi in range(g):
@@ -66,10 +70,12 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor
     return x
 
 
-def hybrid_loss(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    x = forward(params, cfg, batch["tokens"])
-    logits = lm_logits(params["embed"], x, cfg)
-    return softmax_xent(logits, batch["targets"], batch["mask"])
+def hybrid_loss(params: dict, batch: dict, cfg: ArchConfig, mesh=None
+                ) -> torch.Tensor:
+    x = forward(params, cfg, batch["tokens"], mesh)
+    logits = lm_logits(params["embed"], x, cfg, mesh)
+    return softmax_xent(logits, batch["targets"], batch["mask"],
+                        data_shards(mesh))
 
 
 def init_hybrid_cache(cfg: ArchConfig, batch: int, seq_len: int,
@@ -102,26 +108,27 @@ def _mamba_step(p: dict, x: torch.Tensor, cfg: ArchConfig, st: dict):
 
 
 def hybrid_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                       pos, cfg: ArchConfig):
+                       pos, cfg: ArchConfig, mesh=None):
     """One-token decode.  tokens: (B, 1); pos: int.  Returns (logits (B,
     1, V), cache), the cache written in place."""
-    x = embed_tokens(params["embed"], tokens, cfg).to(cdtype(cfg))
+    x = embed_tokens(params["embed"], tokens, cfg, mesh).to(cdtype(cfg))
     g, tail = _group_counts(cfg)
     for gi in range(g):
         for i in range(cfg.attn_every):
             x = _mamba_step(layer_params(params["mamba_groups"], gi, i), x,
                             cfg, layer_params(cache["mamba"], gi, i))
         a, _ = _decode_attn(params["shared_attn"], x, cache["attn_k"][gi],
-                            cache["attn_v"][gi], cfg, True, pos)
+                            cache["attn_v"][gi], cfg, True, pos, mesh,
+                            "shared_attn")
         x = x + a
-        x = x + mlp_block(params["shared_mlp"], x, cfg)
+        x = x + mlp_block(params["shared_mlp"], x, cfg, mesh, "shared_mlp")
     for li in range(tail):
         x = _mamba_step(layer_params(params["mamba_tail"], li), x, cfg,
                         layer_params(cache["mamba_tail"], li))
-    return lm_logits(params["embed"], x, cfg), cache
+    return lm_logits(params["embed"], x, cfg, mesh, whole=True), cache
 
 
-def hybrid_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor
-                   ) -> torch.Tensor:
-    x = forward(params, cfg, tokens)
-    return lm_logits(params["embed"], x[:, -1:], cfg)
+def hybrid_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                   mesh=None) -> torch.Tensor:
+    x = forward(params, cfg, tokens, mesh)
+    return lm_logits(params["embed"], x[:, -1:], cfg, mesh, whole=True)

@@ -13,9 +13,19 @@ Conventions:
     reference's weights across with `repro_torch.interop.lm_params`.
 
   * `shard(x, *axes)` is the reference's sharding constraint; the port's
-    models run on one card with no mesh, where the reference's constraint
-    is a no-op too, so it returns x.  `act_spec` keeps the reference's
-    activation templates.
+    models name their mesh (there is no ambient one), so it returns x.
+    `act_spec` keeps the reference's activation templates.
+  * on a mesh with a process group attached (one rank a position), each
+    leaf is this rank's block by `launch.sharding.rank_specs`, and the
+    blocks read each leaf's fitted spec (`_Ranks.weight`, the rules on
+    the global shape the config gives) to lay out their activations as
+    the `tp` templates do: q and kv heads, the ffn hidden dim and the
+    vocab split over `model` (`GroupShards.copy` before a split product,
+    `sum` after it: Megatron's f and g), and a leaf split over `data`
+    (fsdp) gathered over `data` before its use (`GroupShards.gather`,
+    whose backward sums the cotangent over `data`).  The gathered weight
+    is what the product saves for the backward (kept until then), or it
+    is gathered again where the config's remat recomputes the layer.
   * the MoE block routes as the reference does, tie for tie (a stable
     sort where the reference takes `lax.top_k` and `argsort`), and sums
     each token's expert outputs in the order the reference's scatter-add
@@ -40,6 +50,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.collectives import (GroupShards, StackedShards,
                                           axis_group)
+from repro_torch.launch.sharding import (P, entry_axes, fit_spec,
+                                         rank_heads, spec_for_path)
 
 
 BATCH_AXES = ("pod", "data")
@@ -79,6 +91,67 @@ def act_spec(cfg: ArchConfig, kind: str):
 
 def shard_act(x: torch.Tensor, cfg: ArchConfig, kind: str) -> torch.Tensor:
     return shard(x, *act_spec(cfg, kind))
+
+
+class _Ranks:
+    """A block's view of the ranks of a mesh with a process group: each
+    leaf's fitted spec, the FSDP gather over `data` and the Megatron pair
+    over `model` (`self.model`, None on a `model` axis of 1)."""
+
+    def __init__(self, cfg: ArchConfig, mesh):
+        self.cfg, self.mesh = cfg, mesh
+        self.sizes = mesh.shape
+        self.model = GroupShards(axis_group(mesh, ("model",))) \
+            if self.sizes.get("model", 1) > 1 else None
+        self.r = self.model.rank if self.model is not None else 0
+        self.data = GroupShards(axis_group(mesh, ("data",))) \
+            if self.sizes.get("data", 1) > 1 else None
+
+    def over(self, spec, dim: int, axis: str) -> bool:
+        """Whether dim `dim` of a leaf laid out by `spec` splits over
+        `axis` (of more than one position)."""
+        return axis in entry_axes(spec[dim]) and self.sizes[axis] > 1
+
+    def spec(self, path: str, shape: tuple):
+        """The fitted spec of the leaf at `path` (the reference's key
+        path, which picks the rule) of global `shape`."""
+        return fit_spec(spec_for_path(self.cfg, path, len(shape), "data",
+                                      "model"), shape, self.mesh)
+
+    def weight(self, w: torch.Tensor, path: str, shape: tuple):
+        """(`w` gathered over `data` where the leaf splits over it, its
+        fitted spec): `w` is this rank's block of the leaf at `path` of
+        global `shape`, or the whole leaf, which every rank then uses
+        whole (its spec all None)."""
+        if tuple(w.shape) == tuple(shape):
+            return w, P(*([None] * len(shape)))
+        spec = self.spec(path, shape)
+        want = tuple(n // int(np.prod([self.sizes[a] for a in
+                                       entry_axes(e)]))
+                     for n, e in zip(shape, spec))
+        if tuple(w.shape) != want:
+            raise ValueError(f"{path}: a block of {tuple(w.shape)}, the "
+                             f"layout {spec} of {shape} gives {want}")
+        for dim in range(len(shape)):
+            if self.over(spec, dim, "data"):
+                w = self.data.gather(w, dim)
+        return w, spec
+
+
+def _ranks(cfg: ArchConfig, mesh) -> Optional[_Ranks]:
+    """The ranks' view, or None when the mesh has no process group (no
+    mesh, or its positions stacked in this process: leaves whole)."""
+    if cfg is None or mesh is None or mesh.group is None:
+        return None
+    return _Ranks(cfg, mesh)
+
+
+def data_whole(w: torch.Tensor, path: str, shape: tuple, cfg: ArchConfig,
+               mesh=None) -> torch.Tensor:
+    """`w`, gathered over `data` on ranks where fsdp splits the leaf at
+    `path` (of global `shape`); as it is elsewhere."""
+    rk = _ranks(cfg, mesh)
+    return w if rk is None else rk.weight(w, path, shape)[0]
 
 
 def cdtype(cfg: ArchConfig) -> torch.dtype:
@@ -261,24 +334,65 @@ def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, tp, h, hd)[:, :t].to(q.dtype)
 
 
+def attention_weights(params: dict, cfg: ArchConfig, mesh=None,
+                      path: str = "attn", whole_kv: bool = False):
+    """This rank's attention: (wq, wk, wv, wo, (first kv head, end) that
+    it attends with, the `model` collectives or None).  Without ranks, or
+    where the heads do not split over `model`, the weights whole (fsdp
+    blocks gathered) and None.  Split, rank r holds q heads [r H / S,
+    (r + 1) H / S) of `wq` / `wo` and reads its kv heads of the whole
+    `wk` / `wv` (`launch.sharding.rank_heads`): through
+    `GroupShards.copy`, so their gradient adds every model rank's heads;
+    `whole_kv` (a decode step, which writes every kv head to the cache)
+    keeps them whole."""
+    rk = _ranks(cfg, mesh)
+    if rk is None:
+        return params["wq"], params["wk"], params["wv"], params["wo"], \
+            (0, cfg.n_kv), None
+    d, hd = cfg.d_model, cfg.head_dim
+    hq, hk = cfg.n_heads * hd, cfg.n_kv * hd
+    wq, sq = rk.weight(params["wq"], f"['{path}']['wq']", (d, hq))
+    wk, sk = rk.weight(params["wk"], f"['{path}']['wk']", (d, hk))
+    wv, _ = rk.weight(params["wv"], f"['{path}']['wv']", (d, hk))
+    wo, _ = rk.weight(params["wo"], f"['{path}']['wo']", (hq, d))
+    if not rk.over(sq, 1, "model"):
+        return wq, wk, wv, wo, (0, cfg.n_kv), None
+    if rk.over(sk, 1, "model"):
+        raise ValueError(f"{path}: kv projections split over `model`")
+    _, _, lo, hi = rank_heads(cfg, rk.sizes["model"], rk.r)
+    if not whole_kv:
+        wk = rk.model.copy(wk)[:, lo * hd:hi * hd]
+        wv = rk.model.copy(wv)[:, lo * hd:hi * hd]
+    return wq, wk, wv, wo, (lo, hi), rk.model
+
+
 def attention_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
                     is_global: bool = True, positions=None,
                     cache: Optional[dict] = None, pos=None,
                     use_windowed_kernel: bool = False,
-                    allow_pallas: bool = False):
+                    allow_pallas: bool = False, mesh=None,
+                    path: str = "attn"):
     """Pre-norm attention.  If `cache` is given, runs as one decode step
     (x: (B, 1, D)) writing the cache at `pos` and attending over it.
     Returns (out, cache).  The flash kernel runs when the config sets
     `pallas_flash`, the layer is global and the caller allows it (the
     encoder prefill), as in the reference.  The port writes a decode step's
     keys and values into the cache tensors in place (the reference returns
-    updated copies); the returned cache holds the same tensors."""
+    updated copies); the returned cache holds the same tensors.  On ranks
+    (`mesh` with a process group) a rank computes its heads
+    (`attention_weights`; `path` names the params' key for the rules) and
+    the output adds over `model`."""
     b, t, _ = x.shape
     hd = cfg.head_dim
+    wq, wk, wv, wo, (lo, hi), tp = attention_weights(
+        params, cfg, mesh, path, whole_kv=cache is not None)
     h = rmsnorm(x, params["norm"])
-    q = (h @ params["wq"].to(h.dtype)).reshape(b, t, cfg.n_heads, hd)
-    k = (h @ params["wk"].to(h.dtype)).reshape(b, t, cfg.n_kv, hd)
-    v = (h @ params["wv"].to(h.dtype)).reshape(b, t, cfg.n_kv, hd)
+    if tp is not None:
+        h = tp.copy(h)
+    nq, nk = wq.shape[-1] // hd, wk.shape[-1] // hd
+    q = (h @ wq.to(h.dtype)).reshape(b, t, nq, hd)
+    k = (h @ wk.to(h.dtype)).reshape(b, t, nk, hd)
+    v = (h @ wv.to(h.dtype)).reshape(b, t, nk, hd)
     window = 0 if is_global else cfg.window
     if cache is None:
         if positions is None:
@@ -306,11 +420,13 @@ def attention_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
             at = min(p, ck.shape[1] - t)       # dynamic_update_slice clamps
             ck[:, at:at + t] = k
             cv[:, at:at + t] = v
-        o = flash_attention(q, ck, cv, causal=False, kv_len=p + 1,
+        mine = (ck, cv) if tp is None else (ck[:, :, lo:hi], cv[:, :, lo:hi])
+        o = flash_attention(q, *mine, causal=False, kv_len=p + 1,
                             block=2048)
         new_cache = {"k": ck, "v": cv}
-    o = o.reshape(b, t, cfg.n_heads * hd)
-    return o @ params["wo"].to(o.dtype), new_cache
+    o = o.reshape(b, t, nq * hd)
+    out = o @ wo.to(o.dtype)
+    return (out if tp is None else tp.sum(out[None])), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -331,11 +447,26 @@ def init_mlp(gen: torch.Generator, cfg: ArchConfig,
 
 
 def mlp_block(params: dict, x: torch.Tensor,
-              cfg: ArchConfig | None = None) -> torch.Tensor:
+              cfg: ArchConfig | None = None, mesh=None,
+              path: str = "ffn") -> torch.Tensor:
+    """SwiGLU MLP.  On ranks the fsdp blocks are gathered, and where the
+    hidden dim splits over `model` a rank computes its columns of `wg` /
+    `wu` and rows of `wd`, and the output adds over `model`."""
+    wg, wu, wd, tp = params["wg"], params["wu"], params["wd"], None
+    rk = _ranks(cfg, mesh)
+    if rk is not None:
+        d, f = cfg.d_model, cfg.d_ff
+        wg, spec = rk.weight(wg, f"['{path}']['wg']", (d, f))
+        wu, _ = rk.weight(wu, f"['{path}']['wu']", (d, f))
+        wd, _ = rk.weight(wd, f"['{path}']['wd']", (f, d))
+        tp = rk.model if rk.over(spec, 1, "model") else None
     h = rmsnorm(x, params["norm"])
-    g = F.silu(h @ params["wg"].to(h.dtype))
-    u = h @ params["wu"].to(h.dtype)
-    return (g * u) @ params["wd"].to(h.dtype)
+    if tp is not None:
+        h = tp.copy(h)
+    g = F.silu(h @ wg.to(h.dtype))
+    u = h @ wu.to(h.dtype)
+    out = (g * u) @ wd.to(h.dtype)
+    return out if tp is None else tp.sum(out[None])
 
 
 def init_moe(gen: torch.Generator, cfg: ArchConfig, lead: tuple = ()
@@ -517,9 +648,22 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
     E) and the partials add over its `model` ranks."""
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
+    s = _model_axis_size(mesh)
+    rk = _ranks(cfg, mesh)
+    if rk is not None:
+        params = dict(params)
+        f = cfg.d_ff
+        for name, shape in (("wg", (e, d, f)), ("wu", (e, d, f)),
+                            ("wd", (e, f, d))):
+            w, spec = rk.weight(params[name], f"['ffn']['{name}']", shape)
+            if rk.over(spec, 0, "model") and not cfg.moe_local_combine:
+                # the plain combine takes every expert; each model rank
+                # computes the same outputs, so a block's cotangent is
+                # its slice (nothing to add)
+                w = rk.model.gather(w, 0, summed=False)
+            params[name] = w
     xt, gate, route, cap = moe_route(params, x, cfg, groups,
                                      data_ranks(mesh))
-    s = _model_axis_size(mesh)
     held = params["wg"].shape[0]
     if cfg.moe_local_combine and s > 1:
         if e % s:
@@ -604,24 +748,70 @@ def init_embeddings(gen: torch.Generator, cfg: ArchConfig) -> dict:
     return p
 
 
-def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig
-                 ) -> torch.Tensor:
-    # the reference casts the whole table, then gathers; gathering first
-    # gives the same values without a (vocab, d) copy per call
-    return params["tok"][tokens].to(cdtype(cfg))
+def _vocab_weight(params: dict, cfg: ArchConfig, rk: _Ranks,
+                  table: bool):
+    """(the embedding table (V, d) when `table`, else the LM head's (d,
+    V): the table itself when tied; fsdp blocks gathered; whether its
+    vocab splits over `model`)."""
+    v, d = cfg.vocab, cfg.d_model
+    if table or cfg.tie_embeddings:
+        w, spec = rk.weight(params["tok"], "['embed']['tok']", (v, d))
+        return (w if table else w.T), rk.over(spec, 0, "model")
+    w, spec = rk.weight(params["unembed"], "['embed']['unembed']", (d, v))
+    return w, rk.over(spec, 1, "model")
 
 
-def lm_logits(params: dict, x: torch.Tensor, cfg: ArchConfig
-              ) -> torch.Tensor:
+def embed_tokens(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+                 mesh=None) -> torch.Tensor:
+    """The token rows of the embedding table.  On ranks whose table splits
+    its vocab over `model`, a rank reads the ids of its vocab range, the
+    others' rows are 0, and the ranks add."""
+    rk = _ranks(cfg, mesh)
+    if rk is None:
+        # the reference casts the whole table, then gathers; gathering
+        # first gives the same values without a (vocab, d) copy per call
+        return params["tok"][tokens].to(cdtype(cfg))
+    tok, split = _vocab_weight(params, cfg, rk, table=True)
+    if not split:
+        return tok[tokens].to(cdtype(cfg))
+    rows = tok.shape[0]
+    local = tokens.long() - rk.r * rows
+    own = (local >= 0) & (local < rows)
+    x = tok[local.clamp(0, rows - 1)].to(cdtype(cfg))
+    return rk.model.sum(torch.where(own[..., None], x, 0)[None])
+
+
+def lm_logits(params: dict, x: torch.Tensor, cfg: ArchConfig, mesh=None,
+              whole: bool = False) -> torch.Tensor:
+    """The LM head.  On ranks whose vocab splits over `model` the logits
+    are this rank's vocab columns (the loss takes them so), or with
+    `whole` (serving) every rank's put together."""
     h = rmsnorm(x, params["final_norm"])
-    w = params["tok"].T if cfg.tie_embeddings else params["unembed"]
-    return h @ w.to(h.dtype)
+    rk = _ranks(cfg, mesh)
+    if rk is None:
+        w = params["tok"].T if cfg.tie_embeddings else params["unembed"]
+        return h @ w.to(h.dtype)
+    w, split = _vocab_weight(params, cfg, rk, table=False)
+    if not split:
+        return h @ w.to(h.dtype)
+    logits = rk.model.copy(h) @ w.to(h.dtype)
+    return rk.model.gather(logits, logits.dim() - 1, summed=False) \
+        if whole else logits
 
+
+def vocab_shards(logits: torch.Tensor, cfg: ArchConfig, mesh=None
+                 ) -> Optional[GroupShards]:
+    """The `model` collectives when `logits` are this rank's vocab columns
+    (`lm_logits` on ranks whose vocab splits over `model`), else None."""
+    rk = _ranks(cfg, mesh)
+    if rk is None or logits.shape[-1] == cfg.vocab:
+        return None
+    return rk.model
 
 
 def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
-                 mask: torch.Tensor, data: Optional[GroupShards] = None
-                 ) -> torch.Tensor:
+                 mask: torch.Tensor, data: Optional[GroupShards] = None,
+                 vocab: Optional[GroupShards] = None) -> torch.Tensor:
     """Masked mean cross-entropy in f32, as the reference's: the row max
     held out of the gradient, the loss divided by max(mask.sum(), 1).  The
     label's log-prob is a gather where the reference takes an einsum
@@ -633,13 +823,32 @@ def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
     ranks' terms are added (`GroupShards.sum`: the cotangent passes as it
     is), so the value is the global mean on every rank and a rank's
     gradient is its term's: the sum over the data ranks is the global
-    mean's."""
+    mean's.
+
+    With `vocab` (the `model` collectives, `vocab_shards(logits, cfg, mesh)`)
+    `logits` are this rank's vocab columns, rank r's the r-th slice: the
+    row max is the all-reduce MAX of the ranks' (held out of the
+    gradient), the sum of exp adds the ranks' (`GroupShards.sum`), and
+    the label's logit comes from the rank that holds it, added over
+    `model`."""
     logits = logits.to(torch.float32)
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    if vocab is not None:
+        m = vocab.max(m[None])
     shifted = logits - m
-    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
-    ll = torch.gather(shifted, -1, targets.long()[..., None])[..., 0] \
-        + m[..., 0]
+    total = torch.sum(torch.exp(shifted), dim=-1)
+    if vocab is None:
+        label = torch.gather(shifted, -1, targets.long()[..., None])[..., 0]
+    else:
+        total = vocab.sum(total[None])
+        cols = logits.shape[-1]
+        local = targets.long() - vocab.rank * cols
+        own = (local >= 0) & (local < cols)
+        label = torch.gather(shifted, -1,
+                             local.clamp(0, cols - 1)[..., None])[..., 0]
+        label = vocab.sum(torch.where(own, label, 0.0)[None])
+    lse = torch.log(total) + m[..., 0]
+    ll = label + m[..., 0]
     loss = (lse - ll) * mask
     count = mask.sum()
     if data is None:

@@ -4,15 +4,17 @@ The counterpart of the reference's `models/rwkv.py`.  The layers are
 stacked (L, ...) and run in a Python loop.  The decode cache holds one
 O(1) state a layer (independent of the sequence length); a decode step
 writes it in place and returns the same tensors.  `rwkv_loss` is the
-training objective.
+training objective; on ranks (a `model` axis of 1, `launch.sharding.
+check_rank_layout`) its count is the global one over the data ranks.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import (cdtype, embed_tokens, init_embeddings,
-                                       layer_params, lm_logits, softmax_xent)
+from repro_torch.models.layers import (cdtype, data_shards, embed_tokens,
+                                       init_embeddings, layer_params,
+                                       lm_logits, softmax_xent)
 from repro_torch.models.ssm import (init_rwkv_cmix, init_rwkv_tmix,
                                     rwkv_cmix, rwkv_init_state, rwkv_tmix)
 from repro_torch.models.transformer import _remat
@@ -25,10 +27,10 @@ def init_rwkv_lm(gen: torch.Generator, cfg: ArchConfig) -> dict:
                        "cmix": init_rwkv_cmix(gen, cfg, lead)}}
 
 
-def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor
+def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, mesh=None
             ) -> torch.Tensor:
     """Full-sequence forward.  Returns (B, T, D)."""
-    x = embed_tokens(params["embed"], tokens, cfg).to(cdtype(cfg))
+    x = embed_tokens(params["embed"], tokens, cfg, mesh).to(cdtype(cfg))
 
     def layer_fn(x, lp):
         t, _ = rwkv_tmix(lp["tmix"], x, cfg)
@@ -42,10 +44,12 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor
     return x
 
 
-def rwkv_loss(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    x = forward(params, cfg, batch["tokens"])
-    logits = lm_logits(params["embed"], x, cfg)
-    return softmax_xent(logits, batch["targets"], batch["mask"])
+def rwkv_loss(params: dict, batch: dict, cfg: ArchConfig, mesh=None
+              ) -> torch.Tensor:
+    x = forward(params, cfg, batch["tokens"], mesh)
+    logits = lm_logits(params["embed"], x, cfg, mesh)
+    return softmax_xent(logits, batch["targets"], batch["mask"],
+                        data_shards(mesh))
 
 
 def init_rwkv_cache(cfg: ArchConfig, batch: int, seq_len: int,
@@ -63,10 +67,10 @@ def _write(cache: dict, state: dict) -> None:
 
 
 def rwkv_decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos,
-                     cfg: ArchConfig):
+                     cfg: ArchConfig, mesh=None):
     """One-token decode.  tokens: (B, 1).  Returns (logits (B, 1, V),
     cache), each layer's state written in place."""
-    x = embed_tokens(params["embed"], tokens, cfg).to(cdtype(cfg))
+    x = embed_tokens(params["embed"], tokens, cfg, mesh).to(cdtype(cfg))
     for li in range(cfg.n_layers):
         lp = layer_params(params["layers"], li)
         st = layer_params(cache, li)
@@ -75,10 +79,10 @@ def rwkv_decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos,
         c, cs = rwkv_cmix(lp["cmix"], x, cfg, state=st["cmix"])
         x = x + c
         _write(st, {"tmix": ts, "cmix": cs})
-    return lm_logits(params["embed"], x, cfg), cache
+    return lm_logits(params["embed"], x, cfg, mesh, whole=True), cache
 
 
-def rwkv_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor
-                 ) -> torch.Tensor:
-    x = forward(params, cfg, tokens)
-    return lm_logits(params["embed"], x[:, -1:], cfg)
+def rwkv_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
+    x = forward(params, cfg, tokens, mesh)
+    return lm_logits(params["embed"], x[:, -1:], cfg, mesh, whole=True)

@@ -27,13 +27,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
-from repro_torch.models.layers import (apply_rope, attention_block, cdtype,
+from repro_torch.models.layers import (apply_rope, attention_block,
+                                       attention_weights, cdtype,
                                        data_shards, embed_tokens,
                                        flash_attention,
                                        init_attention, init_embeddings,
                                        init_mlp, init_moe, layer_params,
                                        lm_logits, mlp_block, moe_block,
-                                       rmsnorm, softmax_xent)
+                                       rmsnorm, softmax_xent, vocab_shards)
 
 # the plain matmuls: what `checkpoint_dots_with_no_batch_dims` saves (a
 # batched product, attention's or the experts', is recomputed)
@@ -89,14 +90,15 @@ def _layer(p, x, cfg: ArchConfig, is_global: bool, cache=None, pos=None,
            use_windowed_kernel: bool = False, mesh=None):
     a, new_cache = attention_block(p["attn"], x, cfg, is_global=is_global,
                                    cache=cache, pos=pos,
-                                   use_windowed_kernel=use_windowed_kernel)
+                                   use_windowed_kernel=use_windowed_kernel,
+                                   mesh=mesh)
     x = x + a
     return x + _ffn(p["ffn"], x, cfg, mesh), new_cache
 
 
 def _ffn(p, x, cfg: ArchConfig, mesh=None):
     return moe_block(p, x, cfg, mesh=mesh) if cfg.family == "moe" \
-        else mlp_block(p, x, cfg)
+        else mlp_block(p, x, cfg, mesh)
 
 
 def _layers_in_order(cfg: ArchConfig):
@@ -117,11 +119,12 @@ def forward(params: dict, cfg: ArchConfig,
             embeds: Optional[torch.Tensor] = None,
             use_windowed_kernel: bool = False, mesh=None) -> torch.Tensor:
     """Full-sequence forward (training, prefill hidden states).  Returns
-    (B, T, D).  `mesh` goes to every MoE block (`moe_block`)."""
+    (B, T, D).  `mesh` goes to every block: the embedding, attention,
+    MLP and MoE blocks lay themselves out on its ranks (`layers`)."""
     _check_family(cfg)
     use_windowed_kernel = use_windowed_kernel or cfg.windowed_kernel
     x = embeds if embeds is not None else embed_tokens(params["embed"],
-                                                       tokens, cfg)
+                                                       tokens, cfg, mesh)
     x = x.to(cdtype(cfg))
     if _grouped(cfg):
         per = cfg.global_every
@@ -156,9 +159,9 @@ def lm_loss(params: dict, batch: dict, cfg: ArchConfig,
                 embeds=batch.get("embeds"),
                 use_windowed_kernel=use_windowed_kernel
                 or cfg.windowed_kernel, mesh=mesh)
-    logits = lm_logits(params["embed"], x, cfg)
+    logits = lm_logits(params["embed"], x, cfg, mesh)
     return softmax_xent(logits, batch["targets"], batch["mask"],
-                        data_shards(mesh))
+                        data_shards(mesh), vocab_shards(logits, cfg, mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -209,32 +212,41 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos,
                 cfg: ArchConfig, embeds: Optional[torch.Tensor] = None,
                 mesh=None):
     """One-token decode.  tokens: (B, 1); pos: int (uniform batch).
-    Returns (logits (B, 1, V), cache), the cache written in place."""
+    Returns (logits (B, 1, V), cache), the cache written in place; on
+    ranks the full vocab's logits of this rank's rows."""
     _check_family(cfg)
     x = embeds if embeds is not None else embed_tokens(params["embed"],
-                                                       tokens, cfg)
+                                                       tokens, cfg, mesh)
     x = x.to(cdtype(cfg))
     for idx, is_global in _layers_in_order(cfg):
         lp = layer_params(params["layers"], *idx)
         kc, vc = _layer_cache(cfg, cache, idx)
-        a, _ = _decode_attn(lp["attn"], x, kc, vc, cfg, is_global, pos)
+        a, _ = _decode_attn(lp["attn"], x, kc, vc, cfg, is_global, pos,
+                            mesh)
         x = x + a
         x = x + _ffn(lp["ffn"], x, cfg, mesh)
-    return lm_logits(params["embed"], x, cfg), cache
+    return lm_logits(params["embed"], x, cfg, mesh, whole=True), cache
 
 
 def _decode_attn(p, x, k_cache, v_cache, cfg: ArchConfig, is_global: bool,
-                 pos):
+                 pos, mesh=None, path: str = "attn"):
     """Single-token attention against a (ring-buffered if windowed) cache:
     the new key and value go to slot pos % capacity, and the step attends
-    over the min(pos + 1, capacity) slots written so far."""
+    over the min(pos + 1, capacity) slots written so far.  On ranks whose
+    heads split over `model` (`layers.attention_weights`) every rank
+    writes every kv head (the cache holds them whole, as `cache_specs`
+    lays it out), attends with its own heads, and the output adds over
+    `model`."""
     b = x.shape[0]
     hd, kv = cfg.head_dim, cfg.n_kv
     pos = int(pos)
+    wq, wk, wv, wo, (lo, hi), tp = attention_weights(p, cfg, mesh, path,
+                                                     whole_kv=True)
     h = rmsnorm(x, p["norm"])
-    q = (h @ p["wq"].to(h.dtype)).reshape(b, 1, cfg.n_heads, hd)
-    k = (h @ p["wk"].to(h.dtype)).reshape(b, 1, kv, hd)
-    v = (h @ p["wv"].to(h.dtype)).reshape(b, 1, kv, hd)
+    nq = wq.shape[-1] // hd
+    q = (h @ wq.to(h.dtype)).reshape(b, 1, nq, hd)
+    k = (h @ wk.to(h.dtype)).reshape(b, 1, kv, hd)
+    v = (h @ wv.to(h.dtype)).reshape(b, 1, kv, hd)
     posn = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posn, cfg.rope_theta)
     k = apply_rope(k, posn, cfg.rope_theta)
@@ -242,10 +254,12 @@ def _decode_attn(p, x, k_cache, v_cache, cfg: ArchConfig, is_global: bool,
     slot = pos % cap
     k_cache[:, slot] = k[:, 0]
     v_cache[:, slot] = v[:, 0]
-    o = flash_attention(q, k_cache, v_cache, causal=False,
-                        kv_len=min(pos + 1, cap), block=2048)
-    o = o.reshape(b, 1, cfg.n_heads * hd)
-    return o @ p["wo"].to(o.dtype), {"k": k_cache, "v": v_cache}
+    o = flash_attention(q, k_cache[:, :, lo:hi], v_cache[:, :, lo:hi],
+                        causal=False, kv_len=min(pos + 1, cap), block=2048)
+    o = o.reshape(b, 1, nq * hd)
+    out = o @ wo.to(o.dtype)
+    return (out if tp is None else tp.sum(out[None])), \
+        {"k": k_cache, "v": v_cache}
 
 
 def prefill(params: dict, cfg: ArchConfig,
@@ -254,4 +268,4 @@ def prefill(params: dict, cfg: ArchConfig,
     """Prefill forward: returns the last position's logits (B, 1, V); the
     cache is written by the decode path, as in the reference."""
     x = forward(params, cfg, tokens=tokens, embeds=embeds, mesh=mesh)
-    return lm_logits(params["embed"], x[:, -1:], cfg)
+    return lm_logits(params["embed"], x[:, -1:], cfg, mesh, whole=True)

@@ -7,6 +7,7 @@ already projected, which replace the first P token positions (prefix
 layout); `tokens` spans them, so T >= P.  The backbone is the dense
 decoder of `models/transformer.py`; decode is its text-only
 `decode_step`.  `vlm_loss` leaves the patch prefix out of the LM loss.
+`mesh` reaches the backbone's blocks and the loss as in the decoder.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import embed_tokens, lm_logits, softmax_xent
+from repro_torch.models.layers import (data_shards, embed_tokens, lm_logits,
+                                       softmax_xent, vocab_shards)
 
 
 def init_vlm(gen: torch.Generator, cfg: ArchConfig) -> dict:
@@ -22,28 +24,30 @@ def init_vlm(gen: torch.Generator, cfg: ArchConfig) -> dict:
 
 
 def splice_embeds(params: dict, tokens: torch.Tensor,
-                  patch_embeds: torch.Tensor, cfg: ArchConfig
+                  patch_embeds: torch.Tensor, cfg: ArchConfig, mesh=None
                   ) -> torch.Tensor:
     """Prefix splice: positions [0, P) take the patch embeddings."""
-    x = embed_tokens(params["embed"], tokens, cfg)
+    x = embed_tokens(params["embed"], tokens, cfg, mesh)
     p = patch_embeds.shape[1]
     return torch.cat([patch_embeds.to(x.dtype), x[:, p:]], dim=1)
 
 
-def vlm_loss(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def vlm_loss(params: dict, batch: dict, cfg: ArchConfig, mesh=None
+             ) -> torch.Tensor:
     embeds = splice_embeds(params, batch["tokens"], batch["patch_embeds"],
-                           cfg)
-    x = tfm.forward(params, cfg, embeds=embeds)
-    logits = lm_logits(params["embed"], x, cfg)
+                           cfg, mesh)
+    x = tfm.forward(params, cfg, embeds=embeds, mesh=mesh)
+    logits = lm_logits(params["embed"], x, cfg, mesh)
     # the image-prefix positions are masked out of the LM loss, on a copy:
     # the caller's mask stays as it is
     p = batch["patch_embeds"].shape[1]
     mask = batch["mask"].clone()
     mask[:, :p] = 0.0
-    return softmax_xent(logits, batch["targets"], mask)
+    return softmax_xent(logits, batch["targets"], mask, data_shards(mesh),
+                        vocab_shards(logits, cfg, mesh))
 
 
 def vlm_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
-                patch_embeds: torch.Tensor) -> torch.Tensor:
-    embeds = splice_embeds(params, tokens, patch_embeds, cfg)
-    return tfm.prefill(params, cfg, embeds=embeds)
+                patch_embeds: torch.Tensor, mesh=None) -> torch.Tensor:
+    embeds = splice_embeds(params, tokens, patch_embeds, cfg, mesh)
+    return tfm.prefill(params, cfg, embeds=embeds, mesh=mesh)

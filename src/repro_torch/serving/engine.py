@@ -5,9 +5,15 @@ handling on top of the model bundle's prefill and decode, greedy or
 temperature sampling, stop handling and cache reuse across steps.  It runs
 under `torch.inference_mode()`.  On ranks (a bundle whose mesh carries a
 process group) every rank is given the global prompts, serves its rows of
-them (its data ranks split the batch; with the EP combine each MoE block
-adds its experts' partials over its `model` ranks), stops when every
-row of the global batch has, and returns the global tokens.
+them (its data ranks split the batch; heads, ffn hidden dim and experts
+add their partials over its `model` ranks; its cache holds every kv
+head of its rows), selects each token from its rows' logits of the whole
+vocab (the model puts them together over `model`, so argmax's tie rule
+and the sampling noise are one process's), stops when every row of the
+global batch has, and returns the global tokens.  The engine gathers a
+leaf that fsdp splits over `data` once, when it is made (the bundle's
+config then without fsdp): a decode step would gather every weight
+again.
 """
 from __future__ import annotations
 
@@ -18,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import resolve_device
-from repro_torch.models.api import ModelBundle
+from repro_torch.models.api import ModelBundle, build_model
 from repro_torch.train.ranks import layout
 
 
@@ -40,6 +46,10 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.stats = ServeStats()
         self.ranks = layout(bundle)
+        if self.ranks is not None and bundle.cfg.fsdp:
+            self.params = self.ranks.without_fsdp(params)
+            self.bundle = build_model(dataclasses.replace(
+                bundle.cfg, fsdp=False), bundle.mesh)
 
     def _sample(self, logits: torch.Tensor, gen: torch.Generator
                 ) -> torch.Tensor:

@@ -6,17 +6,29 @@ process group with one rank a position is initialized carries that group:
 then run one rank a position, as the reference runs one device a position
 of its mesh.  `RankLayout` holds what they share:
 
-  * the layout (`launch.sharding.rank_specs`): with the EP combine a MoE's
-    experts split over `model`, every other leaf whole on every rank;
-    the optimizer state laid out as the params;
+  * the layout (`launch.sharding.rank_specs`): every leaf is the block
+    its fitted partition spec gives a rank, as the reference's
+    `param_specs` place it (heads, ffn hidden dim and vocab over `model`,
+    a MoE's experts over `model`, with fsdp the d_model dims over
+    `data`); the optimizer state laid out as the params;
   * the batch split over the `pod` and `data` ranks by `batch_specs`;
-  * gradients summed over a rank's data ranks (its model column), after
-    the backward and before compression and the optimizer;
+  * what each leaf's gradient is summed over.  In the backward, over
+    `model` where every model rank holds the whole leaf but computes a
+    part (`GroupShards.copy`: the input of a split product, wk / wv read
+    by kv head), and over `data` where the leaf splits over `data` (the
+    FSDP gather's backward); then `reduce` adds it over the batch axes
+    (`pod`, `data`) that the leaf does not split over, before
+    compression and the optimizer.  So every rank's gradient is its
+    block of the global gradient, each term added once;
   * `split`: the process group each leaf's block is split over, for the
     clip's global norm and the int8 scale;
   * the checkpoint gather: rank 0 rebuilds the global tree from every
     rank's blocks (`launch.sharding.gather`) and writes the reference's
     bytes.
+
+Every subgroup partition of the mesh is made when a layout is (and by
+`build_model`), in one order on every rank (`core.collectives.
+axis_groups`).
 
 Transport: gloo takes CUDA tensors for `all_reduce` and `broadcast`
 only, so every other collective here (`gather`, `all_gather`) moves host
@@ -25,31 +37,27 @@ ranks use gloo.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.store import flatten_with_path
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.collectives import axis_group
-from repro_torch.launch.mesh import batch_axes
+from repro_torch.core.collectives import (GroupShards, axis_group,
+                                          axis_groups, global_rank)
+from repro_torch.launch.mesh import Mesh, batch_axes
 from repro_torch.launch.sharding import (NamedSharding, P, batch_specs,
-                                         map_leaves, rank_specs, to_named)
+                                         entry_axes, map_leaves, rank_specs,
+                                         to_named)
 from repro_torch.launch.sharding import gather as gather_blocks
-from repro_torch.optim.adamw import tree_leaves
+from repro_torch.models.api import build_model
 
 
 def _dist():
     import torch.distributed as dist
     return dist
-
-
-def _global(group, rank: int) -> int:
-    """The global rank of `group`'s rank `rank`."""
-    dist = _dist()
-    if group is None or group is dist.group.WORLD:
-        return rank
-    return dist.get_global_rank(group, rank)
 
 
 class RankLayout:
@@ -62,13 +70,24 @@ class RankLayout:
         dist = _dist()
         self.cfg, self.mesh = cfg, mesh
         self.rank = dist.get_rank(mesh.group)
+        axis_groups(mesh)
         self.data_group = axis_group(mesh, batch_axes(mesh))
-        self._axis_groups: dict = {}
+        self._shapes = {path: tuple(leaf.shape) for path, leaf in
+                        flatten_with_path(build_model(cfg).init(0, "meta"))}
 
     # -- layout -----------------------------------------------------------
 
     def specs(self, tree: Any) -> Any:
-        return rank_specs(self.cfg, tree, self.mesh)
+        """The layout of a tree of global leaves or of this rank's blocks:
+        each leaf's spec is fitted to the global shape of the param it is
+        laid out as (the params, the moments and error buffers under
+        their prefixes), which a block's shape cannot tell (3 of 6
+        experts, or 3 whole ones?)."""
+        def shape(path, leaf):
+            key = _PREFIXES.sub("", path)
+            return torch.empty(self._shapes.get(key, tuple(leaf.shape)),
+                               device="meta")
+        return rank_specs(self.cfg, map_leaves(shape, tree), self.mesh)
 
     def shardings(self, tree: Any) -> Any:
         """A NamedSharding a leaf: `restore_checkpoint(shardings=)`."""
@@ -80,18 +99,21 @@ class RankLayout:
         return map_leaves(lambda _, leaf, spec: NamedSharding(
             self.mesh, spec).place(leaf), tree, self.specs(tree))
 
+    def _axes(self, spec: P) -> tuple:
+        """The mesh's axes that `spec` names, in the mesh's order."""
+        names = {n for a in spec for n in entry_axes(a)}
+        return tuple(a for a in self.mesh.axis_names if a in names)
+
     def _group(self, spec: P):
-        names = tuple(n for a in spec if a is not None
-                      for n in (a if isinstance(a, tuple) else (a,)))
-        if names not in self._axis_groups:
-            self._axis_groups[names] = axis_group(self.mesh, names) \
-                if names else None
-        return self._axis_groups[names]
+        axes = self._axes(spec)
+        return axis_group(self.mesh, axes) if axes else None
 
     def whole(self, tree: Any) -> Any:
         """Every leaf of a tree of this rank's blocks whole, on every rank:
         a split leaf's blocks are broadcast over its group (gloo
-        broadcasts CUDA tensors) and put together along the split dim."""
+        broadcasts CUDA tensors) and put together as
+        `launch.sharding.gather` puts a mesh's blocks, on the mesh of the
+        axes it splits over (one dim or several)."""
         dist = _dist()
 
         def one(_, leaf, spec):
@@ -102,10 +124,30 @@ class RankLayout:
             blocks = []
             for i in range(dist.get_world_size(group)):
                 t = leaf.clone() if i == mine else torch.empty_like(leaf)
-                dist.broadcast(t, src=_global(group, i), group=group)
+                dist.broadcast(t, src=global_rank(group, i), group=group)
                 blocks.append(t)
-            dim = next(i for i, a in enumerate(spec) if a is not None)
-            return torch.cat(blocks, dim)
+            axes = self._axes(spec)
+            sub = Mesh(np.empty(tuple(self.mesh.shape[a] for a in axes),
+                                dtype=object), axes)
+            return gather_blocks(blocks, NamedSharding(sub, spec))
+
+        return map_leaves(one, tree, self.specs(tree))
+
+    def without_fsdp(self, tree: Any) -> Any:
+        """A tree of this rank's blocks with every leaf that splits over
+        `data` (fsdp) gathered over it, out of autograd: the blocks a
+        serving engine holds, laid out as `cfg` without fsdp lays them."""
+        group = axis_group(self.mesh, ("data",))
+        if group is None:
+            return tree
+        data = GroupShards(group)
+
+        def one(_, leaf, spec):
+            with torch.no_grad():
+                for dim, a in enumerate(spec):
+                    if "data" in entry_axes(a):
+                        leaf = data.gather(leaf, dim)
+            return leaf
 
         return map_leaves(one, tree, self.specs(tree))
 
@@ -134,12 +176,22 @@ class RankLayout:
         return out
 
     def reduce(self, grads: Any) -> Any:
-        """Every leaf summed over this rank's data ranks, in place."""
+        """Every leaf summed, in place, over this rank's ranks on the batch
+        axes that the leaf does not split over: an fsdp leaf's gradient
+        came summed over `data` from the gather's backward."""
+        dist = _dist()
+        axes = batch_axes(self.mesh)
+
+        def one(_, g, spec):
+            named = self._axes(spec)
+            group = axis_group(self.mesh, tuple(a for a in axes
+                                                if a not in named))
+            if group is not None:
+                dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+            return g
+
         if self.data_group is not None:
-            dist = _dist()
-            for g in tree_leaves(grads):
-                dist.all_reduce(g, op=dist.ReduceOp.SUM,
-                                group=self.data_group)
+            map_leaves(one, grads, self.specs(grads))
         return grads
 
     def rows(self, local: np.ndarray) -> np.ndarray:
@@ -171,7 +223,7 @@ class RankLayout:
         return self.rank == 0
 
     def _root(self) -> int:
-        return _global(self.mesh.group, 0)
+        return global_rank(self.mesh.group, 0)
 
     def gather(self, tree: Any) -> Optional[Any]:
         """The global tree on rank 0 (host tensors), None on the others:
@@ -183,9 +235,10 @@ class RankLayout:
         named = self.shardings(tree)
 
         def one(_, leaf, shd):
-            host = leaf.detach().cpu().contiguous()
             if self._group(shd.spec) is None:
-                return host if self.writer else None
+                return (leaf.detach().cpu().contiguous() if self.writer
+                        else None)
+            host = leaf.detach().cpu().contiguous()
             raw = host.reshape(-1).view(torch.uint8)
             parts = [torch.empty_like(raw) for _ in range(world)] \
                 if self.writer else None
@@ -205,6 +258,9 @@ class RankLayout:
                          dtype=torch.int64)
         dist.broadcast(t, src=self._root(), group=self.mesh.group)
         return None if int(t[0]) < 0 else int(t[0])
+
+
+_PREFIXES = re.compile(r"^(\['(params|opt|adamw|ef_error|m|v)'\])+")
 
 
 def layout(bundle) -> Optional[RankLayout]:

@@ -18,7 +18,10 @@ each rank's blocks.
 Limits: loss 1e-5 and grad norm 1e-4 relative, the gathered params 1e-4
 (the ranks add partials, data terms and blocks' squared norms in another
 order than XLA's partitioned program); the stacked (2, 2) run in one
-process 1e-6; routes exactly; the crash resumed exactly.
+process 1e-6 for loss and grad norm, and for the params after 3 steps
+1e-6 or the stacked run's own distance from a one-ulp move of the
+params, whichever is larger (AdamW lifts rounding in a near-zero
+gradient); routes exactly; the crash resumed exactly.
 """
 import json
 import os
@@ -160,7 +163,10 @@ def test_training_on_gloo_ranks_matches_the_reference(ref):
     stacked = got["stacked"]
     assert max(map(_rel, got["losses"], stacked["losses"])) <= 1e-6
     assert max(map(_rel, got["grad_norms"], stacked["grad_norms"])) <= 1e-6
-    assert stacked["params_rel"] <= 1e-6
+    # the ranks split heads, ffn columns and the vocab too: their partial
+    # sums round otherwise, which AdamW lifts in a near-zero gradient, as
+    # it lifts a one-ulp move of the params in the stacked run
+    assert stacked["params_rel"] <= max(1e-6, stacked["control_rel"])
     # the step-3 checkpoint rank 0 wrote from the gathered blocks against
     # the reference's params after step 3
     mine, theirs = d / "ck" / "step_00000003", d / "final" / "step_00000003"
