@@ -1189,19 +1189,21 @@ SERVE_STEPPED = ("sweeping", "acorn", "navix", "iterative_scan",
 # 4 at selectivity 0.02 (positively correlated), Poisson arrivals (seed 7)
 # at 0.7 x the pool's capacity, SLO 1.5 x the straggler's service ticks
 STRAGGLER_FRAC, BURST_LEN, SEL_FAST, SEL_SLOW = 0.2, 4, 0.5, 0.02
-# 250 requests, not the bench's 1,000: cut to make room for the train
-# phase's ranks steps (1,000 took 41.6 s on an H100, 500 22.9 s)
-TRACE_LOAD, TRACE_SEED, TRACE_REQUESTS = 0.7, 7, 250
-# the FIFO equivalence on main's first 250 queries (1,000 took 36.4 s,
-# 500 14.9 s)
-FIFO_REQUESTS = 250
+# 125 requests, not the bench's 1,000: cut to make room for the train
+# phase's ranks steps (1,000 took 41.6 s on an H100, 500 22.9 s; 250
+# until the ranks' RWKV6 / Zamba2 runs)
+TRACE_LOAD, TRACE_SEED, TRACE_REQUESTS = 0.7, 7, 125
+# the FIFO equivalence on main's first 125 queries (1,000 took 36.4 s,
+# 500 14.9 s; 250 until the ranks' RWKV6 / Zamba2 runs)
+FIFO_REQUESTS = 125
 # tests/test_robustness.py's chaos plan, on a pool of a quarter of the
-# pages.  32 requests (one dispatch batch), not 1,000: at 1M nearly every
+# pages.  16 requests (one dispatch batch), not 1,000: at 1M nearly every
 # request faults down the ladder, ~0.4 s a request, 629 s for two runs of
-# 1,000 on an H100 (PERF.md); 128 took 108 s of the time limit, 64 57.8 s
+# 1,000 on an H100 (PERF.md); 128 took 108 s of the time limit, 64 57.8 s,
+# 32 33.0 s (until the ranks' RWKV6 / Zamba2 runs needed the room)
 LADDER_FAULTS = dict(seed=13, read_fail_prob=0.12, max_retries=1,
                      latency_spike_prob=0.05)
-LADDER_REQUESTS = 32
+LADDER_REQUESTS = 16
 ADMISSION_REQUESTS = 256
 
 
@@ -1722,9 +1724,10 @@ SHARD_STORAGE_QUERIES = 200
 SHARD_SERVE_WIDTH = 64
 # requests served over 4 shards and over the GraphExecutor: 1,000 took
 # 16.0 + 38.5 s on an H100 (PERF.md), the phase's longest step, so the
-# check serves the first 128 of A's queries (256, 10.5 s, until the train
-# phase's TP / FSDP run needed the room)
-SHARD_SERVE_REQUESTS = 128
+# check serves the first 64 of A's queries (256, 10.5 s, until the train
+# phase's TP / FSDP run needed the room, 128 until its RWKV6 / Zamba2
+# runs did)
+SHARD_SERVE_REQUESTS = 64
 SHARD_KMEANS_K, SHARD_KMEANS_ITERS = 256, 5
 
 
@@ -2191,9 +2194,11 @@ MUTATE_PLANTED = 16
 # bruteforce and ScaNN on all of it
 MUTATE_GRAPH_ROWS = 25_000
 MUTATE_SERVE_MID_TICK = 20     # the mid-flight insert's tick
-# requests of each of the three ingest-serve runs: the first 500 of the
-# phase's queries (all 1,000 took 46.2 s for the three on an H100)
-MUTATE_SERVE_REQUESTS = 500
+# requests of each of the three ingest-serve runs: the first 250 of the
+# phase's queries (all 1,000 took 46.2 s for the three on an H100, 500
+# 23.1 s and 226 ticks, until the ranks' RWKV6 / Zamba2 runs needed the
+# room; the mid-flight insert lands at tick 20)
+MUTATE_SERVE_REQUESTS = 250
 
 
 def _widen(bm, base_words: int, width: int, delta_bits):
@@ -3336,8 +3341,9 @@ def _timed(fn, *a, dev="cuda"):
 
 # the prompt of each decoder's ServeEngine run: the engine replays it
 # through the decode path a token a step, so 128 (until the train phase's
-# TP / FSDP run needed the room) took 127 of 159 host-bound steps
-DECODER_PROMPT = 64
+# TP / FSDP run needed the room) took 127 of 159 host-bound steps; 64
+# until its RWKV6 / Zamba2 runs did
+DECODER_PROMPT = 32
 
 
 def decoder_serving(out: dict, cfg, key: str, batch: int = 4,
@@ -4719,15 +4725,32 @@ def mesh_step(cfg, out: dict, dev="cuda") -> None:
 # RANKS_TP_SERVE_BATCH prompts of RANKS_TP_PROMPT tokens and decodes
 # RANKS_TP_DECODE greedy steps, token for token the one-process
 # engine's.  Every FSDP block crosses the host twice a step (the gather,
-# the gradient's all-reduce; with remat "dots" the gather again)
+# the gradient's all-reduce; with remat "dots" the gather again).  Then
+# in the same spawn (RANKS_SSM) rwkv6-3b (d 2,560, 40 heads of 64, d_ff
+# 8,960, vocab 65,536) and zamba2-1.2b (d 2,048, d_inner 4,096, 64
+# Mamba2 heads, state 64, 32 attention heads, vocab 32,000) at their
+# published widths with fsdp, cut to 2 of 32 and to 7 of 38 layers (one
+# group of 6 with the shared block, one tail layer), f32 compute, remat
+# "dots", on (2, 2), RANKS_SSM_STEPS steps each, and a cut-heads run
+# (RANKS_CUT: smoke llama3.2-3b with 6 q heads and 2 kv heads on (1, 4),
+# 1.5 heads a rank; no published config cuts a head at 4 ranks): each
+# against rank 0's one-process step from the same params, loss within
+# RANKS_DP_TOL, grad norm within max(RANKS_TP_GRAD_TOL,
+# TRAIN_SMOKE_RATIO x the one-ulp control), as the EP pair is held;
+# then the two full-width runs' ServeEngine, as granite-8b's, on
+# RANKS_SSM_PROMPT-token prompts and RANKS_SSM_DECODE decode steps
 RANKS_WORLD = 4
 RANKS_STEPS = 1                # 3 before the TP / FSDP run: cut to make room
 RANKS_TOL = 1e-6
-RANKS_DP_LAYERS, RANKS_DP_STEPS = 2, 2
+RANKS_DP_LAYERS, RANKS_DP_STEPS = 2, 1   # 2 steps until the SSM runs
 RANKS_DP_TOL = 1e-5
-RANKS_TP_ARCH, RANKS_TP_LAYERS, RANKS_TP_STEPS = "granite-8b", 2, 2
+# 2 steps, and serving 2 x 512 + 16, until the SSM runs: cut to make room
+RANKS_TP_ARCH, RANKS_TP_LAYERS, RANKS_TP_STEPS = "granite-8b", 2, 1
 RANKS_TP_GRAD_TOL = 1e-4
-RANKS_TP_SERVE_BATCH, RANKS_TP_PROMPT, RANKS_TP_DECODE = 2, 512, 16
+RANKS_TP_SERVE_BATCH, RANKS_TP_PROMPT, RANKS_TP_DECODE = 2, 128, 8
+RANKS_SSM = (("rwkv", "rwkv6-3b", 2), ("zamba", "zamba2-1.2b", 7))
+RANKS_SSM_STEPS, RANKS_SSM_PROMPT, RANKS_SSM_DECODE = 2, 512, 16
+RANKS_CUT = ("llama3.2-3b", {"n_heads": 6, "n_kv": 2}, (1, 4))
 
 
 def _ranks_run(cfg, mesh, steps: int, dev: str, rank: int,
@@ -4738,7 +4761,8 @@ def _ranks_run(cfg, mesh, steps: int, dev: str, rank: int,
     beside `per_position_bytes` of the layout); with `reference` (a
     bundle without a mesh or stacked), rank 0 computes its loss and grad
     norm on the global batch from the same params before each step, and
-    with `control` also from those params moved by one ulp."""
+    with `control`, before the last step, also from those params moved by
+    one ulp."""
     import statistics
 
     import torch
@@ -4776,7 +4800,8 @@ def _ranks_run(cfg, mesh, steps: int, dev: str, rank: int,
                 whole = map_leaves(lambda _, t: t.to(dev), whole)
                 on = {k: torch.as_tensor(v, device=dev)
                       for k, v in batch.items()}
-                for key in ("ref", "ctl") if control else ("ref",):
+                last = step == steps - 1
+                for key in ("ref", "ctl") if control and last else ("ref",):
                     p = whole if key == "ref" else _one_ulp(whole)
                     loss, grads = value_and_grad(reference.loss, p, on)
                     rec[f"{key}_losses"].append(float(loss))
@@ -4803,21 +4828,23 @@ def _ranks_run(cfg, mesh, steps: int, dev: str, rank: int,
     return rec
 
 
-def _ranks_serve(cfg, mesh, dev: str, rank: int) -> dict:
+def _ranks_serve(cfg, mesh, dev: str, rank: int,
+                 prompt: int = RANKS_TP_PROMPT,
+                 decode: int = RANKS_TP_DECODE) -> dict:
     """Greedy `ServeEngine` tokens on the ranks of `mesh` from seed-0
     params placed by `RankLayout` (the engine gathers the fsdp blocks
     once), and on rank 0 the one-process engine's from the same params:
-    RANKS_TP_SERVE_BATCH prompts of RANKS_TP_PROMPT tokens, the prefill's
-    token and RANKS_TP_DECODE decode steps; seconds to a synchronize."""
+    RANKS_TP_SERVE_BATCH prompts of `prompt` tokens, the prefill's token
+    and `decode` decode steps; seconds to a synchronize."""
     import numpy as np
     from repro_torch.models import build_model
     from repro_torch.serving import ServeEngine
     from repro_torch.train.ranks import RankLayout
 
     prompts = np.random.RandomState(29).randint(
-        0, cfg.vocab, (RANKS_TP_SERVE_BATCH, RANKS_TP_PROMPT))
-    new = RANKS_TP_DECODE + 1
-    kw = dict(max_seq=RANKS_TP_PROMPT + new,
+        0, cfg.vocab, (RANKS_TP_SERVE_BATCH, prompt))
+    new = decode + 1
+    kw = dict(max_seq=prompt + new,
               batch_size=RANKS_TP_SERVE_BATCH, device=dev)
     rec = {}
     for key, bundle in (("ranks", build_model(cfg, mesh)),
@@ -4862,7 +4889,7 @@ def _ranks_warm_up(cfg, dev: str) -> None:
     _free_cuda(dev)
 
 
-def ranks_worker(rank: int, world: int, tmp: str, cfg, tp_cfg,
+def ranks_worker(rank: int, world: int, tmp: str, cfg, tp_cfg, more,
                  dev: str) -> None:
     """One rank of the `ranks` step (spawned; see RANKS_WORLD): writes its
     records to tmp/rank<r>.json."""
@@ -4891,6 +4918,12 @@ def ranks_worker(rank: int, world: int, tmp: str, cfg, tp_cfg,
             return dataclasses.replace(
                 make_mesh(shape, ("data", "model")), group=group)
 
+        def plain(c):
+            """A cut run's one-process reference: remat would recompute
+            the same values, so it runs without (the full-width EP pair's
+            stacked reference keeps it: its activations would not fit)"""
+            return build_model(dataclasses.replace(c, remat="none"))
+
         ep = dataclasses.replace(cfg, moe_local_combine=True)
         cut = dataclasses.replace(cfg, n_layers=RANKS_DP_LAYERS,
                                   compute_dtype="float32")
@@ -4910,21 +4943,30 @@ def ranks_worker(rank: int, world: int, tmp: str, cfg, tp_cfg,
         if rank < 2:
             out["dp_2x1"] = _ranks_run(cut, on((2, 1), pair),
                                        RANKS_DP_STEPS, dev, rank,
-                                       build_model(cut))
+                                       plain(cut))
         dist.barrier()
         lap("dp_2x1")
         cut_ep = dataclasses.replace(cut, moe_local_combine=True)
         out["dp_2x2"] = _ranks_run(cut_ep, on((2, 2), dist.group.WORLD),
                                    RANKS_DP_STEPS, dev, rank,
-                                   build_model(cut_ep))
+                                   plain(cut_ep))
         lap("dp_2x2")
         out["tp_fsdp_2x2"] = _ranks_run(tp_cfg, on((2, 2), dist.group.WORLD),
                                         RANKS_TP_STEPS, dev, rank,
-                                        build_model(tp_cfg))
+                                        plain(tp_cfg))
         lap("tp_fsdp_2x2")
         out["tp_serve"] = _ranks_serve(tp_cfg, on((2, 2), dist.group.WORLD),
                                        dev, rank)
         lap("tp_serve")
+        for name, c, shape, serve in more:
+            mesh = on(shape, dist.group.WORLD)
+            out[name] = _ranks_run(c, mesh, RANKS_SSM_STEPS, dev, rank,
+                                   plain(c), control=True)
+            lap(name)
+            if serve:
+                out[f"{name}_serve"] = _ranks_serve(
+                    c, mesh, dev, rank, RANKS_SSM_PROMPT, RANKS_SSM_DECODE)
+                lap(f"{name}_serve")
         out["seconds"] = secs
         with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
@@ -4944,19 +4986,28 @@ def ranks_step(cfg, out: dict, dev="cuda") -> None:
     tp_cfg = dataclasses.replace(C.get_config(RANKS_TP_ARCH),
                                  n_layers=RANKS_TP_LAYERS,
                                  compute_dtype="float32")
+    more = [(f"{name}_fsdp_2x2", dataclasses.replace(
+        C.get_config(arch), n_layers=layers, compute_dtype="float32",
+        remat="dots", fsdp=True), (2, 2), True)
+        for name, arch, layers in RANKS_SSM]
+    arch, over, shape = RANKS_CUT
+    more.append(("cut_heads_1x4", dataclasses.replace(
+        C.smoke_config(arch), **over), shape, False))
     _free_cuda(dev)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        mp.spawn(ranks_worker, args=(RANKS_WORLD, tmp, cfg, tp_cfg, dev),
+        mp.spawn(ranks_worker, args=(RANKS_WORLD, tmp, cfg, tp_cfg, more,
+                                     dev),
                  nprocs=RANKS_WORLD, join=True)
         rec["spawn_s"] = time.perf_counter() - t0
         runs = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
                 for r in range(RANKS_WORLD)]
-    serve = [r.pop("tp_serve") for r in runs]
+    served = [k for k in runs[0] if k.endswith("_serve")]
+    serves = {k: [r.pop(k) for r in runs] for k in served}
     secs = [r.pop("seconds") for r in runs]
     got = runs[0]
     rec.update(got)
-    rec["tp_serve"] = serve[0]
+    rec.update({k: v[0] for k, v in serves.items()})
     rec["seconds"] = secs[0]
     print(f"   ranks: spawned and joined in {rec['spawn_s']:.1f} s; rank 0's "
           "seconds (each run's init, reference steps, steps and free) "
@@ -4965,6 +5016,10 @@ def ranks_step(cfg, out: dict, dev="cuda") -> None:
 
     def rels(r, a, b):
         return [abs(x / y - 1) for x, y in zip(r[a], r[b])]
+
+    def control(r, kind):
+        """The one-ulp control of the last step against its reference."""
+        return [abs(x / r[f"ref_{kind}"][-1] - 1) for x in r[f"ctl_{kind}"]]
 
     f32 = got["full_float32"]
     for name, r in got.items():
@@ -4991,8 +5046,7 @@ def ranks_step(cfg, out: dict, dev="cuda") -> None:
                       f"ranks {name}: ranks disagree on the loss")
     check(f32["held_experts"] == cfg.n_experts // 2,
           f"ranks: {f32['held_experts']} experts held a rank")
-    ctl = rels(f32, "ctl_losses", "ref_losses") \
-        + rels(f32, "ctl_grad_norms", "ref_grad_norms")
+    ctl = control(f32, "losses") + control(f32, "grad_norms")
     limit = f32["limit"] = max(RANKS_TOL, TRAIN_SMOKE_RATIO * max(ctl))
     print(f"   ranks full_float32: the stacked step from the params moved "
           f"by one ulp, loss and grad norm rel " + " ".join(
@@ -5021,15 +5075,40 @@ def ranks_step(cfg, out: dict, dev="cuda") -> None:
           f"ranks tp_fsdp_2x2 against the one-process step: "
           f"{tp['loss_rel']}, {tp['grad_norm_rel']} (limits {RANKS_DP_TOL}, "
           f"{RANKS_TP_GRAD_TOL})")
-    s0 = serve[0]
-    print(f"   ranks tp_serve: {RANKS_TP_SERVE_BATCH} x {RANKS_TP_PROMPT} "
-          f"prompt tokens, {RANKS_TP_DECODE} greedy decode steps on (2, 2) "
-          f"TP / FSDP ranks {s0['ranks_s']:.1f} s, one process "
-          f"{s0['one_s']:.1f} s; tokens equal: "
-          f"{s0['ranks_tokens'] == s0['one_tokens']}", flush=True)
-    check(all(s["ranks_tokens"] == s0["one_tokens"] for s in serve),
-          "ranks tp_serve: the ranks' greedy tokens are not the one-process "
-          "engine's")
+    for name, c, shape, _ in more:
+        r = got[name]
+        ctl = control(r, "grad_norms")
+        limit = r["limit"] = max(RANKS_TP_GRAD_TOL,
+                                 TRAIN_SMOKE_RATIO * max(ctl))
+        print(f"   ranks {name} ({c.name}, {c.n_layers} layers, "
+              f"{shape}): bytes of params a rank " + ", ".join(
+                  f"{run[name]['param_bytes']:,}" for run in runs)
+              + f" (per_position_bytes {r['per_position_bytes']:,}); "
+              f"one-ulp control grad norm rel " + " ".join(
+                  f"{x:.3g}" for x in ctl) + f": limit {limit:.3g}",
+              flush=True)
+        for i, run in enumerate(runs):
+            check(run[name]["param_bytes"] == run[name]["per_position_bytes"],
+                  f"ranks {name} rank {i}: {run[name]['param_bytes']} bytes "
+                  f"of params, the layout gives "
+                  f"{run[name]['per_position_bytes']}")
+        check(max(r["loss_rel"]) <= RANKS_DP_TOL
+              and max(r["grad_norm_rel"]) <= limit,
+              f"ranks {name} against the one-process step: "
+              f"{r['loss_rel']}, {r['grad_norm_rel']} (limits "
+              f"{RANKS_DP_TOL}, {limit})")
+    for key, runs_of in serves.items():
+        s0 = runs_of[0]
+        prompt, decode = (RANKS_TP_PROMPT, RANKS_TP_DECODE) \
+            if key == "tp_serve" else (RANKS_SSM_PROMPT, RANKS_SSM_DECODE)
+        print(f"   ranks {key}: {RANKS_TP_SERVE_BATCH} x {prompt} "
+              f"prompt tokens, {decode} greedy decode steps on "
+              f"(2, 2) TP / FSDP ranks {s0['ranks_s']:.1f} s, one process "
+              f"{s0['one_s']:.1f} s; tokens equal: "
+              f"{s0['ranks_tokens'] == s0['one_tokens']}", flush=True)
+        check(all(s["ranks_tokens"] == s0["one_tokens"] for s in runs_of),
+              f"ranks {key}: the ranks' greedy tokens are not the "
+              f"one-process engine's")
 
 
 def phase_train(report: dict, dev="cuda", full_cfg=None) -> None:

@@ -12,8 +12,12 @@ them, so every rule matches what it matches there.
 
 GQA caveat: kv-head counts (often 8) don't divide the 16-way model axis;
 kv projections / caches stay replicated across `model` (Megatron GQA-TP
-semantics) while q / o shard.  The one uneven case (llama3.2-3b's 24
-heads over 16) is left to `fit_spec`, which drops the axis.
+semantics) while q / o shard.  `fit_spec` asks only that a dim divide, so
+q / o columns split over `model` even where a rank's share is not whole
+heads (llama3.2-3b's 24 heads over 16: 192 columns, 1.5 heads a rank)
+or not whole GQA groups; `rank_heads` says which, and the blocks on
+ranks (`models.layers.attention_weights`) gather q over `model` where
+the heads are cut.
 
 `PartitionSpec` is a small tuple-like record of axis entries (None, a
 name, or a tuple of names); `NamedSharding` pairs one with a
@@ -27,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Any, Sequence
+from typing import Any, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -205,42 +209,52 @@ def entry_axes(entry) -> tuple:
         entry, (tuple, list)) else (entry,))
 
 
-def rank_heads(cfg: ArchConfig, s: int, r: int) -> tuple[int, int, int, int]:
-    """(first q head, end, first kv head, end) of `model` rank `r` of `s`
-    when attention's heads split over `model`: whole heads, H / S a rank,
-    and the kv heads its q heads read (GQA groups of H / KV).  Refuses a
-    split that cuts a head or a GQA group unevenly (ROADMAP 1.15b)."""
-    h, kv = cfg.n_heads, cfg.n_kv
+class HeadSplit(NamedTuple):
+    """`model` rank r's share of attention when q / o split over `model`:
+    its q columns [c0, c1) (of wq, and the rows of wo), the q heads
+    [q0, q1) they touch, the kv heads [kv0, kv1) those q heads read,
+    whether the columns are `whole` heads, and whether, besides, the q
+    heads read their kv heads in flash attention's grouping (q head i of
+    the rank's reads kv head i // ((q1 - q0) / (kv1 - kv0)) of its
+    range: `grouped`)."""
+
+    c0: int
+    c1: int
+    q0: int
+    q1: int
+    kv0: int
+    kv1: int
+    whole: bool
+    grouped: bool
+
+
+def rank_heads(cfg: ArchConfig, s: int, r: int) -> HeadSplit:
+    """The q columns [r H hd / S, (r + 1) H hd / S) that `fit_spec` gives
+    `model` rank `r` of `s`, the heads they touch and the kv heads those
+    read (GQA groups of H / KV), and whether they are whole heads and
+    whole groups in order (`HeadSplit`)."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    if (h * hd) % s:
+        raise ValueError(f"{cfg.name}: {h * hd} q columns do not split over "
+                         f"a model axis of {s}")
+    per = h * hd // s
+    c0, c1 = r * per, (r + 1) * per
+    q0, q1 = c0 // hd, -(-c1 // hd)
     g = h // kv
-    per = h // s
-    if h % s or (per % g and g % per):
-        raise ValueError(
-            f"{cfg.name}: {h} q heads ({kv} kv heads) do not split in whole "
-            f"heads and GQA groups over a model axis of {s}: not ported on "
-            f"ranks (ROADMAP 1.15b)")
-    lo = r * per
-    return lo, lo + per, lo // g, (lo + per - 1) // g + 1
+    kv0, kv1 = q0 // g, (q1 - 1) // g + 1
+    whole = c0 % hd == 0 and c1 % hd == 0
+    nq, nk = q1 - q0, kv1 - kv0
+    grouped = whole and nq % nk == 0 and all(
+        (q0 + i) // g - kv0 == i // (nq // nk) for i in range(nq))
+    return HeadSplit(c0, c1, q0, q1, kv0, kv1, whole, grouped)
 
 
-def check_rank_layout(cfg: ArchConfig, mesh) -> None:
-    """Refuse what the ranks do not port (ROADMAP 1.15b): RWKV6's and
-    Zamba2's blocks on a `model` axis larger than 1 or with fsdp, the
-    `sp` scheme, and attention heads that split unevenly."""
-    sizes = _axis_sizes(mesh)
-    s, data = sizes.get("model", 1), sizes.get("data", 1)
-    if cfg.family in ("ssm", "hybrid") and (s > 1 or (cfg.fsdp
-                                                      and data > 1)):
-        raise ValueError(
-            f"{cfg.name}: the {cfg.family!r} family's blocks on a model "
-            f"axis of {s}{' with fsdp' if cfg.fsdp else ''} are not ported "
-            f"on ranks (ROADMAP 1.15b); a data axis with a model axis of 1 "
-            f"and no fsdp is")
+def check_rank_layout(cfg: ArchConfig) -> None:
+    """Refuse what the ranks do not port: the `sp` scheme (ROADMAP
+    1.15c)."""
     if cfg.sharding_scheme == "sp":
         raise ValueError(f"{cfg.name}: the 'sp' scheme is not ported on "
-                         f"ranks (ROADMAP 1.15b)")
-    hq = cfg.n_heads * cfg.head_dim
-    if s > 1 and cfg.family not in ("ssm", "hybrid") and hq % s == 0:
-        rank_heads(cfg, s, 0)
+                         f"ranks (ROADMAP 1.15c)")
 
 
 def rank_specs(cfg: ArchConfig, tree: Any, mesh) -> Any:
@@ -249,10 +263,12 @@ def rank_specs(cfg: ArchConfig, tree: Any, mesh) -> Any:
     buffers, each under whatever prefix) takes its fitted partition spec,
     `fit_spec(spec_for_path(...))`, the spec `param_specs` / `opt_specs`
     give it; scalars replicate.  So with the `tp`
-    scheme q / o heads, the ffn hidden dim and the vocab split over
-    `model` where they divide it, a MoE's experts over `model` (EP), and
-    with `cfg.fsdp` the d_model dims over `data` too; RWKV6 and Zamba2
-    hold a `model` axis of 1 (see `check_rank_layout`).
+    scheme q / o columns, the ffn hidden dim and the vocab split over
+    `model` where they divide it (whole heads or not, see `rank_heads`),
+    RWKV6's r / k / v / g / o and channel-mix columns and Mamba2's
+    in_proj columns and out_proj rows too, a MoE's experts over `model`
+    (EP), and with `cfg.fsdp` the d_model dims over `data` too; the
+    `sp` scheme is refused (`check_rank_layout`).
 
     A leaf's gradient on a rank is its block's: summed over `model` where
     every model rank holds the whole leaf but uses a part (wk / wv by kv
@@ -260,8 +276,7 @@ def rank_specs(cfg: ArchConfig, tree: Any, mesh) -> Any:
     gather's backward where the leaf splits over `data`, and over the
     batch axes it does not split over by `train.ranks.RankLayout.reduce`.
     """
-    check_rank_layout(cfg, mesh)
-
+    check_rank_layout(cfg)
     return map_leaves(lambda path, leaf: fit_spec(spec_for_path(
         cfg, path, len(leaf.shape), "data", "model"), leaf.shape, mesh),
         tree)

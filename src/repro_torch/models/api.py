@@ -31,6 +31,7 @@ from repro_torch.core.types import resolve_device
 from repro_torch.core.collectives import axis_groups
 from repro_torch.launch.sharding import check_rank_layout
 from repro_torch.models import encoder, hybrid, rwkv, transformer as tfm, vlm
+from repro_torch.models.layers import rank_cache
 
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
@@ -82,7 +83,8 @@ def _bundle(cfg: ArchConfig, init, loss, prefill, init_cache=None,
         init=lambda key, device="cuda": init(generator(key, device), cfg),
         loss=lambda p, b: loss(p, b, cfg, mesh=mesh), prefill=prefill,
         init_cache=None if init_cache is None else
-        lambda bsz, s, device="cuda": init_cache(cfg, bsz, s, device),
+        lambda bsz, s, device="cuda": rank_cache(
+            cfg, init_cache(cfg, bsz, s, device), mesh),
         decode=None if decode is None else
         lambda p, c, b, pos: decode(p, c, b["tokens"], pos, cfg, mesh=mesh),
         mesh=mesh)
@@ -104,13 +106,16 @@ def build_model(cfg: ArchConfig, mesh=None) -> ModelBundle:
     their share of the global groups, and every family's loss is the
     global mean (`layers.softmax_xent` over the data ranks).  The bundle
     keeps the mesh (`bundle.mesh`) for `make_train_step`, `Trainer` and
-    `ServeEngine`.  What the ranks do not port is refused here
-    (`check_rank_layout`: RWKV6 and Zamba2 on a `model` axis larger than
-    1, ROADMAP 1.15b), and every subgroup the layout uses is made now, in
-    one order on every rank."""
+    `ServeEngine`, and its `init_cache` gives a rank's block of the
+    decode cache (`layers.rank_cache`).  Every family runs so, RWKV6's
+    and Mamba2's blocks with their heads over `model` and attention
+    whose heads a rank's columns cut; what the ranks do not port is
+    refused here (`check_rank_layout`: the `sp` scheme, ROADMAP 1.15c),
+    and every subgroup the layout uses is made now, in one order on
+    every rank."""
     fam = cfg.family
     if mesh is not None and mesh.group is not None:
-        check_rank_layout(cfg, mesh)
+        check_rank_layout(cfg)
         axis_groups(mesh)
     if fam in ("dense", "moe"):
         return _bundle(

@@ -9,9 +9,13 @@ reference's layout: `mamba_groups` (G, attn_every, ...), `mamba_tail`
 shared-attention call site has its OWN KV cache (weights shared, state
 not), a ring buffer of min(shared_attn_window, seq_len) slots.  A decode
 step writes every state and cache slot in place.  `hybrid_loss` is the
-training objective (over data ranks, a `model` axis of 1, with the
-global count); a group (not the tail) is the unit of remat, as in the
-reference.
+training objective (over the data ranks with the global count); a group
+(not the tail) is the unit of remat, as in the reference.  On ranks the
+Mamba2 blocks (`models.ssm.mamba_block`) and the shared attention and
+MLP lay themselves out over `model`; a Mamba2 layer's ssm state holds
+the rank's heads where they split whole over `model`, its conv state and
+the shared attention's kv rings every channel and head
+(`layers.rank_cache`).
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ from repro_torch.models.layers import (attention_block, cdtype, data_shards,
                                        embed_tokens, init_attention,
                                        init_embeddings, init_mlp,
                                        layer_params, lm_logits, mlp_block,
-                                       softmax_xent)
+                                       softmax_xent, vocab_shards)
 from repro_torch.models.ssm import init_mamba, mamba_block, mamba_init_state
 from repro_torch.models.transformer import _decode_attn, _remat
 
@@ -52,7 +56,7 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, mesh=None
 
     def group_fn(x, gp):
         for i in range(cfg.attn_every):
-            m, _ = mamba_block(layer_params(gp, i), x, cfg)
+            m, _ = mamba_block(layer_params(gp, i), x, cfg, mesh=mesh)
             x = x + m
         a, _ = attention_block(params["shared_attn"], x, cfg,
                                is_global=True, mesh=mesh,
@@ -65,7 +69,8 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, mesh=None
     for gi in range(g):
         x = body(x, layer_params(params["mamba_groups"], gi))
     for li in range(tail):
-        m, _ = mamba_block(layer_params(params["mamba_tail"], li), x, cfg)
+        m, _ = mamba_block(layer_params(params["mamba_tail"], li), x, cfg,
+                           mesh=mesh)
         x = x + m
     return x
 
@@ -75,7 +80,7 @@ def hybrid_loss(params: dict, batch: dict, cfg: ArchConfig, mesh=None
     x = forward(params, cfg, batch["tokens"], mesh)
     logits = lm_logits(params["embed"], x, cfg, mesh)
     return softmax_xent(logits, batch["targets"], batch["mask"],
-                        data_shards(mesh))
+                        data_shards(mesh), vocab_shards(logits, cfg, mesh))
 
 
 def init_hybrid_cache(cfg: ArchConfig, batch: int, seq_len: int,
@@ -99,9 +104,10 @@ def init_hybrid_cache(cfg: ArchConfig, batch: int, seq_len: int,
     return cache
 
 
-def _mamba_step(p: dict, x: torch.Tensor, cfg: ArchConfig, st: dict):
+def _mamba_step(p: dict, x: torch.Tensor, cfg: ArchConfig, st: dict,
+                mesh=None):
     """One Mamba2 decode step whose new state is written into `st`."""
-    m, ns = mamba_block(p, x, cfg, state=st)
+    m, ns = mamba_block(p, x, cfg, state=st, mesh=mesh)
     for key in ("conv", "ssm"):
         st[key].copy_(ns[key])
     return x + m
@@ -116,7 +122,7 @@ def hybrid_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     for gi in range(g):
         for i in range(cfg.attn_every):
             x = _mamba_step(layer_params(params["mamba_groups"], gi, i), x,
-                            cfg, layer_params(cache["mamba"], gi, i))
+                            cfg, layer_params(cache["mamba"], gi, i), mesh)
         a, _ = _decode_attn(params["shared_attn"], x, cache["attn_k"][gi],
                             cache["attn_v"][gi], cfg, True, pos, mesh,
                             "shared_attn")
@@ -124,7 +130,7 @@ def hybrid_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
         x = x + mlp_block(params["shared_mlp"], x, cfg, mesh, "shared_mlp")
     for li in range(tail):
         x = _mamba_step(layer_params(params["mamba_tail"], li), x, cfg,
-                        layer_params(cache["mamba_tail"], li))
+                        layer_params(cache["mamba_tail"], li), mesh)
     return lm_logits(params["embed"], x, cfg, mesh, whole=True), cache
 
 

@@ -41,7 +41,7 @@ Conventions:
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,8 +50,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.collectives import (GroupShards, StackedShards,
                                           axis_group)
-from repro_torch.launch.sharding import (P, entry_axes, fit_spec,
-                                         rank_heads, spec_for_path)
+from repro_torch.launch.sharding import (P, cache_specs, entry_axes,
+                                         fit_spec, map_leaves, rank_heads,
+                                         spec_for_path)
 
 
 BATCH_AXES = ("pod", "data")
@@ -118,6 +119,11 @@ class _Ranks:
         return fit_spec(spec_for_path(self.cfg, path, len(shape), "data",
                                       "model"), shape, self.mesh)
 
+    def cols(self, n: int) -> tuple[int, int]:
+        """This `model` rank's range of a dim of `n` split over `model`."""
+        per = n // self.sizes["model"]
+        return self.r * per, (self.r + 1) * per
+
     def weight(self, w: torch.Tensor, path: str, shape: tuple):
         """(`w` gathered over `data` where the leaf splits over it, its
         fitted spec): `w` is this rank's block of the leaf at `path` of
@@ -152,6 +158,28 @@ def data_whole(w: torch.Tensor, path: str, shape: tuple, cfg: ArchConfig,
     `path` (of global `shape`); as it is elsewhere."""
     rk = _ranks(cfg, mesh)
     return w if rk is None else rk.weight(w, path, shape)[0]
+
+
+def rank_cache(cfg: ArchConfig, cache, mesh=None):
+    """A decode cache of this rank's rows laid out on its `model` rank:
+    every dim that `launch.sharding.cache_specs` (fitted to the mesh)
+    splits over `model` cut to this rank's block, in memory of its own
+    (the RWKV6 wkv and Mamba2 ssm states' heads where they split whole
+    over `model`); the rest whole (kv caches, `x_prev`, conv states, and
+    the states of heads that a rank's columns cut).  As it is without
+    ranks."""
+    rk = _ranks(cfg, mesh)
+    if rk is None or rk.model is None:
+        return cache
+
+    def one(_, leaf, spec):
+        for dim, entry in enumerate(spec):
+            if "model" in entry_axes(entry):
+                lo, hi = rk.cols(leaf.shape[dim])
+                leaf = leaf.narrow(dim, lo, hi - lo).clone()
+        return leaf
+
+    return map_leaves(one, cache, cache_specs(cfg, cache, mesh))
 
 
 def cdtype(cfg: ArchConfig) -> torch.dtype:
@@ -334,21 +362,55 @@ def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, tp, h, hd)[:, :t].to(q.dtype)
 
 
+class RankAttention(NamedTuple):
+    """This rank's attention (`attention_weights`): its weights, the
+    index of the kv heads of k / v as `wk` / `wv` give them (of the
+    cache, whose heads are the whole `wk`'s, in a decode step) that its
+    q heads read in flash attention's grouping, the q columns its `wo`
+    rows take when the heads are cut (its q then gathered over `model`,
+    every head attended), and the `model` collectives (None: every head
+    here)."""
+
+    wq: torch.Tensor
+    wk: torch.Tensor
+    wv: torch.Tensor
+    wo: torch.Tensor
+    kv: object = slice(None)
+    cut: Optional[tuple[int, int]] = None
+    tp: Optional[GroupShards] = None
+
+    def q(self, h: torch.Tensor) -> torch.Tensor:
+        """h @ wq, gathered over `model` where the heads are cut."""
+        q = h @ self.wq.to(h.dtype)
+        return q if self.cut is None else self.tp.gather(q, q.dim() - 1)
+
+    def out(self, o: torch.Tensor) -> torch.Tensor:
+        """The block's output from the heads' (B, T, nq hd): this rank's
+        columns times its `wo` rows, added over `model`."""
+        if self.cut is not None:
+            o = o[..., self.cut[0]:self.cut[1]]
+        out = o @ self.wo.to(o.dtype)
+        return out if self.tp is None else self.tp.sum(out[None])
+
+
 def attention_weights(params: dict, cfg: ArchConfig, mesh=None,
-                      path: str = "attn", whole_kv: bool = False):
-    """This rank's attention: (wq, wk, wv, wo, (first kv head, end) that
-    it attends with, the `model` collectives or None).  Without ranks, or
-    where the heads do not split over `model`, the weights whole (fsdp
-    blocks gathered) and None.  Split, rank r holds q heads [r H / S,
-    (r + 1) H / S) of `wq` / `wo` and reads its kv heads of the whole
-    `wk` / `wv` (`launch.sharding.rank_heads`): through
-    `GroupShards.copy`, so their gradient adds every model rank's heads;
-    `whole_kv` (a decode step, which writes every kv head to the cache)
-    keeps them whole."""
+                      path: str = "attn", whole_kv: bool = False
+                      ) -> RankAttention:
+    """This rank's attention (`RankAttention`).  Without ranks, or where
+    the q columns do not split over `model`, the weights whole (fsdp
+    blocks gathered).  Split, rank r holds q columns [r H hd / S, (r + 1)
+    H hd / S) of `wq` and those rows of `wo` (`launch.sharding.
+    rank_heads`), and reads the whole `wk` / `wv` through
+    `GroupShards.copy`, so their gradient adds every model rank's part:
+    where the columns are whole heads, the kv heads its q heads read
+    (each local q head mapped to its own kv head where the GQA groups do
+    not fall whole on the rank), else every kv head, its q gathered over
+    `model` and every head attended.  `whole_kv` (a decode step, which
+    writes every kv head to the cache) keeps them whole."""
     rk = _ranks(cfg, mesh)
     if rk is None:
-        return params["wq"], params["wk"], params["wv"], params["wo"], \
-            (0, cfg.n_kv), None
+        return RankAttention(params["wq"], params["wk"], params["wv"],
+                             params["wo"])
     d, hd = cfg.d_model, cfg.head_dim
     hq, hk = cfg.n_heads * hd, cfg.n_kv * hd
     wq, sq = rk.weight(params["wq"], f"['{path}']['wq']", (d, hq))
@@ -356,14 +418,25 @@ def attention_weights(params: dict, cfg: ArchConfig, mesh=None,
     wv, _ = rk.weight(params["wv"], f"['{path}']['wv']", (d, hk))
     wo, _ = rk.weight(params["wo"], f"['{path}']['wo']", (hq, d))
     if not rk.over(sq, 1, "model"):
-        return wq, wk, wv, wo, (0, cfg.n_kv), None
+        return RankAttention(wq, wk, wv, wo)
     if rk.over(sk, 1, "model"):
         raise ValueError(f"{path}: kv projections split over `model`")
-    _, _, lo, hi = rank_heads(cfg, rk.sizes["model"], rk.r)
+    sp = rank_heads(cfg, rk.sizes["model"], rk.r)
+    if not sp.whole:
+        if not whole_kv:
+            wk, wv = rk.model.copy(wk), rk.model.copy(wv)
+        return RankAttention(wq, wk, wv, wo, cut=(sp.c0, sp.c1),
+                             tp=rk.model)
+    base = 0 if whole_kv else sp.kv0
     if not whole_kv:
-        wk = rk.model.copy(wk)[:, lo * hd:hi * hd]
-        wv = rk.model.copy(wv)[:, lo * hd:hi * hd]
-    return wq, wk, wv, wo, (lo, hi), rk.model
+        wk = rk.model.copy(wk)[:, sp.kv0 * hd:sp.kv1 * hd]
+        wv = rk.model.copy(wv)[:, sp.kv0 * hd:sp.kv1 * hd]
+    if sp.grouped:
+        kv = slice(sp.kv0 - base, sp.kv1 - base)
+    else:
+        g = cfg.n_heads // cfg.n_kv
+        kv = [q // g - base for q in range(sp.q0, sp.q1)]
+    return RankAttention(wq, wk, wv, wo, kv, tp=rk.model)
 
 
 def attention_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -379,26 +452,29 @@ def attention_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
     encoder prefill), as in the reference.  The port writes a decode step's
     keys and values into the cache tensors in place (the reference returns
     updated copies); the returned cache holds the same tensors.  On ranks
-    (`mesh` with a process group) a rank computes its heads
-    (`attention_weights`; `path` names the params' key for the rules) and
-    the output adds over `model`."""
+    (`mesh` with a process group) a rank computes its heads, or every
+    head from q gathered over `model` where its columns cut a head
+    (`attention_weights`; `path` names the params' key for the rules),
+    and the output adds over `model`."""
     b, t, _ = x.shape
     hd = cfg.head_dim
-    wq, wk, wv, wo, (lo, hi), tp = attention_weights(
-        params, cfg, mesh, path, whole_kv=cache is not None)
+    att = attention_weights(params, cfg, mesh, path,
+                            whole_kv=cache is not None)
     h = rmsnorm(x, params["norm"])
-    if tp is not None:
-        h = tp.copy(h)
-    nq, nk = wq.shape[-1] // hd, wk.shape[-1] // hd
-    q = (h @ wq.to(h.dtype)).reshape(b, t, nq, hd)
-    k = (h @ wk.to(h.dtype)).reshape(b, t, nk, hd)
-    v = (h @ wv.to(h.dtype)).reshape(b, t, nk, hd)
+    if att.tp is not None:
+        h = att.tp.copy(h)
+    q = att.q(h)
+    nq, nk = q.shape[-1] // hd, att.wk.shape[-1] // hd
+    q = q.reshape(b, t, nq, hd)
+    k = (h @ att.wk.to(h.dtype)).reshape(b, t, nk, hd)
+    v = (h @ att.wv.to(h.dtype)).reshape(b, t, nk, hd)
     window = 0 if is_global else cfg.window
     if cache is None:
         if positions is None:
             positions = torch.arange(t, device=x.device)[None, :]
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+        k, v = k[:, :, att.kv], v[:, :, att.kv]
         if cfg.pallas_flash and window == 0 and allow_pallas:
             from repro_torch.kernels.ops import flash_attention_fused
             o = flash_attention_fused(q, k, v, causal=cfg.causal)
@@ -420,13 +496,10 @@ def attention_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
             at = min(p, ck.shape[1] - t)       # dynamic_update_slice clamps
             ck[:, at:at + t] = k
             cv[:, at:at + t] = v
-        mine = (ck, cv) if tp is None else (ck[:, :, lo:hi], cv[:, :, lo:hi])
-        o = flash_attention(q, *mine, causal=False, kv_len=p + 1,
-                            block=2048)
+        o = flash_attention(q, ck[:, :, att.kv], cv[:, :, att.kv],
+                            causal=False, kv_len=p + 1, block=2048)
         new_cache = {"k": ck, "v": cv}
-    o = o.reshape(b, t, nq * hd)
-    out = o @ wo.to(o.dtype)
-    return (out if tp is None else tp.sum(out[None])), new_cache
+    return att.out(o.reshape(b, t, nq * hd)), new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,11 @@ The counterpart of the reference's `models/rwkv.py`.  The layers are
 stacked (L, ...) and run in a Python loop.  The decode cache holds one
 O(1) state a layer (independent of the sequence length); a decode step
 writes it in place and returns the same tensors.  `rwkv_loss` is the
-training objective; on ranks (a `model` axis of 1, `launch.sharding.
-check_rank_layout`) its count is the global one over the data ranks.
+training objective; on ranks its count is the global one over the data
+ranks, and the blocks lay their heads and hidden columns out over
+`model` (`models.ssm.rwkv_tmix`, `rwkv_cmix`).  On ranks a layer's wkv
+state holds the rank's heads where they split whole over `model`
+(`layers.rank_cache`).
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (cdtype, data_shards, embed_tokens,
                                        init_embeddings, layer_params,
-                                       lm_logits, softmax_xent)
+                                       lm_logits, softmax_xent, vocab_shards)
 from repro_torch.models.ssm import (init_rwkv_cmix, init_rwkv_tmix,
                                     rwkv_cmix, rwkv_init_state, rwkv_tmix)
 from repro_torch.models.transformer import _remat
@@ -33,9 +36,9 @@ def forward(params: dict, cfg: ArchConfig, tokens: torch.Tensor, mesh=None
     x = embed_tokens(params["embed"], tokens, cfg, mesh).to(cdtype(cfg))
 
     def layer_fn(x, lp):
-        t, _ = rwkv_tmix(lp["tmix"], x, cfg)
+        t, _ = rwkv_tmix(lp["tmix"], x, cfg, mesh=mesh)
         x = x + t
-        c, _ = rwkv_cmix(lp["cmix"], x, cfg)
+        c, _ = rwkv_cmix(lp["cmix"], x, cfg, mesh=mesh)
         return x + c
 
     body = _remat(layer_fn, cfg)
@@ -49,7 +52,7 @@ def rwkv_loss(params: dict, batch: dict, cfg: ArchConfig, mesh=None
     x = forward(params, cfg, batch["tokens"], mesh)
     logits = lm_logits(params["embed"], x, cfg, mesh)
     return softmax_xent(logits, batch["targets"], batch["mask"],
-                        data_shards(mesh))
+                        data_shards(mesh), vocab_shards(logits, cfg, mesh))
 
 
 def init_rwkv_cache(cfg: ArchConfig, batch: int, seq_len: int,
@@ -74,9 +77,9 @@ def rwkv_decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos,
     for li in range(cfg.n_layers):
         lp = layer_params(params["layers"], li)
         st = layer_params(cache, li)
-        t, ts = rwkv_tmix(lp["tmix"], x, cfg, state=st["tmix"])
+        t, ts = rwkv_tmix(lp["tmix"], x, cfg, state=st["tmix"], mesh=mesh)
         x = x + t
-        c, cs = rwkv_cmix(lp["cmix"], x, cfg, state=st["cmix"])
+        c, cs = rwkv_cmix(lp["cmix"], x, cfg, state=st["cmix"], mesh=mesh)
         x = x + c
         _write(st, {"tmix": ts, "cmix": cs})
     return lm_logits(params["embed"], x, cfg, mesh, whole=True), cache

@@ -30,7 +30,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
-from repro_torch.models.layers import cdtype, init_dense, pdtype, rmsnorm
+from repro_torch.models.layers import (_ranks, cdtype, init_dense, pdtype,
+                                       rmsnorm)
 
 MAMBA_HEAD_DIM = 64
 RWKV_HEAD_DIM = 64
@@ -130,29 +131,80 @@ def _ssd_chunked(x, a_log, bm, cm, chunk: int,
     return y.to(x.dtype), s
 
 
+def _mamba_rank(params: dict, cfg: ArchConfig, mesh):
+    """(params with fsdp blocks gathered, the `model` collectives, this
+    rank's out_proj rows [c0, c1), the heads [h0, h1) it runs) on ranks;
+    (params, None, (0, d_inner), (0, H)) elsewhere and where out_proj's
+    rows do not split over `model` (every rank then runs the whole
+    block)."""
+    d_inner, n_heads, n_state = mamba_dims(cfg)
+    rk = _ranks(cfg, mesh)
+    if rk is None:
+        return params, None, (0, d_inner), (0, n_heads)
+    d, n_in = cfg.d_model, 2 * d_inner + 2 * n_state + n_heads
+    p = dict(params)
+    p["in_proj"], _ = rk.weight(params["in_proj"], "['mamba']['in_proj']",
+                                (d, n_in))
+    p["out_proj"], spec = rk.weight(params["out_proj"],
+                                    "['mamba']['out_proj']", (d_inner, d))
+    if not rk.over(spec, 0, "model"):
+        return p, None, (0, d_inner), (0, n_heads)
+    c0, c1 = rk.cols(d_inner)
+    heads = (c0 // MAMBA_HEAD_DIM, c1 // MAMBA_HEAD_DIM) \
+        if n_heads % rk.sizes["model"] == 0 else (0, n_heads)
+    return p, rk.model, (c0, c1), heads
+
+
 def mamba_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
-                state: Optional[dict] = None):
+                state: Optional[dict] = None, mesh=None):
     """Mamba2 block.  Over a sequence: chunked SSD over T.  Decode: state
     holds {"conv": (B, 3, d_inner), "ssm": (B, H, P, N)} and x is (B, 1,
-    D).  Returns (out, new_state); new_state is None over a sequence."""
+    D).  Returns (out, new_state); new_state is None over a sequence.
+
+    On ranks (`mesh` with a process group) whose out_proj rows split over
+    `model`: in_proj's columns concatenate z, x, B, C and dt, so a
+    rank's block of them cuts across those; it computes copy(h) @ its
+    block and gathers the product over `model`.  It runs its heads (the
+    rows of its out_proj block; every head where those rows cut one,
+    sliced to its rows after the scan) with its z, x and dt columns, B
+    and C whole, its channels of `conv` and heads of `a_log`, `d_skip`
+    and `dt_bias` through `GroupShards.copy`; its out_proj rows give a
+    partial that adds over `model`.  The decode state's ssm holds the
+    heads it runs, its conv state every channel."""
     b, t, _ = x.shape
     d_inner, n_heads, n_state = mamba_dims(cfg)
+    n_in = 2 * d_inner + 2 * n_state + n_heads
+    params, tp, (c0, c1), (h0, h1) = _mamba_rank(params, cfg, mesh)
+    ch0, ch1, nh = h0 * MAMBA_HEAD_DIM, h1 * MAMBA_HEAD_DIM, h1 - h0
     h = rmsnorm(x, params["norm"])
-    zxbcdt = h @ params["in_proj"].to(h.dtype)
+    if tp is None:
+        zxbcdt = h @ params["in_proj"].to(h.dtype)
+        pick = params
+    else:
+        h = tp.copy(h)
+        w = params["in_proj"]
+        if w.shape[-1] == n_in:
+            zxbcdt = h @ tp.copy(w).to(h.dtype)
+        else:
+            zxbcdt = tp.gather(h @ w.to(h.dtype), h.dim() - 1)
+        pick = {"conv": tp.copy(params["conv"])[:, ch0:ch1]}
+        for name in ("a_log", "d_skip", "dt_bias"):
+            pick[name] = tp.copy(params[name])[h0:h1]
     z, xin, bm, cm, dt = torch.split(
         zxbcdt, [d_inner, d_inner, n_state, n_state, n_heads], dim=-1)
-    dt = F.softplus(dt.to(f32) + params["dt_bias"])        # (b,t,H)
-    a = -torch.exp(params["a_log"])                        # (H,)
-    d_skip = params["d_skip"][None, None, :, None]
-    w = params["conv"].to(xin.dtype)
+    z, dt = z[..., c0:c1], dt[..., h0:h1]
+    dt = F.softplus(dt.to(f32) + pick["dt_bias"])          # (b,t,H)
+    a = -torch.exp(pick["a_log"])                          # (H,)
+    d_skip = pick["d_skip"][None, None, :, None]
+    w = pick["conv"].to(xin.dtype)
 
     if state is None:
         # causal depthwise conv (kernel 4): each product and each partial
         # sum in the compute dtype, in tap order, as the reference's
-        xp = F.pad(xin, (0, 0, 3, 0))
+        xp = F.pad(xin[..., ch0:ch1], (0, 0, 3, 0))
         conv = sum(xp[:, i:i + t] * w[i] for i in range(4))
         xs = F.silu(conv)
-        xh = xs.reshape(b, t, n_heads, MAMBA_HEAD_DIM)
+        xh = xs.reshape(b, t, nh, MAMBA_HEAD_DIM)
         xdt = xh * dt[..., None].to(xh.dtype)
         y, _ = _ssd_chunked(xdt, dt * a, bm.to(f32), cm.to(f32),
                             cfg.ssm_chunk)
@@ -162,21 +214,22 @@ def mamba_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
         conv_buf = torch.cat([state["conv"], xin], dim=1)  # (b,4,di)
         # the reference's dot over the 4 taps: products summed in f32 in
         # tap order and rounded once
-        conv = sum(conv_buf[:, i:i + 1].to(f32) * w[i].to(f32)
+        conv = sum(conv_buf[:, i:i + 1, ch0:ch1].to(f32) * w[i].to(f32)
                    for i in range(4))
         xs = F.silu(conv.to(xin.dtype))
-        xh = xs.reshape(b, 1, n_heads, MAMBA_HEAD_DIM)
+        xh = xs.reshape(b, 1, nh, MAMBA_HEAD_DIM)
         xdt = (xh * dt[..., None].to(xh.dtype))[:, 0]       # (b,H,P)
         decay = torch.exp(dt[:, 0] * a)                     # (b,H)
         s = state["ssm"] * decay[:, :, None, None] \
             + xdt.to(f32)[..., None] * bm[:, 0].to(f32)[:, None, None, :]
         y = torch.einsum("bhpn,bn->bhp", s, cm[:, 0].to(f32))
-        y = y.reshape(b, 1, n_heads, MAMBA_HEAD_DIM).to(xh.dtype)
+        y = y.reshape(b, 1, nh, MAMBA_HEAD_DIM).to(xh.dtype)
         y = y + xh * d_skip.to(xh.dtype)
         new_state = {"conv": conv_buf[:, 1:], "ssm": s}
 
-    y = y.reshape(b, t, d_inner) * F.silu(z)
-    return y @ params["out_proj"].to(y.dtype), new_state
+    y = y.reshape(b, t, ch1 - ch0)[..., c0 - ch0:c1 - ch0] * F.silu(z)
+    out = y @ params["out_proj"].to(y.dtype)
+    return (out if tp is None else tp.sum(out[None])), new_state
 
 
 def mamba_init_state(cfg: ArchConfig, batch: int, lead: tuple = (),
@@ -222,9 +275,12 @@ def init_rwkv_tmix(gen: torch.Generator, cfg: ArchConfig, lead: tuple = ()
     }
 
 
-def _rwkv_mix(params, x, x_prev):
+def _rwkv_mix(params, x, x_prev, tp=None):
     """RWKV6 ddlerp: 5 data-dependent token-shift mixes -> the r, k, v, g,
-    w inputs.  x: (B, T, D); x_prev: (B, T, D) (token-shifted x)."""
+    w inputs.  x: (B, T, D); x_prev: (B, T, D) (token-shifted x).  With
+    `tp` (the `model` collectives of ranks) the r, k, v and g inputs
+    pass through `GroupShards.copy`: they feed products split over
+    `model`."""
     delta = x_prev - x
     lora = torch.tanh(x @ params["lora_a"].to(x.dtype))       # (B,T,5R)
     b_, t_, _ = lora.shape
@@ -233,7 +289,8 @@ def _rwkv_mix(params, x, x_prev):
                        params["lora_b"].to(x.dtype))          # (B,T,5,D)
     mixed = x[:, :, None] + delta[:, :, None] * (
         params["mu"][None, None].to(x.dtype) + dyn)
-    return [mixed[:, :, i] for i in range(5)]
+    split = mixed[:, :, :4] if tp is None else tp.copy(mixed[:, :, :4])
+    return [split[:, :, i] for i in range(4)] + [mixed[:, :, 4]]
 
 
 def _rwkv_scan(r, k, v, w_log, u, init_state=None):
@@ -301,24 +358,75 @@ def _rwkv_chunked(r, k, v, w_log, u, chunk: int, init_state=None):
     return y, s
 
 
+_TMIX = {"lora_a": ("d", 5 * LORA_RANK), "wlora_a": ("d", LORA_RANK),
+         "wr": ("d", "d"), "wk": ("d", "d"), "wv": ("d", "d"),
+         "wg": ("d", "d"), "wo": ("d", "d")}
+
+
+def _tmix_rank(params: dict, cfg: ArchConfig, mesh):
+    """(params with fsdp blocks gathered, the `model` collectives, this
+    rank's columns [c0, c1) of r / k / v / g and rows of wo) on ranks
+    whose wr columns split over `model`; (params, None, (0, D))
+    elsewhere (every model rank then computes the whole block)."""
+    d = cfg.d_model
+    rk = _ranks(cfg, mesh)
+    if rk is None:
+        return params, None, (0, d)
+    p, specs = dict(params), {}
+    for name, dims in _TMIX.items():
+        shape = tuple(d if n == "d" else n for n in dims)
+        p[name], specs[name] = rk.weight(params[name], f"['layers']['tmix']"
+                                         f"['{name}']", shape)
+    if not rk.over(specs["wr"], 1, "model"):
+        return p, None, (0, d)
+    return p, rk.model, rk.cols(d)
+
+
 def rwkv_tmix(params: dict, x: torch.Tensor, cfg: ArchConfig,
-              state: Optional[dict] = None):
+              state: Optional[dict] = None, mesh=None):
     """RWKV6 time-mix.  state (decode): {"x_prev": (B, 1, D), "wkv": (B,
-    H, C, C)}.  Returns (out, new_state)."""
+    H, C, C)}.  Returns (out, new_state).
+
+    On ranks (`mesh` with a process group) whose r / k / v / g columns
+    split over `model`, the mix runs whole on every rank and its r, k, v
+    and g inputs pass through `GroupShards.copy`; a rank's columns give
+    its r, k, v and g, and the decay of those columns comes from
+    copy(tanh(xw @ wlora_a)) and its columns of `wlora_b` and `w0`
+    (through `copy`).  Where the columns are whole heads the scan (and
+    the decode state) runs on its heads with its heads of `u` and
+    `ln_w`; where they cut a head r, k, v and the decay are gathered
+    over `model` and every head runs (the state holds every head), `u`
+    and `ln_w` whole through `copy`, and the normed output is sliced to
+    its columns.  Its wo rows give a partial that adds over `model`."""
     b, t, d = x.shape
     n_heads, hd = rwkv_dims(cfg)
+    params, tp, (c0, c1) = _tmix_rank(params, cfg, mesh)
     h = rmsnorm(x, params["norm"])
     h_prev = _shift(h) if state is None else state["x_prev"]
-    xr, xk, xv, xg, xw = _rwkv_mix(params, h, h_prev)
-    r = (xr @ params["wr"].to(h.dtype)).reshape(b, t, n_heads, hd)
-    k = (xk @ params["wk"].to(h.dtype)).reshape(b, t, n_heads, hd)
-    v = (xv @ params["wv"].to(h.dtype)).reshape(b, t, n_heads, hd)
+    xr, xk, xv, xg, xw = _rwkv_mix(params, h, h_prev, tp)
+    r = xr @ params["wr"].to(h.dtype)
+    k = xk @ params["wk"].to(h.dtype)
+    v = xv @ params["wv"].to(h.dtype)
     g = F.silu(xg @ params["wg"].to(h.dtype))
-    wl = params["w0"] + torch.tanh(
-        xw @ params["wlora_a"].to(h.dtype)).to(f32) \
-        @ params["wlora_b"].to(f32)
-    w_log = -torch.exp(wl.to(f32)).reshape(b, t, n_heads, hd)   # <= 0
-    u = params["u"].reshape(n_heads, hd)
+    lw = torch.tanh(xw @ params["wlora_a"].to(h.dtype))
+    w0, wlora_b, u, ln_w = (params[n] for n in ("w0", "wlora_b", "u",
+                                                "ln_w"))
+    cut = False
+    if tp is not None:
+        lw = tp.copy(lw)
+        w0, wlora_b = tp.copy(w0)[c0:c1], tp.copy(wlora_b)[:, c0:c1]
+        u, ln_w = tp.copy(u), tp.copy(ln_w)
+        cut = (c1 - c0) % hd != 0
+        if not cut:
+            u, ln_w = u[c0:c1], ln_w[c0:c1]
+    wl = w0 + lw.to(f32) @ wlora_b.to(f32)
+    w_log = -torch.exp(wl.to(f32))                               # <= 0
+    if cut:
+        r, k, v, w_log = (tp.gather(a, a.dim() - 1)
+                          for a in (r, k, v, w_log))
+    nh = r.shape[-1] // hd
+    r, k, v, w_log = (a.reshape(b, t, nh, hd) for a in (r, k, v, w_log))
+    u = u.reshape(nh, hd)
 
     if state is None:
         if cfg.rwkv_mode == "chunked":
@@ -330,10 +438,11 @@ def rwkv_tmix(params: dict, x: torch.Tensor, cfg: ArchConfig,
         y, s = _rwkv_scan(r, k, v, w_log, u, init_state=state["wkv"])
         new_state = {"x_prev": h, "wkv": s}
 
-    y = y.reshape(b, t, d).to(x.dtype)
-    y = rmsnorm(y.reshape(b, t, n_heads, hd),
-                params["ln_w"].reshape(n_heads, hd)).reshape(b, t, d)
-    return (y * g) @ params["wo"].to(x.dtype), new_state
+    y = rmsnorm(y.to(x.dtype), ln_w.reshape(nh, hd)).reshape(b, t, nh * hd)
+    if cut:
+        y = y[..., c0:c1]
+    out = (y * g) @ params["wo"].to(x.dtype)
+    return (out if tp is None else tp.sum(out[None])), new_state
 
 
 def init_rwkv_cmix(gen: torch.Generator, cfg: ArchConfig, lead: tuple = ()
@@ -351,8 +460,20 @@ def init_rwkv_cmix(gen: torch.Generator, cfg: ArchConfig, lead: tuple = ()
 
 
 def rwkv_cmix(params: dict, x: torch.Tensor, cfg: ArchConfig,
-              state: Optional[dict] = None):
-    """RWKV6 channel-mix.  state (decode): {"x_prev": (B, 1, D)}."""
+              state: Optional[dict] = None, mesh=None):
+    """RWKV6 channel-mix.  state (decode): {"x_prev": (B, 1, D)}.  On
+    ranks it is Megatron's MLP where the hidden dim splits over `model`:
+    copy(xk) times a rank's `wk` columns, its `wv` rows, the partials
+    added over `model` before the product with sigmoid(xr @ wr) (`wr`
+    whole)."""
+    wk, wv, wr, tp = params["wk"], params["wv"], params["wr"], None
+    rk = _ranks(cfg, mesh)
+    if rk is not None:
+        d, f = cfg.d_model, cfg.d_ff
+        wk, spec = rk.weight(wk, "['layers']['cmix']['wk']", (d, f))
+        wv, _ = rk.weight(wv, "['layers']['cmix']['wv']", (f, d))
+        wr, _ = rk.weight(wr, "['layers']['cmix']['wr']", (d, d))
+        tp = rk.model if rk.over(spec, 1, "model") else None
     h = rmsnorm(x, params["norm"])
     if state is None:
         h_prev, new_state = _shift(h), None
@@ -362,9 +483,13 @@ def rwkv_cmix(params: dict, x: torch.Tensor, cfg: ArchConfig,
     mu = params["mu"].to(h.dtype)
     xk = h + delta * mu[0]
     xr = h + delta * mu[1]
-    kk = torch.square(F.relu(xk @ params["wk"].to(h.dtype)))
-    vv = kk @ params["wv"].to(h.dtype)
-    return torch.sigmoid(xr @ params["wr"].to(h.dtype)) * vv, new_state
+    if tp is not None:
+        xk = tp.copy(xk)
+    kk = torch.square(F.relu(xk @ wk.to(h.dtype)))
+    vv = kk @ wv.to(h.dtype)
+    if tp is not None:
+        vv = tp.sum(vv[None])
+    return torch.sigmoid(xr @ wr.to(h.dtype)) * vv, new_state
 
 
 def rwkv_init_state(cfg: ArchConfig, batch: int, lead: tuple = (),

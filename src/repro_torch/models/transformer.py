@@ -235,18 +235,19 @@ def _decode_attn(p, x, k_cache, v_cache, cfg: ArchConfig, is_global: bool,
     over the min(pos + 1, capacity) slots written so far.  On ranks whose
     heads split over `model` (`layers.attention_weights`) every rank
     writes every kv head (the cache holds them whole, as `cache_specs`
-    lays it out), attends with its own heads, and the output adds over
-    `model`."""
+    lays it out), attends with its own heads (every head, its q gathered
+    over `model`, where its columns cut a head), and the output adds
+    over `model`."""
     b = x.shape[0]
     hd, kv = cfg.head_dim, cfg.n_kv
     pos = int(pos)
-    wq, wk, wv, wo, (lo, hi), tp = attention_weights(p, cfg, mesh, path,
-                                                     whole_kv=True)
+    att = attention_weights(p, cfg, mesh, path, whole_kv=True)
     h = rmsnorm(x, p["norm"])
-    nq = wq.shape[-1] // hd
-    q = (h @ wq.to(h.dtype)).reshape(b, 1, nq, hd)
-    k = (h @ wk.to(h.dtype)).reshape(b, 1, kv, hd)
-    v = (h @ wv.to(h.dtype)).reshape(b, 1, kv, hd)
+    q = att.q(h)
+    nq = q.shape[-1] // hd
+    q = q.reshape(b, 1, nq, hd)
+    k = (h @ att.wk.to(h.dtype)).reshape(b, 1, kv, hd)
+    v = (h @ att.wv.to(h.dtype)).reshape(b, 1, kv, hd)
     posn = torch.full((1, 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posn, cfg.rope_theta)
     k = apply_rope(k, posn, cfg.rope_theta)
@@ -254,12 +255,9 @@ def _decode_attn(p, x, k_cache, v_cache, cfg: ArchConfig, is_global: bool,
     slot = pos % cap
     k_cache[:, slot] = k[:, 0]
     v_cache[:, slot] = v[:, 0]
-    o = flash_attention(q, k_cache[:, :, lo:hi], v_cache[:, :, lo:hi],
+    o = flash_attention(q, k_cache[:, :, att.kv], v_cache[:, :, att.kv],
                         causal=False, kv_len=min(pos + 1, cap), block=2048)
-    o = o.reshape(b, 1, nq * hd)
-    out = o @ wo.to(o.dtype)
-    return (out if tp is None else tp.sum(out[None])), \
-        {"k": k_cache, "v": v_cache}
+    return att.out(o.reshape(b, 1, nq * hd)), {"k": k_cache, "v": v_cache}
 
 
 def prefill(params: dict, cfg: ArchConfig,

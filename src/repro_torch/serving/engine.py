@@ -6,8 +6,11 @@ temperature sampling, stop handling and cache reuse across steps.  It runs
 under `torch.inference_mode()`.  On ranks (a bundle whose mesh carries a
 process group) every rank is given the global prompts, serves its rows of
 them (its data ranks split the batch; heads, ffn hidden dim and experts
-add their partials over its `model` ranks; its cache holds every kv
-head of its rows), selects each token from its rows' logits of the whole
+add their partials over its `model` ranks; its cache, the bundle's
+`init_cache`, holds its rows: every kv head of attention, RWKV6's wkv
+and Mamba2's ssm states of its heads where they split whole over
+`model` and of every head where its columns cut one, `x_prev` and the
+conv states whole), selects each token from its rows' logits of the whole
 vocab (the model puts them together over `model`, so argmax's tie rule
 and the sampling noise are one process's), stops when every row of the
 global batch has, and returns the global tokens.  The engine gathers a

@@ -272,14 +272,14 @@ def job_tp(rank, d):
                                 {"params": build_model(cfg).init(0, "cpu")},
                                 shardings=ranks.shardings(
                                     {"params": like}))
-    pairs = [(a, b) for a, b in zip(tree_leaves(grads),
-                                    tree_leaves(ref["params"]))
-             if a.numel()]
-    grad_err = max(float((a - b).abs().max()) for a, b in pairs)
-    grad_rel = max(_rel(a, b) for a, b in pairs)
+    pairs = [(path, a, b) for (path, a), b in zip(
+        flatten_with_path(grads), tree_leaves(ref["params"])) if a.numel()]
+    grad_err = max(float((a - b).abs().max()) for _, a, b in pairs)
+    grad_rels = {path: _rel(a, b) for path, a, b in pairs}
     params, state = tr.run(params, state, start)
     return {"start": start, "shapes_ok": shapes_ok, "split": split,
-            "grad_err": grad_err, "grad_rel": grad_rel,
+            "grad_err": grad_err, "grad_rel": max(grad_rels.values()),
+            "grad_rels": grad_rels,
             "losses": [h["loss"] for h in tr.history],
             "grad_norms": [h["grad_norm"] for h in tr.history]}
 
@@ -349,6 +349,11 @@ def job_tp_serve(rank, d):
     split = sum(tuple(a.shape) != tuple(c.shape) for a, c in zip(
         tree_leaves(params), tree_leaves(one)))
     return {"tokens": got.tolist(), "plain": plain.tolist(), "split": split}
+
+
+def job_tp_all(rank, d):
+    """`job_tp`, then `job_tp_serve`, in one spawn."""
+    return {**job_tp(rank, d), **job_tp_serve(rank, d)}
 
 
 def job_whole(rank, d):

@@ -15,7 +15,8 @@ losses and grad norms; AdamW with lr 1e-3, one warm-up step and eps
 `EPS`) and saves the params after them (`final/`).  With
 "serve" in `job.json` it writes instead the greedy tokens of its
 `ServeEngine` (no mesh) for a (4, 12) prompt, 10 new tokens
-(`serve.json`), after the step-0 checkpoint.
+(`serve.json`), after the step-0 checkpoint; with "train" too (a job
+made with `serve=True, train=True`) it does both.
 """
 import json
 import os
@@ -53,18 +54,28 @@ _REFERENCE = textwrap.dedent("""
     from repro.serving import ServeEngine
     from repro.train.loop import TrainConfig, init_opt_state, make_train_step
 
+    inits = {}              # PRNGKey(0) params by config: fsdp aside,
+                            # the same draws whatever the mesh
+
+    def init_of(bundle, job):
+        key = json.dumps([job["arch"], {k: v for k, v in job["over"].items()
+                                        if k != "fsdp"}], sort_keys=True)
+        if key not in inits:
+            inits[key] = jax.jit(bundle.init)(jax.random.PRNGKey(0))
+        return inits[key]
+
     for d in sys.argv[1:]:
         job = json.load(open(os.path.join(d, "job.json")))
         opt = AdamWConfig(lr=job["lr"], warmup_steps=1, eps=%(eps)g)
         cfg = dataclasses.replace(smoke_config(job["arch"]), **job["over"])
         raw = np.load(os.path.join(d, "batches.npz"))
-        keys = sorted({k.rsplit("_", 1)[0] for k in raw.files})
+        keys = sorted({k.rsplit("_", 1)[0] for k in raw.files} - {"prompts"})
         batch = lambda s: {k: jnp.asarray(raw[f"{k}_{s}"]) for k in keys}
         mesh = compat.make_mesh(tuple(job["mesh"]), ("data", "model"))
         out = {"losses": [], "grad_norms": []}
         with compat.set_mesh(mesh):
             bundle = build_model(cfg)
-            params = jax.jit(bundle.init)(jax.random.PRNGKey(0))
+            params = init_of(bundle, job)
             state = init_opt_state(bundle, params, opt, TrainConfig())
             like = {"params": params, "opt": state}
             save_checkpoint(os.path.join(d, "init"), 0, like)
@@ -74,7 +85,7 @@ _REFERENCE = textwrap.dedent("""
             tree, _ = restore_checkpoint(os.path.join(d, "init"), 0, like,
                                          shardings=shd)
             params, state = tree["params"], tree["opt"]
-            if not job["serve"]:
+            if job["train"]:
                 grads = jax.jit(jax.grad(bundle.loss))(params, batch(0))
                 save_checkpoint(os.path.join(d, "grad0"), 0,
                                 {"params": grads})
@@ -88,7 +99,7 @@ _REFERENCE = textwrap.dedent("""
                                 {"params": params})
         json.dump(out, open(os.path.join(d, "ref.json"), "w"))
         if job["serve"]:
-            init = jax.jit(bundle.init)(jax.random.PRNGKey(0))
+            init = init_of(bundle, job)
             prompts = np.asarray(raw["prompts_0"])
             eng = ServeEngine(bundle, init, max_seq=32,
                               batch_size=prompts.shape[0])
@@ -99,14 +110,16 @@ _REFERENCE = textwrap.dedent("""
 
 
 def make_job(d: pathlib.Path, arch: str, mesh, family: str, seed: int,
-             serve: bool = False, lr: float = 1e-3, **over) -> pathlib.Path:
+             serve: bool = False, lr: float = 1e-3, train: bool = None,
+             **over) -> pathlib.Path:
     """Write `d`'s job.json and batches.npz (numpy draws from `seed`; a
     mask with zeros; the VLM's patch embeddings, the encoder's frames and
-    masked positions) and return `d`."""
+    masked positions) and return `d`.  A job trains unless it serves;
+    `train=True` with `serve=True` does both."""
     d.mkdir(parents=True, exist_ok=True)
     (d / "job.json").write_text(json.dumps(
         {"arch": arch, "over": over, "mesh": list(mesh), "serve": serve,
-         "lr": lr}))
+         "train": not serve if train is None else train, "lr": lr}))
     rng = np.random.RandomState(seed)
     arrays = {}
     for s in range(STEPS + 1):
