@@ -4004,11 +4004,11 @@ class _FrozenRouting:
         self.replay = False
         self.at = 0
 
-    def __call__(self, params, x, cfg, groups=32, data=1):
+    def __call__(self, params, x, cfg, groups=32, data=1, seq=None):
         import torch
         from repro_torch.models.layers import rmsnorm
         if not self.replay:
-            out = self.real(params, x, cfg, groups, data)
+            out = self.real(params, x, cfg, groups, data, seq)
             self.routes.append(out[2:])
             return out
         route, cap = self.routes[self.at]
@@ -4738,7 +4738,13 @@ def mesh_step(cfg, out: dict, dev="cuda") -> None:
 # RANKS_DP_TOL, grad norm within max(RANKS_TP_GRAD_TOL,
 # TRAIN_SMOKE_RATIO x the one-ulp control), as the EP pair is held;
 # then the two full-width runs' ServeEngine, as granite-8b's, on
-# RANKS_SSM_PROMPT-token prompts and RANKS_SSM_DECODE decode steps
+# RANKS_SSM_PROMPT-token prompts and RANKS_SSM_DECODE decode steps.
+# Last in the spawn, the `sp` scheme (RANKS_SP): zamba2-1.2b at the same
+# 7 layers, f32, on (2, 2) with `sharding_scheme="sp"`: a `model` rank
+# holds 256 of the 512 positions, the shared attention gathers K / V and
+# masks at the rank's offset, the Mamba2 conv reads the previous rank's
+# last 3 positions, the SSD state is handed across the ranks, and every
+# dense weight splits over `data`; held as the SSM runs are
 RANKS_WORLD = 4
 RANKS_STEPS = 1                # 3 before the TP / FSDP run: cut to make room
 RANKS_TOL = 1e-6
@@ -4751,6 +4757,7 @@ RANKS_TP_SERVE_BATCH, RANKS_TP_PROMPT, RANKS_TP_DECODE = 2, 128, 8
 RANKS_SSM = (("rwkv", "rwkv6-3b", 2), ("zamba", "zamba2-1.2b", 7))
 RANKS_SSM_STEPS, RANKS_SSM_PROMPT, RANKS_SSM_DECODE = 2, 512, 16
 RANKS_CUT = ("llama3.2-3b", {"n_heads": 6, "n_kv": 2}, (1, 4))
+RANKS_SP = ("zamba2-1.2b", 7, (2, 2))
 
 
 def _ranks_run(cfg, mesh, steps: int, dev: str, rank: int,
@@ -4993,6 +5000,10 @@ def ranks_step(cfg, out: dict, dev="cuda") -> None:
     arch, over, shape = RANKS_CUT
     more.append(("cut_heads_1x4", dataclasses.replace(
         C.smoke_config(arch), **over), shape, False))
+    arch, layers, shape = RANKS_SP
+    more.append(("zamba_sp_2x2", dataclasses.replace(
+        C.get_config(arch), n_layers=layers, compute_dtype="float32",
+        remat="dots", sharding_scheme="sp"), shape, False))
     _free_cuda(dev)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()

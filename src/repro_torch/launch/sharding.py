@@ -250,11 +250,17 @@ def rank_heads(cfg: ArchConfig, s: int, r: int) -> HeadSplit:
 
 
 def check_rank_layout(cfg: ArchConfig) -> None:
-    """Refuse what the ranks do not port: the `sp` scheme (ROADMAP
-    1.15c)."""
-    if cfg.sharding_scheme == "sp":
-        raise ValueError(f"{cfg.name}: the 'sp' scheme is not ported on "
-                         f"ranks (ROADMAP 1.15c)")
+    """What the ranks do not port is refused here.  Every scheme and
+    family runs on ranks: with `tp` the fitted specs split heads, the
+    ffn hidden dim and the vocab over `model`; with `sp` the dense
+    weights have no `model` dim (FSDP over `data`, whatever `cfg.fsdp`
+    says), a MoE's experts still split over `model`, and a rank holds
+    its positions of the sequence (`models.layers`: K / V gathered over
+    `model`, SSM states and token shifts handed across the ranks'
+    boundaries)."""
+    if cfg.sharding_scheme not in ("tp", "sp"):
+        raise ValueError(f"{cfg.name}: unknown sharding scheme "
+                         f"{cfg.sharding_scheme!r}")
 
 
 def rank_specs(cfg: ArchConfig, tree: Any, mesh) -> Any:
@@ -267,14 +273,18 @@ def rank_specs(cfg: ArchConfig, tree: Any, mesh) -> Any:
     `model` where they divide it (whole heads or not, see `rank_heads`),
     RWKV6's r / k / v / g / o and channel-mix columns and Mamba2's
     in_proj columns and out_proj rows too, a MoE's experts over `model`
-    (EP), and with `cfg.fsdp` the d_model dims over `data` too; the
-    `sp` scheme is refused (`check_rank_layout`).
+    (EP), and with `cfg.fsdp` the d_model dims over `data` too.  With
+    the `sp` scheme no dense leaf splits over `model` and the d_model
+    dims split over `data` whatever `cfg.fsdp` says; a MoE's experts
+    split over `model` (and `data`), and the batch's positions split
+    over `model` (`train.ranks.RankLayout.batch`).
 
     A leaf's gradient on a rank is its block's: summed over `model` where
     every model rank holds the whole leaf but uses a part (wk / wv by kv
     head) or a partial (`GroupShards.copy`), over `data` by the FSDP
     gather's backward where the leaf splits over `data`, and over the
-    batch axes it does not split over by `train.ranks.RankLayout.reduce`.
+    batch axes it does not split over by `train.ranks.RankLayout.reduce`
+    (under `sp` over `model` too, whose ranks take other positions).
     """
     check_rank_layout(cfg)
     return map_leaves(lambda path, leaf: fit_spec(spec_for_path(

@@ -109,10 +109,12 @@ def build_model(cfg: ArchConfig, mesh=None) -> ModelBundle:
     `ServeEngine`, and its `init_cache` gives a rank's block of the
     decode cache (`layers.rank_cache`).  Every family runs so, RWKV6's
     and Mamba2's blocks with their heads over `model` and attention
-    whose heads a rank's columns cut; what the ranks do not port is
-    refused here (`check_rank_layout`: the `sp` scheme, ROADMAP 1.15c),
-    and every subgroup the layout uses is made now, in one order on
-    every rank."""
+    whose heads a rank's columns cut, under either scheme: with `sp` a
+    rank's batch is its positions of its rows as well, the dense weights
+    FSDP over `data`, and the blocks hand what crosses positions over
+    `model` (`layers.seq_shards`).  What the ranks do not port is
+    refused here (`check_rank_layout`), and every subgroup the layout
+    uses is made now, in one order on every rank."""
     fam = cfg.family
     if mesh is not None and mesh.group is not None:
         check_rank_layout(cfg)

@@ -77,4 +77,4 @@ def encoder_loss(params: dict, batch: dict, cfg: ArchConfig, mesh=None
                       (cfg.d_model, cfg.num_classes), cfg, mesh)
     logits = x @ head.to(x.dtype)
     m = batch["mask_positions"].to(torch.float32)
-    return softmax_xent(logits, batch["targets"], m, data_shards(mesh))
+    return softmax_xent(logits, batch["targets"], m, data_shards(mesh, cfg))

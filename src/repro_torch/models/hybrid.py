@@ -26,8 +26,9 @@ from repro_torch.core.types import resolve_device
 from repro_torch.models.layers import (attention_block, cdtype, data_shards,
                                        embed_tokens, init_attention,
                                        init_embeddings, init_mlp,
-                                       layer_params, lm_logits, mlp_block,
-                                       softmax_xent, vocab_shards)
+                                       last_position, layer_params,
+                                       lm_logits, mlp_block, softmax_xent,
+                                       vocab_shards)
 from repro_torch.models.ssm import init_mamba, mamba_block, mamba_init_state
 from repro_torch.models.transformer import _decode_attn, _remat
 
@@ -80,7 +81,8 @@ def hybrid_loss(params: dict, batch: dict, cfg: ArchConfig, mesh=None
     x = forward(params, cfg, batch["tokens"], mesh)
     logits = lm_logits(params["embed"], x, cfg, mesh)
     return softmax_xent(logits, batch["targets"], batch["mask"],
-                        data_shards(mesh), vocab_shards(logits, cfg, mesh))
+                        data_shards(mesh, cfg),
+                        vocab_shards(logits, cfg, mesh))
 
 
 def init_hybrid_cache(cfg: ArchConfig, batch: int, seq_len: int,
@@ -137,4 +139,5 @@ def hybrid_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
 def hybrid_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                    mesh=None) -> torch.Tensor:
     x = forward(params, cfg, tokens, mesh)
-    return lm_logits(params["embed"], x[:, -1:], cfg, mesh, whole=True)
+    return lm_logits(params["embed"], last_position(x, cfg, mesh), cfg,
+                     mesh, whole=True)

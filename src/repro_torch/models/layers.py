@@ -38,6 +38,11 @@ Conventions:
   * `softmax_xent` is the training objective's cross-entropy; over the
     data ranks of a group it divides by the global mask count and adds
     the ranks' terms, so every rank reads the global mean.
+  * under the `sp` scheme on ranks (`seq_shards`) a `model` rank holds
+    its positions of the sequence, the dense weights whole over `model`:
+    what crosses positions goes over `model` (attention's K / V, the MoE
+    groups' tokens, `halo` for a shift or conv, `last_position` for a
+    prefill), and the loss adds over `data` and `model`.
 """
 from __future__ import annotations
 
@@ -107,6 +112,9 @@ class _Ranks:
         self.r = self.model.rank if self.model is not None else 0
         self.data = GroupShards(axis_group(mesh, ("data",))) \
             if self.sizes.get("data", 1) > 1 else None
+        # the `sp` scheme: a `model` rank holds positions [r T / S, (r +
+        # 1) T / S) of the sequence
+        self.seq = self.model if cfg.sharding_scheme == "sp" else None
 
     def over(self, spec, dim: int, axis: str) -> bool:
         """Whether dim `dim` of a leaf laid out by `spec` splits over
@@ -127,14 +135,22 @@ class _Ranks:
     def weight(self, w: torch.Tensor, path: str, shape: tuple):
         """(`w` gathered over `data` where the leaf splits over it, its
         fitted spec): `w` is this rank's block of the leaf at `path` of
-        global `shape`, or the whole leaf, which every rank then uses
-        whole (its spec all None)."""
+        global `shape`, that block gathered over `data` already
+        (`train.ranks.RankLayout.without_fsdp`: a serving engine's), or
+        the whole leaf, which every rank then uses whole (its spec all
+        None)."""
         if tuple(w.shape) == tuple(shape):
             return w, P(*([None] * len(shape)))
         spec = self.spec(path, shape)
-        want = tuple(n // int(np.prod([self.sizes[a] for a in
-                                       entry_axes(e)]))
-                     for n, e in zip(shape, spec))
+
+        def block(axes):
+            return tuple(n // int(np.prod([self.sizes[a] for a in
+                                           entry_axes(e) if a in axes]))
+                         for n, e in zip(shape, spec))
+
+        if tuple(w.shape) == block(set(self.sizes) - {"data"}):
+            return w, spec
+        want = block(set(self.sizes))
         if tuple(w.shape) != want:
             raise ValueError(f"{path}: a block of {tuple(w.shape)}, the "
                              f"layout {spec} of {shape} gives {want}")
@@ -152,6 +168,64 @@ def _ranks(cfg: ArchConfig, mesh) -> Optional[_Ranks]:
     return _Ranks(cfg, mesh)
 
 
+def seq_shards(cfg: ArchConfig, mesh=None) -> Optional[GroupShards]:
+    """The `model` collectives when a rank holds its positions of the
+    sequence (the `sp` scheme on ranks with a `model` axis of more than
+    one: rank r the T / S positions from r T / S on), else None."""
+    rk = _ranks(cfg, mesh)
+    return None if rk is None else rk.seq
+
+
+class _Tie(torch.autograd.Function):
+    """`y` as it is; `t` joins the graph with a zero cotangent, so that a
+    collective behind `t` runs its backward on this rank too (every rank
+    of its group must)."""
+
+    @staticmethod
+    def forward(ctx, y, t):
+        ctx.like = (t.shape, t.dtype, t.device)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, dtype, dev = ctx.like
+        return g, torch.zeros(shape, dtype=dtype, device=dev)
+
+
+def tie(y: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """`y`, with `t` in its backward (`_Tie`) where either needs a
+    gradient."""
+    if torch.is_grad_enabled() and (y.requires_grad or t.requires_grad):
+        return _Tie.apply(y, t)
+    return y
+
+
+def halo(x: torch.Tensor, n: int, seq: GroupShards) -> torch.Tensor:
+    """The n positions before this rank's of a (B, T / S, ...) sequence
+    split over `seq`'s ranks in order: the previous rank's last n, zeros
+    on rank 0, as a causal shift or conv pads the sequence's start.
+    Differentiable: the previous rank's positions take their cotangent
+    back (`GroupShards.gather`)."""
+    if x.shape[1] < n:
+        raise ValueError(f"{x.shape[1]} positions a rank, a halo of {n}")
+    every = seq.gather(x[:, -n:], 1)
+    if seq.rank == 0:
+        return tie(x.new_zeros((x.shape[0], n) + tuple(x.shape[2:])),
+                   every)
+    return every[:, (seq.rank - 1) * n:seq.rank * n]
+
+
+def last_position(x: torch.Tensor, cfg: ArchConfig, mesh=None
+                  ) -> torch.Tensor:
+    """x[:, -1:] of the whole sequence on every rank: the last rank's
+    under the `sp` scheme (a prefill's next-token logits), this rank's
+    elsewhere."""
+    seq = seq_shards(cfg, mesh)
+    if seq is None:
+        return x[:, -1:]
+    return seq.gather(x[:, -1:], 1)[:, -1:]
+
+
 def data_whole(w: torch.Tensor, path: str, shape: tuple, cfg: ArchConfig,
                mesh=None) -> torch.Tensor:
     """`w`, gathered over `data` on ranks where fsdp splits the leaf at
@@ -167,9 +241,12 @@ def rank_cache(cfg: ArchConfig, cache, mesh=None):
     (the RWKV6 wkv and Mamba2 ssm states' heads where they split whole
     over `model`); the rest whole (kv caches, `x_prev`, conv states, and
     the states of heads that a rank's columns cut).  As it is without
-    ranks."""
+    ranks, and under the `sp` scheme: its weights give every head on
+    every rank, so a decode step, which keeps the sequence whole on every
+    `model` rank, scans every head (the states whole, not `cache_specs`'
+    heads over `model`)."""
     rk = _ranks(cfg, mesh)
-    if rk is None or rk.model is None:
+    if rk is None or rk.model is None or rk.seq is not None:
         return cache
 
     def one(_, leaf, spec):
@@ -455,7 +532,14 @@ def attention_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
     (`mesh` with a process group) a rank computes its heads, or every
     head from q gathered over `model` where its columns cut a head
     (`attention_weights`; `path` names the params' key for the rules),
-    and the output adds over `model`."""
+    and the output adds over `model`.  Under the `sp` scheme a rank's `x`
+    is its positions of the sequence (`seq_shards`): rope takes their
+    global positions, the keys and values are gathered over `model`
+    (`GroupShards.gather`, whose backward adds every rank's queries'
+    share), and the causal and window masks take the rank's query
+    offset (`flash_attention(q_offset=)`; sliding-window layers there
+    too, not `windowed_attention`, which has no offset); a decode step
+    keeps the sequence whole."""
     b, t, _ = x.shape
     hd = cfg.head_dim
     att = attention_weights(params, cfg, mesh, path,
@@ -470,20 +554,30 @@ def attention_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
     v = (h @ att.wv.to(h.dtype)).reshape(b, t, nk, hd)
     window = 0 if is_global else cfg.window
     if cache is None:
+        seq = seq_shards(cfg, mesh)
+        start = 0 if seq is None else seq.rank * t
         if positions is None:
-            positions = torch.arange(t, device=x.device)[None, :]
+            positions = start + torch.arange(t, device=x.device)[None, :]
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         k, v = k[:, :, att.kv], v[:, :, att.kv]
+        if seq is not None:
+            # every position's keys and values; a rank's queries start
+            # at `start`
+            k, v = seq.gather(k, 1), seq.gather(v, 1)
         if cfg.pallas_flash and window == 0 and allow_pallas:
+            if seq is not None and cfg.causal:
+                raise ValueError(f"{cfg.name}: the flash kernel takes no "
+                                 f"query offset for causal positions")
             from repro_torch.kernels.ops import flash_attention_fused
             o = flash_attention_fused(q, k, v, causal=cfg.causal)
         elif not cfg.causal:
             o = flash_attention(q, k, v, causal=False, window=0)
-        elif window and use_windowed_kernel:
+        elif window and use_windowed_kernel and seq is None:
             o = windowed_attention(q, k, v, window)
         else:
-            o = flash_attention(q, k, v, causal=True, window=window)
+            o = flash_attention(q, k, v, causal=True, window=window,
+                                q_offset=start)
         new_cache = None
     else:
         # single-token decode: write the cache, attend over it
@@ -574,7 +668,8 @@ def moe_capacity(n_g: int, cfg: ArchConfig) -> int:
 
 
 def moe_route(params: dict, x: torch.Tensor, cfg: ArchConfig,
-              groups: int = 32, data: int = 1):
+              groups: int = 32, data: int = 1,
+              seq: Optional[GroupShards] = None):
     """The routing half of `moe_block`.  Returns (xt (G, n_g, d) normed
     tokens, gate (G, n_g, k), route, cap); route = (sorted_e, rank, keep,
     tok, order), each (G, n_g k): the (token, choice) pairs of a group in
@@ -584,6 +679,13 @@ def moe_route(params: dict, x: torch.Tensor, cfg: ArchConfig,
     G is the reference's gcd(global batch, groups) over the `data` ranks
     the global batch is split over (`x` is this rank's B / data rows of
     it), so a rank routes its rows in the same groups as the reference.
+    With `seq` (the `sp` scheme: `x` is this rank's positions of its
+    rows) the normed tokens and their router probabilities, computed on
+    the rank's positions, are gathered over `model` (`GroupShards.gather`
+    without the sum: what they feed runs alike on every `model` rank, so
+    their cotangent is the whole one on each), and the rank routes whole
+    rows, whose capacity and slot ranks run over a row's positions in
+    order.
 
     Ties: the top k is a stable descending sort (`lax.top_k` gives the
     lower expert first) and the expert order a stable sort (`jnp.argsort`
@@ -596,9 +698,18 @@ def moe_route(params: dict, x: torch.Tensor, cfg: ArchConfig,
                          f"{b * data} do not split over {data} data ranks")
     g_ = g_all // data
     h = rmsnorm(x, params["norm"])
-    xt = h.reshape(g_, (b // g_) * t, d)                    # (G, n_g, d)
+    if seq is None:
+        xt = h.reshape(g_, (b // g_) * t, d)                # (G, n_g, d)
+        probs = torch.softmax(xt.to(torch.float32) @ params["router"],
+                              dim=-1)
+    else:
+        probs = torch.softmax(h.to(torch.float32) @ params["router"],
+                              dim=-1)
+        h, probs = seq.gather(h, 1, False), seq.gather(probs, 1, False)
+        t = h.shape[1]
+        xt = h.reshape(g_, (b // g_) * t, d)
+        probs = probs.reshape(g_, (b // g_) * t, e)
     n_g = xt.shape[1]
-    probs = torch.softmax(xt.to(torch.float32) @ params["router"], dim=-1)
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, sel = top.values[..., :k], top.indices[..., :k]   # (G, n_g, k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
@@ -693,16 +804,23 @@ def data_ranks(mesh=None) -> int:
                         if a in mesh.axis_names]))
 
 
-def data_shards(mesh=None) -> Optional[GroupShards]:
-    """The collectives over this rank's data ranks (its model column's
-    `pod` and `data` ranks), or None when the batch is not split."""
-    if data_ranks(mesh) == 1:
+def data_shards(mesh=None, cfg: Optional[ArchConfig] = None
+                ) -> Optional[GroupShards]:
+    """The collectives over the ranks that hold other terms of the loss:
+    this rank's data ranks (its model column's `pod` and `data` ranks),
+    and under `cfg`'s `sp` scheme its `model` ranks too (they hold other
+    positions); None when neither splits the batch."""
+    if mesh is None or mesh.group is None:
         return None
-    return GroupShards(axis_group(mesh, BATCH_AXES))
+    axes = BATCH_AXES + (("model",) if seq_shards(cfg, mesh) is not None
+                         else ())
+    group = axis_group(mesh, axes)
+    return None if group is None else GroupShards(group)
 
 
 def moe_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
-              groups: int = 32, mesh=None) -> torch.Tensor:
+              groups: int = 32, mesh=None, whole_seq: bool = False
+              ) -> torch.Tensor:
     """Token-choice top-k routing with grouped capacity-factor dispatch.
 
     Tokens are split into G = gcd(B, groups) groups along the batch dim;
@@ -718,11 +836,21 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
     `data_ranks(mesh)`), and with the EP combine the rank dispatches to
     and computes only its `model` shard of the experts (the expert leaves
     hold those E / S experts, as `launch.sharding` lays them out, or all
-    E) and the partials add over its `model` ranks."""
+    E) and the partials add over its `model` ranks.
+
+    Under the `sp` scheme (`seq_shards`) `x` is the rank's positions of
+    its rows, and `whole_seq` (a decode step) says it holds them all:
+    the routing groups are whole rows (`moe_route(seq=)` gathers the
+    tokens over `model`), every `model` rank dispatches the whole
+    group's tokens to the experts it holds (the EP path) or to every
+    expert, and the combined output, whose cotangent adds every rank's
+    positions' (`GroupShards.copy`), is cut back to the rank's
+    positions."""
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     s = _model_axis_size(mesh)
     rk = _ranks(cfg, mesh)
+    seq = None if rk is None or whole_seq else rk.seq
     if rk is not None:
         params = dict(params)
         f = cfg.d_ff
@@ -734,9 +862,15 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
                 # computes the same outputs, so a block's cotangent is
                 # its slice (nothing to add)
                 w = rk.model.gather(w, 0, summed=False)
+            elif seq is not None and not cfg.moe_local_combine \
+                    and seq.rank:
+                # a whole leaf that every model rank uses alike on the
+                # same tokens: its gradient is rank 0's, which
+                # `RankLayout.reduce` adds over `model` to nothing else
+                w = w.detach()
             params[name] = w
     xt, gate, route, cap = moe_route(params, x, cfg, groups,
-                                     data_ranks(mesh))
+                                     data_ranks(mesh), seq)
     held = params["wg"].shape[0]
     if cfg.moe_local_combine and s > 1:
         if e % s:
@@ -765,7 +899,10 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
         vals = _gather_slots(oo, sorted_e, rank, cap)
         w = torch.gather(gate.reshape(gate.shape[0], -1), 1, order)
         out = _combine(vals, w, keep, order, k)
-    return out.reshape(b, t, d)
+    if seq is None:
+        return out.reshape(b, t, d)
+    out = seq.copy(out.reshape(b, t * seq.num_shards, d))
+    return out[:, seq.rank * t:(seq.rank + 1) * t]
 
 
 def _gather_slots(oo: torch.Tensor, e_idx: torch.Tensor, rank: torch.Tensor,
@@ -891,8 +1028,10 @@ def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
     against a one-hot: the same single term, exact, without a (B, T, V)
     one-hot.
 
-    With `data` (the collectives over the data ranks that split the
-    batch, `data_shards(mesh)`), the count is the global one and the
+    With `data` (the collectives over the ranks that split the batch,
+    `data_shards(mesh, cfg)`: the data ranks, and under the `sp` scheme
+    the `model` ranks, which split its positions), the count is the
+    global one and the
     ranks' terms are added (`GroupShards.sum`: the cotangent passes as it
     is), so the value is the global mean on every rank and a rank's
     gradient is its term's: the sum over the data ranks is the global

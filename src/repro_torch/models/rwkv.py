@@ -16,8 +16,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (cdtype, data_shards, embed_tokens,
-                                       init_embeddings, layer_params,
-                                       lm_logits, softmax_xent, vocab_shards)
+                                       init_embeddings, last_position,
+                                       layer_params, lm_logits, softmax_xent,
+                                       vocab_shards)
 from repro_torch.models.ssm import (init_rwkv_cmix, init_rwkv_tmix,
                                     rwkv_cmix, rwkv_init_state, rwkv_tmix)
 from repro_torch.models.transformer import _remat
@@ -52,7 +53,8 @@ def rwkv_loss(params: dict, batch: dict, cfg: ArchConfig, mesh=None
     x = forward(params, cfg, batch["tokens"], mesh)
     logits = lm_logits(params["embed"], x, cfg, mesh)
     return softmax_xent(logits, batch["targets"], batch["mask"],
-                        data_shards(mesh), vocab_shards(logits, cfg, mesh))
+                        data_shards(mesh, cfg),
+                        vocab_shards(logits, cfg, mesh))
 
 
 def init_rwkv_cache(cfg: ArchConfig, batch: int, seq_len: int,
@@ -88,4 +90,5 @@ def rwkv_decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos,
 def rwkv_prefill(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                  mesh=None) -> torch.Tensor:
     x = forward(params, cfg, tokens, mesh)
-    return lm_logits(params["embed"], x[:, -1:], cfg, mesh, whole=True)
+    return lm_logits(params["embed"], last_position(x, cfg, mesh), cfg,
+                     mesh, whole=True)

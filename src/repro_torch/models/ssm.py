@@ -30,8 +30,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.types import resolve_device
-from repro_torch.models.layers import (_ranks, cdtype, init_dense, pdtype,
-                                       rmsnorm)
+from repro_torch.models.layers import (_ranks, cdtype, halo, init_dense,
+                                       pdtype, rmsnorm, seq_shards, tie)
 
 MAMBA_HEAD_DIM = 64
 RWKV_HEAD_DIM = 64
@@ -50,9 +50,58 @@ def _full(lead: tuple, shape: tuple, value: float, device) -> torch.Tensor:
     return torch.full(lead + shape, value, dtype=f32, device=device)
 
 
-def _shift(h: torch.Tensor) -> torch.Tensor:
-    """h shifted one token later along axis 1, zeros first."""
-    return F.pad(h, (0, 0, 1, 0))[:, :h.shape[1]]
+def _shift(h: torch.Tensor, seq=None) -> torch.Tensor:
+    """h shifted one token later along axis 1, zeros first; with `seq`
+    (the `sp` scheme: h is this rank's positions) the previous rank's
+    last position first (`layers.halo`)."""
+    if seq is None:
+        return F.pad(h, (0, 0, 1, 0))[:, :h.shape[1]]
+    return torch.cat([halo(h, 1, seq), h[:, :-1]], dim=1)
+
+
+def carry_in(log_decay: torch.Tensor, finals: torch.Tensor, r: int
+             ) -> torch.Tensor:
+    """The state entering segment `r` of a sequence cut into segments in
+    order, of a recurrence affine in its state (s' = exp(log decay) s +
+    input): `log_decay` (S, ...) each segment's summed log-decay
+    (broadcast against the state), `finals` (S, ...) each segment's final
+    state from a zero state.  s_0 = 0, s_{j+1} = exp(log_decay_j) s_j +
+    finals_j: for two segments segment 1 starts from segment 0's final
+    state exactly, as the one-process recurrence hands it on."""
+    state = torch.zeros_like(finals[0])
+    for j in range(r):
+        state = torch.exp(log_decay[j]) * state + finals[j]
+    return state
+
+
+def split_scan(run, log_decay: torch.Tensor, state_shape: tuple, seq):
+    """The output of a recurrence over this rank's segment of a sequence
+    split in order over `seq`'s ranks (the `sp` scheme), as the
+    one-process recurrence gives those positions: `run(init_state)` ->
+    (y, final state) runs the segment (None: the zero state),
+    `log_decay` is its summed log-decay (broadcast against the state of
+    `state_shape`).  Every rank but the last runs its segment from zero
+    for its final state; one all-gather (`GroupShards.gather`) brings
+    every segment's (log-decay, final state) to every rank; `carry_in`
+    gives the state entering this rank's segment, which runs again from
+    it (rank 0 keeps its first run).  The gather's backward takes each
+    segment's final state's cotangent back from the ranks after it."""
+    s, r = seq.num_shards, seq.rank
+    y = final = None
+    if r < s - 1:
+        y, final = run(None)
+    else:
+        final = log_decay.new_zeros(state_shape)
+    ld = log_decay.expand(state_shape[:log_decay.dim()]).to(f32)
+    n = ld.numel()
+    every = seq.gather(torch.cat([ld.reshape(-1), final.to(f32).reshape(
+        -1)])[None], 0)
+    init = carry_in(every[:, :n].reshape((s,) + ld.shape)[
+        (...,) + (None,) * (len(state_shape) - ld.dim())],
+        every[:, n:].reshape((s,) + tuple(state_shape)), r)
+    if r == 0:
+        return tie(y, every)
+    return run(init)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -170,7 +219,13 @@ def mamba_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
     and C whole, its channels of `conv` and heads of `a_log`, `d_skip`
     and `dt_bias` through `GroupShards.copy`; its out_proj rows give a
     partial that adds over `model`.  The decode state's ssm holds the
-    heads it runs, its conv state every channel."""
+    heads it runs, its conv state every channel.
+
+    Under the `sp` scheme (`layers.seq_shards`; the weights whole on
+    every `model` rank) `x` is the rank's positions: the conv reads the
+    previous rank's last 3 positions of its input (`layers.halo`; zeros
+    on rank 0) and the SSD starts from the state the previous ranks hand
+    on (`split_scan`).  A decode step keeps the sequence whole."""
     b, t, _ = x.shape
     d_inner, n_heads, n_state = mamba_dims(cfg)
     n_in = 2 * d_inner + 2 * n_state + n_heads
@@ -201,13 +256,21 @@ def mamba_block(params: dict, x: torch.Tensor, cfg: ArchConfig,
     if state is None:
         # causal depthwise conv (kernel 4): each product and each partial
         # sum in the compute dtype, in tap order, as the reference's
-        xp = F.pad(xin[..., ch0:ch1], (0, 0, 3, 0))
+        seq = seq_shards(cfg, mesh)
+        xc = xin[..., ch0:ch1]
+        xp = F.pad(xc, (0, 0, 3, 0)) if seq is None \
+            else torch.cat([halo(xc, 3, seq), xc], dim=1)
         conv = sum(xp[:, i:i + t] * w[i] for i in range(4))
         xs = F.silu(conv)
         xh = xs.reshape(b, t, nh, MAMBA_HEAD_DIM)
         xdt = xh * dt[..., None].to(xh.dtype)
-        y, _ = _ssd_chunked(xdt, dt * a, bm.to(f32), cm.to(f32),
-                            cfg.ssm_chunk)
+        a_log, bm, cm = dt * a, bm.to(f32), cm.to(f32)
+
+        def run(init):
+            return _ssd_chunked(xdt, a_log, bm, cm, cfg.ssm_chunk, init)
+
+        y = run(None)[0] if seq is None else split_scan(
+            run, a_log.sum(1), (b, nh, MAMBA_HEAD_DIM, n_state), seq)
         y = y + xh * d_skip.to(xh.dtype)
         new_state = None
     else:
@@ -397,12 +460,18 @@ def rwkv_tmix(params: dict, x: torch.Tensor, cfg: ArchConfig,
     `ln_w`; where they cut a head r, k, v and the decay are gathered
     over `model` and every head runs (the state holds every head), `u`
     and `ln_w` whole through `copy`, and the normed output is sliced to
-    its columns.  Its wo rows give a partial that adds over `model`."""
+    its columns.  Its wo rows give a partial that adds over `model`.
+
+    Under the `sp` scheme (`layers.seq_shards`) `x` is the rank's
+    positions: the token shift reads the previous rank's last normed
+    position (zeros on rank 0) and the wkv scan starts from the state the
+    previous ranks hand on (`split_scan`)."""
     b, t, d = x.shape
     n_heads, hd = rwkv_dims(cfg)
     params, tp, (c0, c1) = _tmix_rank(params, cfg, mesh)
+    seq = seq_shards(cfg, mesh) if state is None else None
     h = rmsnorm(x, params["norm"])
-    h_prev = _shift(h) if state is None else state["x_prev"]
+    h_prev = _shift(h, seq) if state is None else state["x_prev"]
     xr, xk, xv, xg, xw = _rwkv_mix(params, h, h_prev, tp)
     r = xr @ params["wr"].to(h.dtype)
     k = xk @ params["wk"].to(h.dtype)
@@ -429,10 +498,14 @@ def rwkv_tmix(params: dict, x: torch.Tensor, cfg: ArchConfig,
     u = u.reshape(nh, hd)
 
     if state is None:
-        if cfg.rwkv_mode == "chunked":
-            y, _ = _rwkv_chunked(r, k, v, w_log, u, cfg.ssm_chunk)
-        else:
-            y, _ = _rwkv_scan(r, k, v, w_log, u)
+        def run(init):
+            if cfg.rwkv_mode == "chunked":
+                return _rwkv_chunked(r, k, v, w_log, u, cfg.ssm_chunk,
+                                     init)
+            return _rwkv_scan(r, k, v, w_log, u, init)
+
+        y = run(None)[0] if seq is None else split_scan(
+            run, w_log.sum(1), (b, nh, hd, hd), seq)
         new_state = None
     else:
         y, s = _rwkv_scan(r, k, v, w_log, u, init_state=state["wkv"])
@@ -465,7 +538,8 @@ def rwkv_cmix(params: dict, x: torch.Tensor, cfg: ArchConfig,
     ranks it is Megatron's MLP where the hidden dim splits over `model`:
     copy(xk) times a rank's `wk` columns, its `wv` rows, the partials
     added over `model` before the product with sigmoid(xr @ wr) (`wr`
-    whole)."""
+    whole).  Under the `sp` scheme its token shift reads the previous
+    rank's last normed position, as the time-mix's does."""
     wk, wv, wr, tp = params["wk"], params["wv"], params["wr"], None
     rk = _ranks(cfg, mesh)
     if rk is not None:
@@ -476,7 +550,7 @@ def rwkv_cmix(params: dict, x: torch.Tensor, cfg: ArchConfig,
         tp = rk.model if rk.over(spec, 1, "model") else None
     h = rmsnorm(x, params["norm"])
     if state is None:
-        h_prev, new_state = _shift(h), None
+        h_prev, new_state = _shift(h, seq_shards(cfg, mesh)), None
     else:
         h_prev, new_state = state["x_prev"], {"x_prev": h}
     delta = h_prev - h

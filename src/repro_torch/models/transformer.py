@@ -32,9 +32,10 @@ from repro_torch.models.layers import (apply_rope, attention_block,
                                        data_shards, embed_tokens,
                                        flash_attention,
                                        init_attention, init_embeddings,
-                                       init_mlp, init_moe, layer_params,
-                                       lm_logits, mlp_block, moe_block,
-                                       rmsnorm, softmax_xent, vocab_shards)
+                                       init_mlp, init_moe, last_position,
+                                       layer_params, lm_logits, mlp_block,
+                                       moe_block, rmsnorm, softmax_xent,
+                                       vocab_shards)
 
 # the plain matmuls: what `checkpoint_dots_with_no_batch_dims` saves (a
 # batched product, attention's or the experts', is recomputed)
@@ -96,9 +97,9 @@ def _layer(p, x, cfg: ArchConfig, is_global: bool, cache=None, pos=None,
     return x + _ffn(p["ffn"], x, cfg, mesh), new_cache
 
 
-def _ffn(p, x, cfg: ArchConfig, mesh=None):
-    return moe_block(p, x, cfg, mesh=mesh) if cfg.family == "moe" \
-        else mlp_block(p, x, cfg, mesh)
+def _ffn(p, x, cfg: ArchConfig, mesh=None, whole_seq: bool = False):
+    return moe_block(p, x, cfg, mesh=mesh, whole_seq=whole_seq) \
+        if cfg.family == "moe" else mlp_block(p, x, cfg, mesh)
 
 
 def _layers_in_order(cfg: ArchConfig):
@@ -161,7 +162,8 @@ def lm_loss(params: dict, batch: dict, cfg: ArchConfig,
                 or cfg.windowed_kernel, mesh=mesh)
     logits = lm_logits(params["embed"], x, cfg, mesh)
     return softmax_xent(logits, batch["targets"], batch["mask"],
-                        data_shards(mesh), vocab_shards(logits, cfg, mesh))
+                        data_shards(mesh, cfg),
+                        vocab_shards(logits, cfg, mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -224,7 +226,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, pos,
         a, _ = _decode_attn(lp["attn"], x, kc, vc, cfg, is_global, pos,
                             mesh)
         x = x + a
-        x = x + _ffn(lp["ffn"], x, cfg, mesh)
+        x = x + _ffn(lp["ffn"], x, cfg, mesh, whole_seq=True)
     return lm_logits(params["embed"], x, cfg, mesh, whole=True), cache
 
 
@@ -264,6 +266,9 @@ def prefill(params: dict, cfg: ArchConfig,
             tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None, mesh=None) -> torch.Tensor:
     """Prefill forward: returns the last position's logits (B, 1, V); the
-    cache is written by the decode path, as in the reference."""
+    cache is written by the decode path, as in the reference.  Under the
+    `sp` scheme `tokens` / `embeds` are the rank's positions, and every
+    rank returns the last rank's last position's logits."""
     x = forward(params, cfg, tokens=tokens, embeds=embeds, mesh=mesh)
-    return lm_logits(params["embed"], x[:, -1:], cfg, mesh, whole=True)
+    return lm_logits(params["embed"], last_position(x, cfg, mesh), cfg,
+                     mesh, whole=True)

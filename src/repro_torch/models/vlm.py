@@ -7,7 +7,8 @@ already projected, which replace the first P token positions (prefix
 layout); `tokens` spans them, so T >= P.  The backbone is the dense
 decoder of `models/transformer.py`; decode is its text-only
 `decode_step`.  `vlm_loss` leaves the patch prefix out of the LM loss.
-`mesh` reaches the backbone's blocks and the loss as in the decoder.
+`mesh` reaches the backbone's blocks and the loss as in the decoder;
+under the `sp` scheme the prefix is placed by global position.
 """
 from __future__ import annotations
 
@@ -16,20 +17,40 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (data_shards, embed_tokens, lm_logits,
-                                       softmax_xent, vocab_shards)
+                                       seq_shards, softmax_xent,
+                                       vocab_shards)
 
 
 def init_vlm(gen: torch.Generator, cfg: ArchConfig) -> dict:
     return tfm.init_lm(gen, cfg)
 
 
+def _prefix(patch_embeds: torch.Tensor, t: int, cfg: ArchConfig,
+            mesh=None) -> tuple[int, int]:
+    """(how many of this rank's t positions the patch prefix [0, P) takes,
+    the rank's first global position).  Under the `sp` scheme a rank
+    holds its positions and its block of the patch embeddings
+    (`train.ranks.RankLayout.batch` splits both over `model`), so P is
+    the blocks' together."""
+    seq = seq_shards(cfg, mesh)
+    if seq is None:
+        return patch_embeds.shape[1], 0
+    start = seq.rank * t
+    p = patch_embeds.shape[1] * seq.num_shards
+    return max(0, min(t, p - start)), start
+
+
 def splice_embeds(params: dict, tokens: torch.Tensor,
                   patch_embeds: torch.Tensor, cfg: ArchConfig, mesh=None
                   ) -> torch.Tensor:
-    """Prefix splice: positions [0, P) take the patch embeddings."""
+    """Prefix splice: positions [0, P) take the patch embeddings (under
+    the `sp` scheme by global position, from every rank's block)."""
     x = embed_tokens(params["embed"], tokens, cfg, mesh)
-    p = patch_embeds.shape[1]
-    return torch.cat([patch_embeds.to(x.dtype), x[:, p:]], dim=1)
+    n, start = _prefix(patch_embeds, x.shape[1], cfg, mesh)
+    seq = seq_shards(cfg, mesh)
+    if seq is not None:
+        patch_embeds = seq.gather(patch_embeds, 1)[:, start:start + n]
+    return torch.cat([patch_embeds.to(x.dtype), x[:, n:]], dim=1)
 
 
 def vlm_loss(params: dict, batch: dict, cfg: ArchConfig, mesh=None
@@ -40,10 +61,11 @@ def vlm_loss(params: dict, batch: dict, cfg: ArchConfig, mesh=None
     logits = lm_logits(params["embed"], x, cfg, mesh)
     # the image-prefix positions are masked out of the LM loss, on a copy:
     # the caller's mask stays as it is
-    p = batch["patch_embeds"].shape[1]
+    n, _ = _prefix(batch["patch_embeds"], x.shape[1], cfg, mesh)
     mask = batch["mask"].clone()
-    mask[:, :p] = 0.0
-    return softmax_xent(logits, batch["targets"], mask, data_shards(mesh),
+    mask[:, :n] = 0.0
+    return softmax_xent(logits, batch["targets"], mask,
+                        data_shards(mesh, cfg),
                         vocab_shards(logits, cfg, mesh))
 
 

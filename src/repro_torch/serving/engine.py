@@ -13,10 +13,16 @@ and Mamba2's ssm states of its heads where they split whole over
 conv states whole), selects each token from its rows' logits of the whole
 vocab (the model puts them together over `model`, so argmax's tie rule
 and the sampling noise are one process's), stops when every row of the
-global batch has, and returns the global tokens.  The engine gathers a
-leaf that fsdp splits over `data` once, when it is made (the bundle's
-config then without fsdp): a decode step would gather every weight
-again.
+global batch has, and returns the global tokens.  The engine gathers
+every leaf that the layout splits over `data` (fsdp, and every dense
+weight under the `sp` scheme) once, when it is made: a decode step would
+gather every weight again; the blocks take a leaf so gathered as it is
+(`models.layers._Ranks.weight`).  Under the `sp` scheme the prefill
+takes the rank's positions of the prompts and every rank reads the last
+rank's last position's logits (`layers.last_position`); the decode
+steps, which replay the prompt into the cache, keep the sequence whole
+on every `model` rank, and the RWKV6 wkv and Mamba2 ssm states hold
+every head (`layers.rank_cache`).
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.types import resolve_device
-from repro_torch.models.api import ModelBundle, build_model
+from repro_torch.models.api import ModelBundle
 from repro_torch.train.ranks import layout
 
 
@@ -49,10 +55,8 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.stats = ServeStats()
         self.ranks = layout(bundle)
-        if self.ranks is not None and bundle.cfg.fsdp:
+        if self.ranks is not None:
             self.params = self.ranks.without_fsdp(params)
-            self.bundle = build_model(dataclasses.replace(
-                bundle.cfg, fsdp=False), bundle.mesh)
 
     def _sample(self, logits: torch.Tensor, gen: torch.Generator
                 ) -> torch.Tensor:
@@ -79,11 +83,16 @@ class ServeEngine:
         assert b == self.batch_size
         dev = self.device
         toks = torch.as_tensor(np.asarray(prompts), dtype=torch.int64)
+        mine = toks
         if self.ranks is not None:
-            toks = self.ranks.batch({"tokens": toks})["tokens"]
+            # a decode step takes every position; under `sp` the prefill
+            # takes the rank's
+            mine = self.ranks.batch({"tokens": toks})["tokens"]
+            toks = self.ranks.batch({"tokens": toks},
+                                    positions=False)["tokens"]
         toks = toks.to(dev)
         rows = toks.shape[0]
-        logits = self.bundle.prefill(self.params, {"tokens": toks})
+        logits = self.bundle.prefill(self.params, {"tokens": mine.to(dev)})
         self.stats.prefill_tokens += b * plen
         cache = self.bundle.init_cache(rows, self.max_seq, dev)
         gen = torch.Generator(device=dev).manual_seed(seed)

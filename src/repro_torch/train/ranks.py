@@ -11,13 +11,15 @@ of its mesh.  `RankLayout` holds what they share:
     `param_specs` place it (heads, ffn hidden dim and vocab over `model`,
     a MoE's experts over `model`, with fsdp the d_model dims over
     `data`); the optimizer state laid out as the params;
-  * the batch split over the `pod` and `data` ranks by `batch_specs`;
+  * the batch split over the `pod` and `data` ranks by `batch_specs`,
+    and under the `sp` scheme its positions over `model`;
   * what each leaf's gradient is summed over.  In the backward, over
     `model` where every model rank holds the whole leaf but computes a
     part (`GroupShards.copy`: the input of a split product, wk / wv read
     by kv head), and over `data` where the leaf splits over `data` (the
     FSDP gather's backward); then `reduce` adds it over the batch axes
-    (`pod`, `data`) that the leaf does not split over, before
+    (`pod`, `data`, and under `sp` `model`) that the leaf does not split
+    over, before
     compression and the optimizer.  So every rank's gradient is its
     block of the global gradient, each term added once;
   * `split`: the process group each leaf's block is split over, for the
@@ -135,8 +137,9 @@ class RankLayout:
 
     def without_fsdp(self, tree: Any) -> Any:
         """A tree of this rank's blocks with every leaf that splits over
-        `data` (fsdp) gathered over it, out of autograd: the blocks a
-        serving engine holds, laid out as `cfg` without fsdp lays them."""
+        `data` (fsdp; every dense weight under the `sp` scheme) gathered
+        over it, out of autograd: the blocks a serving engine holds,
+        which the models' blocks take as they are."""
         group = axis_group(self.mesh, ("data",))
         if group is None:
             return tree
@@ -159,28 +162,45 @@ class RankLayout:
 
     # -- the batch --------------------------------------------------------
 
-    def batch(self, batch: dict, microbatched: bool = False) -> dict:
+    def batch(self, batch: dict, microbatched: bool = False,
+              positions: bool = True) -> dict:
         """This rank's rows of a global batch (numpy arrays or tensors) on
         its device, split over the `pod` and `data` ranks by
-        `batch_specs`; `microbatched` leaves carry a leading
+        `batch_specs`; under the `sp` scheme every (B, T, ...) leaf's
+        positions split over `model` too (`batch_specs(...,
+        shard_seq=True)`; `positions=False` keeps them whole, as a
+        decode step takes them); `microbatched` leaves carry a leading
         (microbatches, ...) dim, which stays whole."""
+        seq = positions and self.sp
         out = {}
         for k, v in batch.items():
             t = torch.as_tensor(np.asarray(v) if not isinstance(
                 v, torch.Tensor) else v)
             one = t[0] if microbatched else t
-            spec = batch_specs(self.cfg, {k: one}, self.mesh)[k]
+            spec = batch_specs(self.cfg, {k: one}, self.mesh,
+                               shard_seq=seq)[k]
+            if seq and one.dim() >= 2 and spec[1] != "model":
+                raise ValueError(f"{k}: {tuple(one.shape)} does not split "
+                                 f"its positions over `model` ({spec})")
             if microbatched:
                 spec = P(None, *spec)
             out[k] = NamedSharding(self.mesh, spec).place(t)
         return out
 
+    @property
+    def sp(self) -> bool:
+        """Whether the ranks split the sequence over `model` (the `sp`
+        scheme on a `model` axis of more than one)."""
+        return self.cfg.sharding_scheme == "sp" \
+            and self.mesh.shape.get("model", 1) > 1
+
     def reduce(self, grads: Any) -> Any:
         """Every leaf summed, in place, over this rank's ranks on the batch
-        axes that the leaf does not split over: an fsdp leaf's gradient
+        axes that the leaf does not split over (under `sp` over `model`
+        too, whose ranks hold other positions): an fsdp leaf's gradient
         came summed over `data` from the gather's backward."""
         dist = _dist()
-        axes = batch_axes(self.mesh)
+        axes = batch_axes(self.mesh) + (("model",) if self.sp else ())
 
         def one(_, g, spec):
             named = self._axes(spec)
@@ -190,7 +210,7 @@ class RankLayout:
                 dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
             return g
 
-        if self.data_group is not None:
+        if axis_group(self.mesh, axes) is not None:
             map_leaves(one, grads, self.specs(grads))
         return grads
 

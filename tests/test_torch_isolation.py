@@ -36,6 +36,7 @@ import time_kernel_redesign
 import time_graph_build
 import time_exact_scan
 import time_library_calls
+import stress_gloo_ranks
 sys.path.insert(0, %(tests)r)
 import torch_ranks
 for n in ("filtered_search_study", "rag_serving", "train_lm"):

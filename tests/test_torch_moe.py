@@ -214,6 +214,8 @@ _EP_RANKS = textwrap.dedent("""
                     - plain).abs().max())
             with open(f"{tmp}/rank{rank}.json", "w") as f:
                 json.dump(out, f)
+            # every rank done with the group before any tears it down
+            dist.barrier()
         finally:
             dist.destroy_process_group()
 

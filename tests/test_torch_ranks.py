@@ -11,9 +11,9 @@ step-3 checkpoint; and, with capacity factor 0.5 and no mesh, layer 0's
 route of a (64, 16, d) input (a model axis of 2 reported to its
 `moe_block`, the route tuple recorded where it reaches
 `_ep_local_combine`) and the loss of a 64 x 16 batch.  The ranks run
-`tests/torch_ranks.py` (one spawned script a test, `PYTHONPATH=src`
-only: no JAX in the ranks), restoring the reference's checkpoint onto
-each rank's blocks.
+`tests/torch_ranks.py` (one spawned script a world size, every job of
+that size in it, `PYTHONPATH=src` only: no JAX in the ranks), restoring
+the reference's checkpoint onto each rank's blocks.
 
 Limits: loss 1e-5 and grad norm 1e-4 relative, the gathered params 1e-4
 (the ranks add partials, data terms and blocks' squared norms in another
@@ -127,15 +127,28 @@ def ref(tmp_path_factory):
     return json.loads(out.stdout.strip().splitlines()[-1]), d
 
 
-def _ranks(job: str, world: int, d) -> list[dict]:
+def _ranks(world: int, jobs, d) -> dict:
+    """One spawn of `tests/torch_ranks.py` on `world` ranks running `jobs`
+    in `d`: every rank's record of each, by job."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, str(ROOT / "tests" /
-                                              "torch_ranks.py"), job,
-                          str(world), str(d)], capture_output=True,
-                         text=True, timeout=600, env=env, cwd=str(d))
+                                              "torch_ranks.py"), str(world),
+                          *(f"{job}={d}" for job in jobs)],
+                         capture_output=True, text=True, timeout=900,
+                         env=env, cwd=str(d))
     assert out.returncode == 0, out.stderr[-3000:]
-    return [json.loads((d / f"{job}.{r}.json").read_text())
-            for r in range(world)]
+    return {job: [json.loads((d / f"{job}.{r}.json").read_text())
+                  for r in range(world)] for job in jobs}
+
+
+@pytest.fixture(scope="module")
+def recs(ref):
+    """Every job's records: one spawn of 4 ranks (training, serving, the
+    crash) and one of 2 (the routes)."""
+    _, d = ref
+    shutil.copytree(d / "init", d / "ck")
+    return {**_ranks(4, ("train", "serve", "crash"), d),
+            **_ranks(2, ("route",), d)}
 
 
 def _rel(a, b) -> float:
@@ -147,10 +160,9 @@ def _npy(d, step: int) -> dict:
     return {p.name: p.read_bytes() for p in sorted(path.glob("*.npy"))}
 
 
-def test_training_on_gloo_ranks_matches_the_reference(ref):
+def test_training_on_gloo_ranks_matches_the_reference(ref, recs):
     want, d = ref
-    shutil.copytree(d / "init", d / "ck")
-    recs = _ranks("train", 4, d)
+    recs = recs["train"]
     for rec in recs:
         assert rec["start"] == 0
         assert rec["losses"] == recs[0]["losses"]
@@ -178,12 +190,12 @@ def test_training_on_gloo_ranks_matches_the_reference(ref):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-4, err_msg=n)
 
 
-def test_routing_groups_follow_the_global_batch(ref):
+def test_routing_groups_follow_the_global_batch(ref, recs):
     # 64 rows on 2 data ranks: the reference routes gcd(64, 32) = 32
     # groups of 2 rows; gcd of a rank's 32 rows would give each rank 32
     # groups of 1 row (other capacities, other drops)
     want, d = ref
-    recs = _ranks("route", 2, d)
+    recs = recs["route"]
     theirs = np.load(d / "route.ref.npz")
     mine = [np.load(d / f"route.{r}.npz") for r in range(2)]
     assert all(r["cap"] == want["route_cap"] for r in recs)
@@ -195,9 +207,8 @@ def test_routing_groups_follow_the_global_batch(ref):
         assert _rel(r["loss"], want["route_loss"]) <= 1e-5
 
 
-def test_ep_serving_on_a_group_equals_the_plain_block(ref):
-    _, d = ref
-    recs = _ranks("serve", 4, d)
+def test_ep_serving_on_a_group_equals_the_plain_block(recs):
+    recs = recs["serve"]
     for rec in recs:
         assert rec["expert_rows"] == 4
         assert rec["prefill_err"] <= ATOL, rec["prefill_err"]
@@ -205,9 +216,9 @@ def test_ep_serving_on_a_group_equals_the_plain_block(ref):
         assert np.asarray(rec["tokens"]["ep"]).shape == (4, 10)
 
 
-def test_trainer_crash_on_ranks_resumes_onto_the_straight_run(ref):
+def test_trainer_crash_on_ranks_resumes_onto_the_straight_run(ref, recs):
     _, d = ref
-    recs = _ranks("crash", 4, d)
+    recs = recs["crash"]
     for rec in recs:
         assert rec["failed"] == "injected failure at step 2"
         assert rec["start"] == 2

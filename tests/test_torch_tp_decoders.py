@@ -8,8 +8,9 @@ None): two split dims).
 The reference runs once a module in a subprocess (`tests/torch_tp.py`):
 its params laid out by its own `param_specs` through
 `restore_checkpoint(..., shardings=)`, the step-0 global gradient, 3
-jitted steps.  The ranks run `tests/torch_ranks.py` (one spawn a test)
-and restore the reference's step-0 checkpoint onto their blocks.
+jitted steps.  The ranks run `tests/torch_ranks.py` (one spawn a module,
+every job in it) and restore the reference's step-0 checkpoint onto
+their blocks.
 
 Limits: every rank's step-0 gradient within 1e-4 (absolute) of its block
 of the reference's; over 3 steps, loss 1e-5 and grad norm 1e-4
@@ -39,14 +40,15 @@ def jobs(tmp_path_factory):
                             **over)
            for name, (arch, over) in JOBS.items()}
     T.run_reference(*out.values())
-    return out
+    for d in out.values():
+        shutil.copytree(d / "init", d / "ck")
+    recs = T.spawns([("tp", d, 4) for d in out.values()])
+    return {name: (d, recs["tp", d]) for name, d in out.items()}
 
 
 @pytest.mark.parametrize("name", sorted(JOBS))
 def test_tp_fsdp_ranks_match_the_reference(jobs, name):
-    d = jobs[name]
-    shutil.copytree(d / "init", d / "ck")
-    recs = T.ranks("tp", 4, d)
+    d, recs = jobs[name]
     want = json.loads((d / "ref.json").read_text())
     for rec in recs:
         assert rec["start"] == 0 and rec["shapes_ok"], rec

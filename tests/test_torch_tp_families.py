@@ -24,14 +24,15 @@ def jobs(tmp_path_factory):
                             fsdp=True)
            for name, (arch, family) in JOBS.items()}
     T.run_reference(*out.values())
-    return out
+    for d in out.values():
+        shutil.copytree(d / "init", d / "ck")
+    recs = T.spawns([("tp", d, 4) for d in out.values()])
+    return {name: (d, recs["tp", d]) for name, d in out.items()}
 
 
 @pytest.mark.parametrize("name", sorted(JOBS))
 def test_family_on_tp_fsdp_ranks_matches_the_reference(jobs, name):
-    d = jobs[name]
-    shutil.copytree(d / "init", d / "ck")
-    recs = T.ranks("tp", 4, d)
+    d, recs = jobs[name]
     want = json.loads((d / "ref.json").read_text())
     for rec in recs:
         assert rec["start"] == 0 and rec["shapes_ok"], rec

@@ -1,7 +1,8 @@
 """Attention whose heads do not split whole over `model`, on gloo ranks
 against the reference's mesh (`tests/torch_tp.py`), with the limits of
 `test_torch_tp_decoders.py`, and greedy `ServeEngine` tokens equal to
-the reference's engine's and the one-process port's (one spawn a job):
+the reference's engine's and the one-process port's (one spawn a world
+size):
 
 * smoke llama3.2-3b with 6 q heads and 2 kv heads on (data 1, model 4):
   48 q columns a rank, 1.5 heads, so each rank gathers q over `model`,
@@ -33,15 +34,16 @@ def jobs(tmp_path_factory):
                             serve=True, train=True, **over)
            for name, (arch, mesh, over) in JOBS.items()}
     T.run_reference(*out.values())
-    return out
+    for d in out.values():
+        shutil.copytree(d / "init", d / "ck")
+    recs = T.spawns([("tp_all", d, JOBS[name][1][1])
+                     for name, d in out.items()])
+    return {name: (d, recs["tp_all", d]) for name, d in out.items()}
 
 
 @pytest.mark.parametrize("name", sorted(JOBS))
 def test_heads_that_do_not_split_whole_match_the_reference(jobs, name):
-    d = jobs[name]
-    shutil.copytree(d / "init", d / "ck")
-    world = JOBS[name][1][1]
-    recs = T.ranks("tp_all", world, d)
+    d, recs = jobs[name]
     want = json.loads((d / "ref.json").read_text())
     for rec in recs:
         assert rec["start"] == 0 and rec["shapes_ok"], rec

@@ -7,9 +7,9 @@ buffers takes the fitted spec that `param_specs` / `opt_specs` give it,
 and each position's blocks add up to `per_position_bytes`; the SSM
 states' heads over `model` (`cache_specs`); attention heads that a
 rank's q columns cut, or whose GQA groups do not fall whole on a rank
-(`rank_heads`); and the one scheme the ranks refuse, `sp` (ROADMAP
-1.15c).  No process group is needed: the layout is arithmetic on the
-shapes.
+(`rank_heads`); and the `sp` scheme's layout for every family (the
+dense weights FSDP over `data`, only experts over `model`).  No process
+group is needed: the layout is arithmetic on the shapes.
 """
 import dataclasses
 import itertools
@@ -131,11 +131,43 @@ def test_heads_that_do_not_split_whole_are_refused(arch, over, s):
 
 
 def test_sp_scheme_is_refused():
+    """No longer refused: under `sp` the ranks take the fitted specs,
+    the dense weights FSDP over `data` with no `model` dim."""
     cfg = dataclasses.replace(smoke_config("granite-8b"),
                               sharding_scheme="sp")
     params = build_model(cfg).init(0, "meta")
-    with pytest.raises(ValueError, match="ROADMAP 1.15c"):
-        SH.rank_specs(cfg, params, make_mesh((2, 2), ("data", "model")))
+    mesh = make_mesh((2, 2), ("data", "model"))
+    specs = SH.rank_specs(cfg, params, mesh)
+    assert _specs(specs) == _specs(SH.param_specs(cfg, params, mesh))
+    assert dict(flatten_with_path(specs))["['layers']['attn']['wq']"] \
+        == (None, "data", None)
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (2, 2), (2, 1)])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "granite-8b",
+                                  "gemma3-12b", "llava-next-mistral-7b",
+                                  "hubert-xlarge", "rwkv6-3b",
+                                  "zamba2-1.2b"])
+def test_sp_rank_specs_are_the_param_specs(arch, shape):
+    """Every family under `sp` on (1, 2), (2, 2) and (2, 1), at the
+    published shapes: the params' and the AdamW state's specs on ranks
+    are `param_specs` / `opt_specs`'; only a MoE's experts split over
+    `model`, and a leaf's d_model dim over `data` with fsdp off."""
+    cfg, params, opt = _trees(arch)
+    cfg = dataclasses.replace(cfg, sharding_scheme="sp", fsdp=False)
+    mesh = make_mesh(shape, ("data", "model"))
+    pspecs = SH.rank_specs(cfg, params, mesh)
+    assert _specs(pspecs) == _specs(SH.param_specs(cfg, params, mesh))
+    assert _specs(SH.rank_specs(cfg, opt, mesh)) \
+        == _specs(SH.opt_specs(cfg, opt, None, mesh))
+    over_model = sorted(path for path, spec in flatten_with_path(pspecs)
+                        if "model" in {n for a in spec
+                                       for n in SH.entry_axes(a)})
+    experts = [f"['layers']['ffn']['{n}']" for n in ("wd", "wg", "wu")]
+    assert over_model == (experts if cfg.family == "moe" else [])
+    if shape[0] > 1:
+        leaf = SPLIT_LEAF.get(arch, "['layers']['attn']['wq']")
+        assert dict(flatten_with_path(pspecs))[leaf][-2] == "data"
 
 
 @pytest.mark.parametrize("h, kv, s, r, want", [

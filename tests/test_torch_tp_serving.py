@@ -13,6 +13,8 @@ granite-8b with fsdp from the reference's PRNGKey(0) params.
 * `RankLayout.whole` and `gather` put leaves split over two axes back
   together exactly (`tok`: P("model", "data"); granite-moe's experts:
   P(None, "model", "data", None)).
+
+The three run in one spawn of 4 ranks.
 """
 import json
 import shutil
@@ -24,16 +26,24 @@ import torch_tp as T
 
 @pytest.fixture(scope="module")
 def job(tmp_path_factory):
-    d = T.make_job(tmp_path_factory.mktemp("tp_serving") / "dense",
-                   "granite-8b", (2, 2), "dense", seed=24, serve=True,
-                   fsdp=True)
+    """The job's directory and every spawned job's records (one spawn of 4
+    ranks: serving, the crash, the two-dim splits)."""
+    root = tmp_path_factory.mktemp("tp_serving")
+    d = T.make_job(root / "dense", "granite-8b", (2, 2), "dense", seed=24,
+                   serve=True, fsdp=True)
     T.run_reference(d)
-    return d
+    for ck in ("straight", "crashed"):
+        shutil.copytree(d / "init", d / ck)
+    (root / "whole").mkdir()
+    recs = T.ranks(4, [("tp_serve", d), ("tp_crash", d),
+                       ("whole", root / "whole")])
+    return d, {name: r for (name, _), r in recs.items()}
 
 
 def test_greedy_serving_on_tp_ranks_equals_the_reference(job):
+    job, recs = job
     want = json.loads((job / "serve.json").read_text())
-    recs = T.ranks("tp_serve", 4, job)
+    recs = recs["tp_serve"]
     for rec in recs:
         assert rec["split"] >= 7, rec
         assert rec["tokens"] == want
@@ -42,9 +52,8 @@ def test_greedy_serving_on_tp_ranks_equals_the_reference(job):
 
 
 def test_trainer_crash_on_tp_fsdp_ranks_resumes_onto_the_straight_run(job):
-    for ck in ("straight", "crashed"):
-        shutil.copytree(job / "init", job / ck)
-    recs = T.ranks("tp_crash", 4, job)
+    job, recs = job
+    recs = recs["tp_crash"]
     for rec in recs:
         assert rec["start0"] == 0 and rec["start"] == 2, rec
         assert rec["failed"] == "injected failure at step 2"
@@ -56,8 +65,8 @@ def test_trainer_crash_on_tp_fsdp_ranks_resumes_onto_the_straight_run(job):
         == T.files(job / "crashed" / "step_00000004")
 
 
-def test_two_dim_splits_are_put_back_together(tmp_path):
-    recs = T.ranks("whole", 4, tmp_path)
+def test_two_dim_splits_are_put_back_together(job):
+    recs = job[1]["whole"]
     for rec in recs:
         assert {"['embed']['tok']", "['embed']['unembed']",
                 "['layers']['ffn']['wg']"} <= set(rec["two_dim"]), rec

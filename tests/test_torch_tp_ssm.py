@@ -12,8 +12,9 @@ there: `test_torch_losses.py`'s rule):
   RWKV6's 2 heads a rank, and 2 of Mamba2's 4.
 
 The (2, 2) mesh with fsdp and serving: `test_torch_tp_ssm_fsdp.py`;
-(1, 4), where the heads are cut: `test_torch_tp_ssm_cut.py`.  What the
-ranks do not port for them is the `sp` scheme (ROADMAP 1.15c).
+(1, 4), where the heads are cut: `test_torch_tp_ssm_cut.py`; the `sp`
+scheme: `test_torch_tp_sp_ssm.py`.  The four jobs run in one spawn of 2
+ranks.
 
 The jobs step at lr 1e-4, not 1e-3: at 1e-3 the port in one process,
 with no ranks, already departs from the reference after 3 steps by
@@ -28,6 +29,7 @@ import shutil
 import pytest
 
 import torch_tp as T
+from repro_torch.checkpoint.store import flatten_with_path
 from repro_torch.configs import smoke_config
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import make_mesh
@@ -46,7 +48,10 @@ def jobs(tmp_path_factory):
                                     "ssm", seed=23, lr=1e-4)
            for name, arch in JOBS.items() for axis, mesh in MESHES.items()}
     T.run_reference(*out.values())
-    return out
+    for d in out.values():
+        shutil.copytree(d / "init", d / "ck")
+    recs = T.spawns([("tp", d, 2) for d in out.values()])
+    return {key: (d, recs["tp", d]) for key, d in out.items()}
 
 
 def held_to_the_reference(d, recs, split) -> None:
@@ -69,31 +74,34 @@ def held_to_the_reference(d, recs, split) -> None:
 
 @pytest.mark.parametrize("name", sorted(JOBS))
 def test_ssm_family_on_data_ranks_matches_the_reference(jobs, name):
-    d = jobs[name, "data"]
-    shutil.copytree(d / "init", d / "ck")
-    recs = T.ranks("tp", 2, d)
+    d, recs = jobs[name, "data"]
     assert all(rec["split"] == 0 for rec in recs)
     held_to_the_reference(d, recs, 0)
 
 
 @pytest.mark.parametrize("name", sorted(JOBS))
 def test_ssm_family_on_model_ranks_matches_the_reference(jobs, name):
-    d = jobs[name, "model"]
-    shutil.copytree(d / "init", d / "ck")
-    held_to_the_reference(d, T.ranks("tp", 2, d), SPLIT[name])
+    d, recs = jobs[name, "model"]
+    held_to_the_reference(d, recs, SPLIT[name])
 
 
 @pytest.mark.parametrize("arch", sorted(JOBS.values()))
 @pytest.mark.parametrize("shape, over", [((1, 2), {}), ((2, 2), {}),
                                          ((2, 1), {"fsdp": True})])
 def test_ssm_family_refuses_what_ranks_do_not_port(arch, shape, over):
-    """A `model` axis and fsdp are ported: the ranks take the fitted
-    specs of every leaf; the `sp` scheme is not (ROADMAP 1.15c)."""
+    """Nothing is refused now: a `model` axis, fsdp and the `sp` scheme
+    are ported, and the ranks take the fitted specs of every leaf under
+    either scheme; under `sp` no leaf splits over `model` (RWKV6 and
+    Zamba2 have no experts) and the d_model dims split over `data`
+    whether fsdp is set or not."""
     cfg = dataclasses.replace(smoke_config(arch), **over)
     params = build_model(cfg).init(0, "meta")
     mesh = make_mesh(shape, ("data", "model"))
     assert SH.rank_specs(cfg, params, mesh) \
         == SH.param_specs(cfg, params, mesh)
     sp = dataclasses.replace(cfg, sharding_scheme="sp")
-    with pytest.raises(ValueError, match="ROADMAP 1.15c"):
-        SH.rank_specs(sp, params, mesh)
+    specs = SH.rank_specs(sp, params, mesh)
+    assert specs == SH.param_specs(sp, params, mesh)
+    axes = {n for _, spec in flatten_with_path(specs) for a in spec
+            for n in SH.entry_axes(a)}
+    assert axes == {"data"}, axes

@@ -8,7 +8,7 @@ rank, through `GroupShards.copy`).  Held to the reference's mesh
 (`tests/torch_tp.py`) with the limits of `test_torch_tp_ssm.py`, and
 greedy `ServeEngine` tokens (the decode states hold every head) equal
 to the reference's engine's and the one-process port's; one spawn of 4
-ranks a job.
+ranks runs both jobs.
 """
 import json
 import shutil
@@ -29,14 +29,15 @@ def jobs(tmp_path_factory):
                             lr=1e-4, serve=True, train=True, **over)
            for name, (arch, over, _) in JOBS.items()}
     T.run_reference(*out.values())
-    return out
+    for d in out.values():
+        shutil.copytree(d / "init", d / "ck")
+    recs = T.spawns([("tp_all", d, 4) for d in out.values()])
+    return {name: (d, recs["tp_all", d]) for name, d in out.items()}
 
 
 @pytest.mark.parametrize("name", sorted(JOBS))
 def test_ssm_family_with_cut_heads_matches_the_reference(jobs, name):
-    d = jobs[name]
-    shutil.copytree(d / "init", d / "ck")
-    recs = T.ranks("tp_all", 4, d)
+    d, recs = jobs[name]
     held_to_the_reference(d, recs, JOBS[name][2])
     want = json.loads((d / "serve.json").read_text())
     for rec in recs:

@@ -7,7 +7,8 @@ limits of `test_torch_tp_ssm.py`; and greedy `ServeEngine` tokens on
 the ranks (the engine gathers the fsdp blocks once; a rank's RWKV6 wkv
 and Mamba2 ssm states hold its heads, `layers.rank_cache`) equal to the
 reference's engine's and to the one-process port's, token for token.
-Both the training and the serving run in one spawn of 4 ranks a job.
+Both the training and the serving of both jobs run in one spawn of 4
+ranks.
 
 The batches are `test_torch_tp_ssm.py`'s (seed 23).  On other draws the
 smoke RWKV6's third step at lr 1e-4 can be chaotic: on seed 25's the
@@ -35,14 +36,15 @@ def jobs(tmp_path_factory):
                             lr=1e-4, serve=True, train=True, fsdp=True)
            for name, arch in JOBS.items()}
     T.run_reference(*out.values())
-    return out
+    for d in out.values():
+        shutil.copytree(d / "init", d / "ck")
+    recs = T.spawns([("tp_all", d, 4) for d in out.values()])
+    return {name: (d, recs["tp_all", d]) for name, d in out.items()}
 
 
 @pytest.mark.parametrize("name", sorted(JOBS))
 def test_ssm_family_on_tp_fsdp_ranks_matches_the_reference(jobs, name):
-    d = jobs[name]
-    shutil.copytree(d / "init", d / "ck")
-    recs = T.ranks("tp_all", 4, d)
+    d, recs = jobs[name]
     held_to_the_reference(d, recs, SPLIT[name])
     want = json.loads((d / "serve.json").read_text())
     assert len(want) == T.PROMPTS[0] and len(want[0]) == T.NEW_TOKENS

@@ -1,14 +1,16 @@
-"""The rank side of `tests/test_torch_ranks.py`: the port on gloo ranks.
+"""The rank side of `tests/test_torch_ranks.py` and
+`tests/test_torch_tp_*.py`: the port on gloo ranks.
 
-    PYTHONPATH=src python tests/torch_ranks.py JOB WORLD DIR
+    PYTHONPATH=src python tests/torch_ranks.py WORLD JOB=DIR [JOB=DIR ...]
 
-spawns WORLD ranks (`torch.multiprocessing`, gloo, `file://` init in
-DIR); each runs JOB and writes DIR/JOB.<rank>.json (and .npz).  Inputs
-come from DIR: `batches.npz` and the reference's checkpoints (`init/`,
-step 0), which the test writes first; the `tp*` jobs read DIR/job.json
-(`tests/torch_tp.py`: the config, overrides and mesh) and the
-reference's step-0 gradient (`grad0/`).  Imports the port only: no JAX,
-no reference package.
+spawns WORLD ranks (`torch.multiprocessing`, gloo, `file://` init in the
+first DIR) once; each rank runs the jobs in order and writes
+DIR/JOB.<rank>.json (and .npz) for each, the ranks meeting at a barrier
+after every job.  Inputs come from DIR: `batches.npz` and the
+reference's checkpoints (`init/`, step 0), which the test writes first;
+the `tp*` jobs read DIR/job.json (`tests/torch_tp.py`: the config,
+overrides and mesh) and the reference's step-0 gradient (`grad0/`).
+Imports the port only: no JAX, no reference package.
 """
 import dataclasses
 import json
@@ -381,19 +383,25 @@ def job_whole(rank, d):
     return out
 
 
-def rank_main(rank, world, job, d):
+def rank_main(rank, world, jobs):
+    """One rank: every (job, directory) of `jobs` in order, in one
+    process group."""
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{d}/pg.{job}",
+    job, d = jobs[0]
+    dist.init_process_group("gloo",
+                            init_method=f"file://{d}/pg.{world}.{job}",
                             rank=rank, world_size=world)
     try:
-        out = globals()[f"job_{job}"](rank, d)
-        with open(os.path.join(d, f"{job}.{rank}.json"), "w") as f:
-            json.dump(out, f)
-        dist.barrier()
+        for job, d in jobs:
+            out = globals()[f"job_{job}"](rank, d)
+            with open(os.path.join(d, f"{job}.{rank}.json"), "w") as f:
+                json.dump(out, f)
+            dist.barrier()
     finally:
         dist.destroy_process_group()
 
 
 if __name__ == "__main__":
-    job, world, d = sys.argv[1], int(sys.argv[2]), sys.argv[3]
-    mp.spawn(rank_main, args=(world, job, d), nprocs=world, join=True)
+    world = int(sys.argv[1])
+    jobs = [tuple(a.split("=", 1)) for a in sys.argv[2:]]
+    mp.spawn(rank_main, args=(world, jobs), nprocs=world, join=True)

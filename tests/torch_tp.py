@@ -1,7 +1,8 @@
-"""Shared pieces of the tests of the TP / FSDP layout on ranks
+"""Shared pieces of the tests of the TP / FSDP / SP layouts on ranks
 (`tests/test_torch_tp_*.py`): the reference's side, run once a module in
 a subprocess on a 4-host-device mesh, and the ranks' side, one spawn of
-`tests/torch_ranks.py` a test.
+`tests/torch_ranks.py` a module and world size, which runs every job of
+the module on that many ranks (`spawns`).
 
 A job is a directory holding `job.json` ({"arch", "over", "mesh"}: a
 smoke config with overrides on a (data, model) mesh) and `batches.npz`
@@ -9,10 +10,12 @@ smoke config with overrides on a (data, model) mesh) and `batches.npz`
 `compat.set_mesh` of the job's mesh, draws PRNGKey(0) params and saves
 them with a zero AdamW state as the step-0 checkpoint (`init/`),
 restores them laid out by its `param_specs` / `opt_specs`
-(`restore_checkpoint(..., shardings=to_named(...))`), saves the global
-gradient of batch 0 (`grad0/`), takes 3 jitted steps (`ref.json`: the
-losses and grad norms; AdamW with lr 1e-3, one warm-up step and eps
-`EPS`) and saves the params after them (`final/`).  With
+(`restore_checkpoint(..., shardings=to_named(...))`), takes 3 steps
+(`ref.json`: the losses and grad norms; AdamW with lr 1e-3, one warm-up
+step and eps `EPS`) as its `make_train_step` takes them, by
+`jax.value_and_grad(bundle.loss)` and `adamw_update`, each jitted on
+its own so that the step-0 global gradient (`grad0/`) is the first
+step's, and saves the params after them (`final/`).  With
 "serve" in `job.json` it writes instead the greedy tokens of its
 `ServeEngine` (no mesh) for a (4, 12) prompt, 10 new tokens
 (`serve.json`), after the step-0 checkpoint; with "train" too (a job
@@ -51,15 +54,17 @@ _REFERENCE = textwrap.dedent("""
     from repro.launch.sharding import opt_specs, param_specs, to_named
     from repro.models import build_model
     from repro.optim import AdamWConfig
+    from repro.optim.adamw import adamw_update
     from repro.serving import ServeEngine
-    from repro.train.loop import TrainConfig, init_opt_state, make_train_step
+    from repro.train.loop import TrainConfig, init_opt_state
 
-    inits = {}              # PRNGKey(0) params by config: fsdp aside,
-                            # the same draws whatever the mesh
+    inits = {}              # PRNGKey(0) params by config: the layout's
+                            # fields aside, the same draws whatever the mesh
+    LAYOUT = ("fsdp", "sharding_scheme", "moe_local_combine")
 
     def init_of(bundle, job):
         key = json.dumps([job["arch"], {k: v for k, v in job["over"].items()
-                                        if k != "fsdp"}], sort_keys=True)
+                                        if k not in LAYOUT}], sort_keys=True)
         if key not in inits:
             inits[key] = jax.jit(bundle.init)(jax.random.PRNGKey(0))
         return inits[key]
@@ -86,14 +91,19 @@ _REFERENCE = textwrap.dedent("""
                                          shardings=shd)
             params, state = tree["params"], tree["opt"]
             if job["train"]:
-                grads = jax.jit(jax.grad(bundle.loss))(params, batch(0))
-                save_checkpoint(os.path.join(d, "grad0"), 0,
-                                {"params": grads})
-                step = make_train_step(bundle, opt, TrainConfig(),
-                                       donate=False)
+                # `make_train_step`'s two calls (no compression, one
+                # microbatch), compiled apart: the step-0 gradient is the
+                # first step's
+                grad = jax.jit(jax.value_and_grad(bundle.loss))
+                update = jax.jit(lambda p, g, s: adamw_update(p, g, s, opt))
                 for s in range(%(steps)d):
-                    params, state, m = step(params, state, batch(s))
-                    out["losses"].append(float(m["loss"]))
+                    loss, grads = grad(params, batch(s))
+                    if s == 0:
+                        save_checkpoint(os.path.join(d, "grad0"), 0,
+                                        {"params": grads})
+                    params, adam, m = update(params, grads, state["adamw"])
+                    state = {"adamw": adam}
+                    out["losses"].append(float(loss))
                     out["grad_norms"].append(float(m["grad_norm"]))
                 save_checkpoint(os.path.join(d, "final"), %(steps)d,
                                 {"params": params})
@@ -153,17 +163,30 @@ def run_reference(*jobs: pathlib.Path) -> None:
     assert out.returncode == 0, out.stderr[-3000:]
 
 
-def ranks(job: str, world: int, d: pathlib.Path) -> list[dict]:
-    """`tests/torch_ranks.py JOB WORLD DIR` (gloo ranks, the port only):
-    every rank's record."""
+def ranks(world: int, jobs) -> dict:
+    """`tests/torch_ranks.py WORLD JOB=DIR ...` (gloo ranks, the port
+    only), one spawn for every (job, directory) of `jobs`: each one's
+    records, every rank's, by (job, directory)."""
+    jobs = [(job, pathlib.Path(d)) for job, d in jobs]
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, str(ROOT / "tests" /
-                                              "torch_ranks.py"), job,
-                          str(world), str(d)], capture_output=True,
-                         text=True, timeout=600, env=env, cwd=str(d))
+                                              "torch_ranks.py"), str(world),
+                          *(f"{job}={d}" for job, d in jobs)],
+                         capture_output=True, text=True, timeout=900,
+                         env=env, cwd=str(jobs[0][1]))
     assert out.returncode == 0, out.stderr[-3000:]
-    return [json.loads((d / f"{job}.{r}.json").read_text())
-            for r in range(world)]
+    return {(job, d): [json.loads((d / f"{job}.{r}.json").read_text())
+                       for r in range(world)] for job, d in jobs}
+
+
+def spawns(jobs) -> dict:
+    """`ranks` once a world size for (job, directory, world) triples:
+    every job's records, by (job, directory)."""
+    out = {}
+    for world in sorted({w for _, _, w in jobs}):
+        out.update(ranks(world, [(job, d) for job, d, w in jobs
+                                 if w == world]))
+    return out
 
 
 def rel(a: float, b: float) -> float:
